@@ -1,0 +1,3 @@
+from . import ops, ref
+from .ops import (admm_worker_select_update, launch_counts,
+                  reset_launch_counts, server_prox_update)

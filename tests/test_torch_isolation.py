@@ -1,0 +1,51 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the reference package, and the kernels build without
+fast math (their plain versions are their yardstick)."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_reference():
+    code = ("import sys\n"
+            "import repro_torch, repro_torch.api, repro_torch.kernels.ops\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_kernels_build_without_fast_math():
+    src = (PORT / "kernels" / "_build.py").read_text()
+    assert "fast_math" not in src and "fast-math" not in src
+    assert "arch=compute_90a,code=sm_90a" in src
+    for cu in (PORT / "csrc").glob("*.cu"):
+        assert "fast_math" not in cu.read_text()

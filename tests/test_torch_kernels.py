@@ -1,0 +1,185 @@
+"""The port's epoch ops (``repro_torch.kernels``) against the reference's.
+
+On the CPU each port op runs its kernel's plain torch version; it is held
+against the reference's Pallas kernel in interpret mode (the kernel
+flavour: y' = -g, the worker sum in order) and the port's oracles
+against ``repro.kernels.ref``, at rtol = atol = 1e-6; the plain
+``torch`` backend's epoch steps are held against the port's oracles.
+The CUDA kernels
+themselves are held to their plain versions in
+``test_torch_kernels_cuda.py``, which runs where a card is.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as rops
+from repro.kernels import ref as rref
+from repro_torch.core.blocks import make_flat_blocks
+from repro_torch.core.prox import make_prox
+from repro_torch.core.space import FlatSpace
+from repro_torch.kernels import admm_update, ops, prox_update, ref
+
+TOL = 1e-6
+SHAPES = [(1, 1, 128), (3, 5, 256), (3, 8, 128), (1, 8, 256), (3, 1, 256)]
+
+
+def _close(port, reference):
+    np.testing.assert_allclose(port.numpy(), np.asarray(reference),
+                               rtol=TOL, atol=TOL)
+
+
+def _worker_inputs(N, M, d, with_x, seed=0, nan=False):
+    rng = np.random.RandomState(seed)
+    bundles = [rng.randn(N, M, d).astype(np.float32)
+               for _ in range(5 if with_x else 4)]
+    sel = rng.rand(N, M) < 0.5
+    rho = (0.5 + 2.0 * rng.rand(N)).astype(np.float32)     # heterogeneous
+    if nan:
+        sel[0, 0] = True
+        bundles[0][0, 0, :7] = np.nan                       # g, selected row
+        bundles[0][0, 0, 7] = np.inf
+        if M > 1:
+            sel[0, M - 1] = False
+            bundles[3][0, M - 1, 3] = np.nan                # w_old, kept row
+    g, y, zt, w = bundles[:4]
+    x = bundles[4] if with_x else None
+    return g, y, zt, w, sel, rho, x
+
+
+def _server_inputs(N, M, d, seed=0, nan=False):
+    rng = np.random.RandomState(seed)
+    z = rng.randn(M, d).astype(np.float32)
+    w = (3.0 * rng.randn(N, M, d)).astype(np.float32)
+    edge = rng.rand(N, M) < 0.6                              # sparse edge set
+    if M > 1:
+        edge[:, M - 1] = False                  # no workers: mu = gamma
+    rho = (0.5 + 2.0 * rng.rand(N)).astype(np.float32)
+    rho_sum = np.where(edge, rho[:, None], 0.0).sum(0).astype(np.float32)
+    if nan:
+        edge[0, 0] = True
+        w[0, 0, :5] = np.nan                                 # reaches the sum
+        if N > 1:
+            edge[1, 0] = False
+            w[1, 0, 5] = np.nan                              # off the edge set
+        z[0, 9] = np.inf
+    return z, w, edge, rho_sum
+
+
+def _t(*arrays):
+    return [None if a is None else torch.as_tensor(a) for a in arrays]
+
+
+def _j(*arrays):
+    return [None if a is None else jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("shape,with_x", [
+    (shape, i % 2 == 1) for i, shape in enumerate(SHAPES)] + [
+    (SHAPES[1], False)])
+def test_worker_select_update_matches_reference(shape, with_x):
+    args = _worker_inputs(*shape, with_x)
+    port = ops.admm_worker_select_update(*_t(*args))
+    kernel = rops.admm_worker_select_update(*_j(*args), interpret=True)
+    assert len(port) == len(kernel) == (3 if with_x else 2)
+    for p, k in zip(port, kernel):
+        _close(p, k)
+    # the oracles, unfused form (y' = y + rho (x - z~))
+    for p, r in zip(ref.admm_worker_select_update_ref(*_t(*args)),
+                    rref.admm_worker_select_update_ref(*_j(*args))):
+        _close(p, r)
+
+
+PROXES = [(1e-3, 0.8), (0.0, 0.8), (0.05, 0.0), (0.0, 0.0)]
+
+
+@pytest.mark.parametrize("shape,l1,clip", [
+    (shape,) + PROXES[i % len(PROXES)] for i, shape in enumerate(SHAPES)])
+def test_server_prox_update_matches_reference(shape, l1, clip):
+    z, w, edge, rho_sum = _server_inputs(*shape)
+    port = ops.server_prox_update(*_t(z, w, edge, rho_sum), 0.1, l1, clip)
+    kernel = rops.server_prox_update(*_j(z, w, edge, rho_sum), gamma=0.1,
+                                     l1=l1, clip=clip, interpret=True)
+    _close(port, kernel)
+    _close(ref.server_prox_update_ref(*_t(z, w, edge, rho_sum), 0.1, l1,
+                                      clip),
+           rref.server_prox_update_ref(*_j(z, w, edge, rho_sum), 0.1, l1,
+                                       clip))
+    if clip > 0:
+        assert float(port.abs().max()) <= clip + 1e-6
+
+
+@pytest.mark.parametrize("shape,l1,clip", [
+    (SHAPES[1], 1e-3, 0.8), (SHAPES[2], 0.0, None), (SHAPES[4], 0.05, 0.8)])
+def test_torch_backend_matches_the_oracles(shape, l1, clip):
+    """The plain ``torch`` backend's two epoch steps (core/admm.py and the
+    select; the worker sum and core/prox.py) against the port's unfused
+    oracles in ``kernels/ref.py``."""
+    N, M, d = shape
+    space = FlatSpace(make_flat_blocks(M * d, M), N, backend="torch")
+    g, y, zt, w, sel, rho, x = _t(*_worker_inputs(N, M, d, with_x=True))
+    got = space.worker_select_update(g, y, zt, w, x, sel, rho, track_x=True)
+    for p, r in zip(got, ref.admm_worker_select_update_ref(g, y, zt, w, sel,
+                                                           rho, x)):
+        _close(p, r)
+    z, w, edge, rho_sum = _t(*_server_inputs(N, M, d))
+    got = space.server_consensus_update(z, w, edge, rho_sum, 0.1,
+                                        make_prox(l1, clip))
+    _close(got, ref.server_prox_update_ref(z, w, edge, rho_sum, 0.1, l1,
+                                           clip or 0.0))
+
+
+def test_nan_propagates_like_the_reference():
+    """A NaN reaching the update or the worker sum stays NaN (the
+    finite-check watchdog must see it); one masked off does not leak."""
+    args = _worker_inputs(3, 5, 256, with_x=True, seed=3, nan=True)
+    port = ops.admm_worker_select_update(*_t(*args))
+    kernel = rops.admm_worker_select_update(*_j(*args), interpret=True)
+    for p, k in zip(port, kernel):
+        _close(p, k)                            # NaN where the reference is
+    assert bool(torch.isnan(port[1][0, 0, :7]).all())
+    assert bool(torch.isnan(port[1][0, 4, 3]))
+    z, w, edge, rho_sum = _server_inputs(3, 5, 256, seed=3, nan=True)
+    for l1, clip in [(1e-3, 0.8), (0.0, 0.0)]:
+        port = ops.server_prox_update(*_t(z, w, edge, rho_sum), 0.1, l1, clip)
+        kernel = rops.server_prox_update(*_j(z, w, edge, rho_sum), gamma=0.1,
+                                         l1=l1, clip=clip, interpret=True)
+        _close(port, kernel)
+        assert bool(torch.isnan(port[0, :5]).all())
+        assert not bool(torch.isnan(port[0, 5]))
+
+
+@pytest.mark.parametrize("op", ["admm_worker_select_update",
+                                "server_prox_update"])
+def test_ops_reject_ragged_rows(op):
+    """d % 128 != 0 raises the reference's layout-pointing ValueError."""
+    a3 = torch.ones((2, 4, 129))
+    sel = torch.ones((2, 4), dtype=torch.bool)
+    rho = torch.ones(2)
+    with pytest.raises(ValueError, match=f"{op}.*129"):
+        if op == "admm_worker_select_update":
+            ops.admm_worker_select_update(a3, a3, a3, a3, sel, rho)
+        else:
+            ops.server_prox_update(a3[0], a3, sel, torch.ones(4), 0.1)
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    ops.reset_launch_counts()
+    g, y, zt, w, sel, rho, x = _t(*_worker_inputs(3, 5, 256, with_x=True))
+    out = ops.admm_worker_select_update(g, y, zt, w, sel, rho, x)
+    plain = admm_update.admm_worker_select_update_torch(g, y, zt, w, sel,
+                                                        rho, x)
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+    z, w2, edge, rho_sum = _t(*_server_inputs(3, 5, 256))
+    assert torch.equal(
+        ops.server_prox_update(z, w2, edge, rho_sum, 0.1, 1e-3, 0.8),
+        prox_update.server_prox_update_torch(z, w2, edge, rho_sum, 0.1, 1e-3,
+                                             0.8))
+    assert ops.launch_counts() == {"admm_worker_select_update": 0,
+                                   "server_prox_update": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        admm_update.admm_worker_select_update_cuda(g, y, zt, w, sel, rho, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        prox_update.server_prox_update_cuda(z, w2, edge, rho_sum, 0.1)

@@ -1,0 +1,135 @@
+"""The CUDA kernels against their plain torch versions, on the card.
+
+Every test here needs an NVIDIA card (marker ``cuda``) and skips without
+one. The file imports neither JAX nor the reference, so it runs on a
+machine that has only torch and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerance: max|kernel - plain| <= 1e-6 * (1 + max|plain|), with NaN and
+Inf at the same places. The kernels round as the plain versions do (no
+FMA contraction, IEEE division), so in practice they agree exactly.
+"""
+import pytest
+import torch
+
+from repro_torch.api import ConsensusSession
+from repro_torch.configs.base import ADMMConfig
+from repro_torch.kernels import admm_update, ops, prox_update
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(1, 1, 128), (3, 5, 256), (3, 8, 128), (1, 8, 256), (3, 1, 256),
+          (8, 16, 128), (8, 64, 4096)]
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _agree(kernel, plain):
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(kernel), torch.isnan(plain))
+    fin = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(kernel), fin)
+    assert torch.equal(kernel[~fin & ~torch.isnan(plain)],
+                       plain[~fin & ~torch.isnan(plain)])
+    if bool(fin.any()):
+        err = (kernel[fin] - plain[fin]).abs().max()
+        assert float(err) <= 1e-6 * (1 + float(plain[fin].abs().max()))
+
+
+def _worker_case(gen, N, M, d, with_x, nan):
+    b = [torch.randn((N, M, d), generator=gen, device="cuda")
+         for _ in range(5)]
+    sel = torch.rand((N, M), generator=gen, device="cuda") < 0.5
+    rho = 0.5 + 2.0 * torch.rand((N,), generator=gen, device="cuda")
+    if nan:
+        sel[0, 0] = True
+        b[0][0, 0, :3] = float("nan")
+        b[0][0, 0, 3] = float("inf")
+    return b[0], b[1], b[2], b[3], sel, rho, (b[4] if with_x else None)
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("with_x", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_worker_kernel_matches_plain(gen, shape, with_x, nan):
+    case = _worker_case(gen, *shape, with_x, nan)
+    ks = admm_update.admm_worker_select_update_cuda(*case)
+    ps = admm_update.admm_worker_select_update_torch(*case)
+    assert len(ks) == len(ps) == (3 if with_x else 2)
+    for k, p in zip(ks, ps):
+        _agree(k, p)
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("l1,clip", [(1e-3, 0.8), (0.0, 0.8), (0.05, 0.0),
+                                     (0.0, 0.0)])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_server_kernel_matches_plain(gen, shape, l1, clip, nan):
+    N, M, d = shape
+    z = torch.randn((M, d), generator=gen, device="cuda")
+    w = torch.randn((N, M, d), generator=gen, device="cuda")
+    edge = torch.rand((N, M), generator=gen, device="cuda") < 0.6
+    if M > 1:
+        edge[:, M - 1] = False                  # a block without workers
+    rho_sum = torch.rand((M,), generator=gen, device="cuda") * edge.sum(0)
+    if nan:
+        edge[0, 0] = True
+        w[0, 0, :3] = float("nan")
+        z[0, 3] = float("inf")
+    _agree(prox_update.server_prox_update_cuda(z, w, edge, rho_sum, 0.1, l1,
+                                               clip),
+           prox_update.server_prox_update_torch(z, w, edge, rho_sum, 0.1, l1,
+                                                clip))
+
+
+def test_kernels_refuse_bad_tensors(gen):
+    g = torch.randn((2, 3, 128), generator=gen, device="cuda")
+    sel = torch.ones((2, 3), dtype=torch.bool, device="cuda")
+    rho = torch.ones(2, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        admm_update.admm_worker_select_update_cuda(
+            g, g, g.transpose(0, 1).contiguous().transpose(0, 1), g, sel,
+            rho)
+    with pytest.raises(ValueError, match="float32"):
+        admm_update.admm_worker_select_update_cuda(g, g.double(), g, g, sel,
+                                                   rho)
+    with pytest.raises(ValueError, match="sel"):
+        admm_update.admm_worker_select_update_cuda(g, g, g, g, sel.float(),
+                                                   rho)
+    with pytest.raises(ValueError, match="rho_sum"):
+        prox_update.server_prox_update_cuda(g[0], g, sel, torch.ones(
+            4, device="cuda"), 0.1)
+
+
+def test_session_on_the_card_goes_through_the_kernels(gen):
+    """``ConsensusSession.flat`` defaults to the card and the kernels, and
+    its z follows the plain torch backend's."""
+    N, M, dim = 4, 8, 2000
+    centers = torch.randn((N, dim), generator=gen, device="cuda")
+    cfg = ADMMConfig(rho=2.0, gamma=0.1, max_delay=1, block_fraction=0.5,
+                     num_blocks=M, l1_coef=1e-3, clip=1.0, seed=0)
+
+    def loss(z, c):
+        return 0.5 * torch.sum(torch.square(z - c))
+
+    zs = {}
+    for backend in ("auto", "torch"):
+        sess = ConsensusSession.flat(loss, centers, dim=dim, cfg=cfg,
+                                     backend=backend)
+        ops.reset_launch_counts()
+        state = sess.init()
+        for _ in range(5):
+            state, _ = sess.step(state)
+        zs[backend] = sess.z(state)
+        expect = 5 if backend == "auto" else 0
+        assert ops.launch_counts() == {"admm_worker_select_update": expect,
+                                       "server_prox_update": expect}
+    torch.testing.assert_close(zs["auto"], zs["torch"], rtol=1e-5, atol=1e-5)
