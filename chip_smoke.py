@@ -7,10 +7,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device  — the card (nvidia-smi name and power limit), torch and CUDA;
 2. build   — nvcc builds every kernel from ``src/repro_torch/csrc``;
-3. kernels — each kernel against its plain torch version on the card, at
-   small ragged shapes and the paper path's shape (NaN cells among
-   them) and at full width without x, with times (medians of
-   CUDA-event-timed runs) and bounds;
+3. kernels — each kernel (B1, B2, B3) against its plain torch version on
+   the card, at small ragged shapes and the paper path's shape (NaN
+   cells among them) and at full width without x, with times (medians of
+   CUDA-event windows of back-to-back calls) and bounds;
 4. main    — ``ConsensusSession.flat`` at the paper's KDDa width
    (N=8 workers, M=64 blocks, 20,216,830 coordinates; the quadratic
    loss and config of ``benchmarks/kernels_bench.py``'s kdda_like case):
@@ -20,10 +20,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 5. paper   — sparse L1 logistic regression (eq. 22) at the size of
    ``examples/sparse_logreg_admm.py``, 600 epochs on both backends: the
    objective must fall and the trajectories agree;
-   after phases 4 and 5, one more epoch of the path records the inputs
-   each kernel was given (``kernels_on_path``): every kernel is held
-   against its plain version on exactly those inputs and timed there;
-6. a ``kernels`` summary line, the card's nvidia-smi line, and the last
+6. spmd    — the SPMD epoch (``mesh=``) at the width, config and seed of
+   phase 4 on a 1x1 mesh of one NCCL rank, 10 epochs: z within 1e-5 of
+   phase 4's, B1 and B3 launched once per epoch and B2 never;
+   after phases 4, 5 and 6, one more epoch of the path records the
+   inputs each kernel was given (``kernels_on_path``): every kernel the
+   path runs is held against its plain version on exactly those inputs
+   and timed there;
+7. spmd_ranks — 4 spawned ranks on the one card in a gloo group
+   (data=2 x model=2, N=8, M=64, dim 2,097,152: split gradients on),
+   5 epochs: every rank's z within 1e-5 of a single-device run, each
+   rank holding only its 2 data rows, and the objective, P and the KKT
+   gradient violation within 1e-5 (relative) of it; one more epoch on
+   every rank holds B1 and B3 against their plain versions on that
+   rank's tile inputs;
+8. a ``kernels`` summary line, the card's nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -32,10 +43,12 @@ Imports only ``repro_torch`` (from ``src/``), never JAX or ``repro``.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -50,8 +63,13 @@ MAIN_EPOCHS = 10
 PAPER_EPOCHS = 600
 KERNEL_TOL = 1e-6              # max|kernel - plain| <= tol * (1 + max|plain|)
 TRAJ_TOL = 1e-5                # the reference's own backend tolerance
-REPS = 20
+REPS, WINDOWS = 20, 5          # kernel timing: 5 windows of 20 calls
 FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
+RANKS_WORLD, RANKS_MODEL = 4, 2          # phase spmd_ranks: data=2 x model=2
+RANKS_DIM = 2_097_152                    # dblk 32,768 at M=64
+RANKS_EPOCHS = 5
+PG_TIMEOUT_S = 300             # a collective that waits longer fails
+RANKS_JOIN_S = 600             # the ranks of spmd_ranks, all together
 
 
 def emit(phase: str, **fields) -> None:
@@ -79,19 +97,24 @@ def smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median over ``reps`` CUDA-event-timed calls, after warm-up."""
+def time_ms(fn, reps: int = REPS, windows: int = WINDOWS,
+            warmup: int = 3) -> float:
+    """ms per call: the median over ``windows`` CUDA-event windows of
+    ``reps`` back-to-back calls each, after warm-up. The launches queue
+    behind each other, so a window measures the device's time rather
+    than the host's work between launches (unless that is the longer)."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -184,14 +207,50 @@ def server_bytes_flops(case):
     return bytes_, (edge_rows + 8 * M) * d
 
 
+def prox_case(M, d, gen, l1, clip, nan=False):
+    dev = "cuda"
+    z = torch.randn((M, d), generator=gen, device=dev)
+    w_sum = 3.0 * torch.randn((M, d), generator=gen, device=dev)
+    rho_sum = 4.0 * torch.rand((M,), generator=gen, device=dev)
+    rho_sum[-1] = 0.0                              # a block with no workers
+    if nan:
+        w_sum[0, :5] = float("nan")
+        w_sum[-1, 1] = float("inf")
+        z[0, 9 % d] = float("inf")
+    return (z, w_sum, rho_sum, 0.1, l1, clip)
+
+
+def prox_bytes_flops(case):
+    z, w_sum, rho_sum, _, _, _ = case
+    M, d = z.shape
+    return 3 * M * d * 4 + rho_sum.numel() * 4, 8 * M * d
+
+
 PLAIN = {"admm_worker_select_update": "admm_worker_select_update_torch",
-         "server_prox_update": "server_prox_update_torch"}
+         "server_prox_update": "server_prox_update_torch",
+         "prox_consensus": "prox_consensus_torch"}
+COUNTS = {"admm_worker_select_update": worker_bytes_flops,
+          "server_prox_update": server_bytes_flops,
+          "prox_consensus": prox_bytes_flops}
+# the TPU kernel each replaces, and its source
+SOURCES = {
+    "admm_worker_select_update": (
+        "src/repro_torch/csrc/admm_update.cu",
+        "src/repro/kernels/admm_update.py:136"),
+    "server_prox_update": (
+        "src/repro_torch/csrc/prox_update.cu",
+        "src/repro/kernels/prox_update.py:117"),
+    "prox_consensus": (
+        "src/repro_torch/csrc/prox_update.cu",
+        "src/repro/kernels/prox_update.py:69"),
+}
 
 
 def kernel_module(name: str):
     from repro_torch.kernels import admm_update, prox_update
     return {"admm_worker_select_update": admm_update,
-            "server_prox_update": prox_update}[name]
+            "server_prox_update": prox_update,
+            "prox_consensus": prox_update}[name]
 
 
 def check(name: str, case, errs) -> float:
@@ -208,6 +267,9 @@ def check(name: str, case, errs) -> float:
     return err
 
 
+PROXES = ((1e-3, 0.8), (0.0, 0.8), (1e-3, 0.0), (0.0, 0.0))   # (l1, clip)
+
+
 def phase_kernels(bw: float, errs):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     # ragged edge cases, and the paper path's (N=8, M=16, dblk=128)
@@ -220,10 +282,16 @@ def phase_kernels(bw: float, errs):
                 check("admm_worker_select_update",
                       worker_case(N, M, d, gen, with_x, nan), errs)
                 cells += 1
-        for (l1, clip) in ((1e-3, 0.8), (0.0, 0.8), (1e-3, 0.0), (0.0, 0.0)):
+        for (l1, clip) in PROXES:
             for nan in (False, True):
                 check("server_prox_update",
                       server_case(N, M, d, gen, l1, clip, nan), errs)
+                cells += 1
+    for (M, d) in sorted({(M, d) for (_, M, d) in small} | {(64, 128)}):
+        for (l1, clip) in PROXES:
+            for nan in (False, True):
+                check("prox_consensus", prox_case(M, d, gen, l1, clip, nan),
+                      errs)
                 cells += 1
     emit("kernels_small", cells=cells, max_abs_err=errs)
 
@@ -246,9 +314,7 @@ def measure(name: str, case, bw: float, errs) -> dict:
     kernel, plain = getattr(mod, f"{name}_cuda"), getattr(mod, PLAIN[name])
     ms = time_ms(lambda: kernel(*case))
     plain_ms = time_ms(lambda: plain(*case))
-    counts = (worker_bytes_flops if name == "admm_worker_select_update"
-              else server_bytes_flops)
-    bytes_, flops = counts(case)
+    bytes_, flops = COUNTS[name](case)
     bound_ms, bound_by = bound(bytes_, flops, bw)
     return dict(name=name, shape=list(case[1].shape), max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bytes=bytes_, flops=flops,
@@ -278,12 +344,13 @@ def capture_inputs():
             setattr(mod, attr, real)
 
 
-def check_on_path(path: str, inputs, bw: float, errs) -> dict:
+def check_on_path(path: str, inputs, names, bw: float, errs) -> dict:
     """Each kernel against its plain version on the inputs a path gave it
-    in one epoch (``capture_inputs``), timed there."""
-    if set(inputs) != set(PLAIN):
+    in one epoch (``capture_inputs``), timed there; ``names`` are the
+    kernels the path must have launched."""
+    if set(inputs) != set(names):
         fail(f"{path}: kernels launched in the captured epoch: "
-             f"{sorted(inputs)}")
+             f"{sorted(inputs)}, expected {sorted(names)}")
     rows = {}
     for name, case in inputs.items():
         rows[name] = measure(name, case, bw, errs)
@@ -313,16 +380,34 @@ def run_epochs(sess, epochs):
     return state, times
 
 
+def kdda_problem(workers=KDDA_WORKERS, dim=KDDA_DIM):
+    """The kdda_like config and its centers, from seed 0."""
+    from repro_torch.configs.base import ADMMConfig
+    cfg = ADMMConfig(rho=2.0, gamma=0.1, max_delay=1, block_fraction=0.5,
+                     num_blocks=KDDA_BLOCKS, l1_coef=1e-3, clip=1.0, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, torch.randn((workers, dim), generator=gen, device="cuda")
+
+
+def expect_launches(path: str, launches, epochs: int, names) -> None:
+    """``names`` launched once an epoch on ``path``, every other kernel
+    never."""
+    want = {k: (epochs if k in names else 0) for k in PLAIN}
+    if launches != want:
+        fail(f"{path}: launches {launches} in {epochs} epochs, expected "
+             f"{want}")
+
+
+MAIN_KERNELS = ("admm_worker_select_update", "server_prox_update")
+SPMD_KERNELS = ("admm_worker_select_update", "prox_consensus")
+
+
 def phase_main(bw: float, errs):
     from repro_torch.api import ConsensusSession
-    from repro_torch.configs.base import ADMMConfig
     from repro_torch.kernels import ops
 
     N, M = KDDA_WORKERS, KDDA_BLOCKS
-    cfg = ADMMConfig(rho=2.0, gamma=0.1, max_delay=1, block_fraction=0.5,
-                     num_blocks=M, l1_coef=1e-3, clip=1.0, seed=0)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    centers = torch.randn((N, KDDA_DIM), generator=gen, device="cuda")
+    cfg, centers = kdda_problem()
 
     sess = ConsensusSession.flat(quad_loss, centers, dim=KDDA_DIM, cfg=cfg)
     if sess.spec.space.backend != "cuda":
@@ -332,15 +417,13 @@ def phase_main(bw: float, errs):
     state, times = run_epochs(sess, MAIN_EPOCHS)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        if n != MAIN_EPOCHS:
-            fail(f"{name} launched {n} times in {MAIN_EPOCHS} epochs")
+    expect_launches("main", launches, MAIN_EPOCHS, MAIN_KERNELS)
     z_kernel = sess.z(state).clone()
     if tuple(z_kernel.shape) != (KDDA_DIM,) or \
             not bool(torch.isfinite(z_kernel).all()):
         fail("main path z is not a finite vector of the problem's dim")
     epoch_ms = statistics.median(times[1:])
-    profile = profile_epochs(sess, state, epoch_ms)
+    profile = profile_epochs("main", sess, state, epoch_ms)
     with capture_inputs() as inputs:      # one more epoch, from epoch 10's state
         sess.step(state)
     del state
@@ -365,12 +448,13 @@ def phase_main(bw: float, errs):
                   z_max_abs=float(z_kernel.abs().max()), profile=profile,
                   card=smi_line())
     emit("main", **result)
-    del state, sess, plain, centers, z_kernel, z_plain
+    del state, sess, plain, centers, z_plain
     torch.cuda.empty_cache()
-    return launches, check_on_path("main", inputs, bw, errs)
+    return (launches, check_on_path("main", inputs, MAIN_KERNELS, bw, errs),
+            z_kernel)
 
 
-def profile_epochs(sess, state, epoch_ms: float, epochs: int = 3):
+def profile_epochs(path: str, sess, state, epoch_ms: float, epochs: int = 3):
     """Device time by kernel over a few epochs (torch.profiler), and the
     device's idle share of an unprofiled epoch (``epoch_ms``): the
     profiler's own start-up lands in its window, so that window's wall
@@ -393,7 +477,7 @@ def profile_epochs(sess, state, epoch_ms: float, epochs: int = 3):
     busy_ms = sum(r[0] for r in rows) / 1e3 / epochs
     out = HERE / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "main_profile.json").write_text(json.dumps(
+    (out / f"{path}_profile.json").write_text(json.dumps(
         {"epochs": epochs, "epoch_ms": epoch_ms,
          "by_kernel": [{"name": k, "device_ms_per_epoch": t / 1e3 / epochs,
                         "count_per_epoch": c / epochs}
@@ -451,9 +535,9 @@ def phase_paper(bw: float, errs):
             with capture_inputs() as inputs:    # one more epoch
                 sess.step(state)
     k, p = out["auto"], out["torch"]
-    if k["backend"] != "cuda" or any(
-            n != PAPER_EPOCHS for n in k["launches"].values()):
-        fail(f"paper workload did not run on the kernels: {k['launches']}")
+    if k["backend"] != "cuda":
+        fail(f"paper workload did not run on the kernels: {k['backend']}")
+    expect_launches("paper", k["launches"], PAPER_EPOCHS, MAIN_KERNELS)
     if not k["objective_end"] < k["objective_start"]:
         fail(f"objective did not fall: {k['objective_start']} -> "
              f"{k['objective_end']}")
@@ -466,7 +550,185 @@ def phase_paper(bw: float, errs):
          z_max_abs_diff_vs_torch=diff,
          **{b: {key: v for key, v in r.items() if key != "zs"}
             for b, r in out.items()})
-    check_on_path("paper", inputs, bw, errs)
+    check_on_path("paper", inputs, MAIN_KERNELS, bw, errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the SPMD epoch at full width, world size 1
+# ---------------------------------------------------------------------------
+
+def phase_spmd(bw: float, errs, z_main):
+    """``ConsensusSession.flat(..., mesh=)`` on a 1x1 mesh of one NCCL
+    rank at the kdda_like width, config and seed of phase ``main`` (so the
+    same draws): the sharded body runs every step, and its server step is
+    the plain worker reduce, an all-reduce and B3 (never B2)."""
+    import torch.distributed as dist
+    from repro_torch.api import ConsensusSession
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        try:
+            cfg, centers = kdda_problem()
+            sess = ConsensusSession.flat(quad_loss, centers, dim=KDDA_DIM,
+                                         cfg=cfg, mesh=make_test_mesh(1, 1))
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            state, times = run_epochs(sess, MAIN_EPOCHS)
+            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            expect_launches("spmd", launches, MAIN_EPOCHS, SPMD_KERNELS)
+            z = sess.z(state)
+            diff = float((z - z_main).abs().max())
+            if tuple(z.shape) != (KDDA_DIM,) or not torch.allclose(
+                    z, z_main, rtol=TRAJ_TOL, atol=TRAJ_TOL):
+                fail(f"spmd: z differs from phase main's by {diff:.3e}")
+            epoch_ms = statistics.median(times[1:])
+            profile = profile_epochs("spmd", sess, state, epoch_ms, epochs=2)
+            with capture_inputs() as inputs:  # one more epoch
+                sess.step(state)
+            emit("spmd", world_size=1, mesh=dict(sess.spec.space.mesh.shape),
+                 epochs=MAIN_EPOCHS, launches=launches,
+                 epoch_ms_median=epoch_ms, epoch_ms=times, peak_bytes=peak,
+                 z_max_abs_diff_vs_main=diff, profile=profile,
+                 card=smi_line())
+            del state, sess, centers, z
+            torch.cuda.empty_cache()
+            return launches, check_on_path("spmd", inputs, SPMD_KERNELS, bw,
+                                           errs)
+        finally:
+            dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the SPMD epoch over 4 ranks on the one card
+# ---------------------------------------------------------------------------
+
+def session_measures(sess, state) -> dict:
+    """The objective, P and the largest KKT violation of a state."""
+    return {"objective": sess.objective(state),
+            "P": float(sess.stationarity(state)["P"]),
+            "kkt_grad": float(sess.kkt_violations(state)["kkt_grad"])}
+
+
+def spmd_rank(rank: int, world: int, init_method: str, out_dir: str):
+    """One rank of phase ``spmd_ranks`` (a spawned process on cuda:0)."""
+    import torch.distributed as dist
+    from repro_torch.api import ConsensusSession
+    from repro_torch.core.sharded import grad_split_size
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        mesh = make_test_mesh(world, RANKS_MODEL)
+        cfg, centers = kdda_problem(dim=RANKS_DIM)
+        sess = ConsensusSession.flat(quad_loss, centers, dim=RANKS_DIM,
+                                     cfg=cfg, mesh=mesh)
+        ops.reset_launch_counts()
+        state, times = run_epochs(sess, RANKS_EPOCHS)
+        launches = ops.launch_counts()
+        z = sess.z(state).cpu()
+        measures = session_measures(sess, state)
+        # one more epoch: each kernel against its plain version on the
+        # local-tile inputs this rank gave it (a breach fails the rank)
+        with capture_inputs() as inputs:
+            sess.step(state)
+        torch.cuda.synchronize()
+        errs = {name: 0.0 for name in PLAIN}
+        shapes = {name: list(case[1].shape) for name, case in inputs.items()}
+        for name, case in inputs.items():
+            check(name, case, errs)
+        torch.save({"z": z, "launches": launches, "epoch_ms": times,
+                    "coords": dict(mesh.coords),
+                    "grad_split": grad_split_size(sess.spec),
+                    "tile": list(state.y.shape),
+                    "data_rows": sess.data.shape[0], "measures": measures,
+                    "captured": shapes, "max_abs_err": errs},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spmd_ranks(errs):
+    """4 ranks on the one card in a gloo group, data=2 x model=2, N=8:
+    Nl=4 local workers split over model (Ng=2), so the split-gradient
+    all_to_all routes run; B1 and B3 see local tiles and the collectives
+    carry CUDA tensors. z after 5 epochs against a single-device session
+    of the same config on the card; each rank holds B1 and B3 against
+    their plain versions on the tile inputs of one more epoch."""
+    import torch.multiprocessing as mp
+    from repro_torch.api import ConsensusSession
+
+    cfg, centers = kdda_problem(dim=RANKS_DIM)
+    single = ConsensusSession.flat(quad_loss, centers, dim=RANKS_DIM, cfg=cfg)
+    state, _ = run_epochs(single, RANKS_EPOCHS)
+    z_single = single.z(state).cpu()
+    measures_single = session_measures(single, state)
+    del single, state, centers
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            spmd_rank, args=(RANKS_WORLD, f"file://{tmp}/store", tmp),
+            nprocs=RANKS_WORLD, start_method="spawn", join=False)
+        deadline = time.monotonic() + RANKS_JOIN_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    fail(f"spmd_ranks: the ranks did not finish within "
+                         f"{RANKS_JOIN_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt")
+                 for r in range(RANKS_WORLD)]
+    diffs = []
+    for r in ranks:
+        expect_launches("spmd_ranks", r["launches"], RANKS_EPOCHS,
+                        SPMD_KERNELS)
+        if r["grad_split"] != 2 or r["tile"] != [4, 32, 32768] or \
+                r["data_rows"] != 2:
+            fail(f"spmd_ranks: rank {r['coords']} ran grad split "
+                 f"{r['grad_split']} on tile {r['tile']} with "
+                 f"{r['data_rows']} data rows")
+        want = {"admm_worker_select_update": [4, 32, 32768],
+                "prox_consensus": [32, 32768]}
+        if r["captured"] != want:
+            fail(f"spmd_ranks: rank {r['coords']} launched "
+                 f"{r['captured']} in the captured epoch, expected {want}")
+        for name, err in r["max_abs_err"].items():
+            errs[name] = max(errs[name], err)
+        diff = float((r["z"] - z_single).abs().max())
+        if not torch.allclose(r["z"], z_single, rtol=TRAJ_TOL, atol=TRAJ_TOL):
+            fail(f"spmd_ranks: rank {r['coords']} z differs from the "
+                 f"single-device run by {diff:.3e}")
+        diffs.append(diff)
+        for k, v in measures_single.items():
+            if abs(r["measures"][k] - v) > TRAJ_TOL * (1.0 + abs(v)):
+                fail(f"spmd_ranks: rank {r['coords']} {k} "
+                     f"{r['measures'][k]} against the single-device {v}")
+    emit("spmd_ranks", world_size=RANKS_WORLD, backend="gloo",
+         mesh={"data": RANKS_WORLD // RANKS_MODEL, "model": RANKS_MODEL},
+         N=KDDA_WORKERS, M=KDDA_BLOCKS, dim=RANKS_DIM, epochs=RANKS_EPOCHS,
+         tile=ranks[0]["tile"], launches_per_rank=ranks[0]["launches"],
+         data_rows_per_rank=ranks[0]["data_rows"],
+         kernels_on_tiles={name: {"shape": shape, "max_abs_err": max(
+             r["max_abs_err"][name] for r in ranks)}
+             for name, shape in ranks[0]["captured"].items()},
+         z_max_abs_diff_vs_single=max(diffs),
+         measures_single=measures_single,
+         measures_rank0=ranks[0]["measures"],
+         epoch_ms_median_per_rank=[statistics.median(r["epoch_ms"][1:])
+                                   for r in ranks])
 
 
 def main() -> int:
@@ -491,20 +753,21 @@ def main() -> int:
 
     errs = {name: 0.0 for name in PLAIN}
     phase_kernels(bw, errs)
-    launches, main_rows = phase_main(bw, errs)
+    main_launches, main_rows, z_main = phase_main(bw, errs)
     phase_paper(bw, errs)
+    spmd_launches, spmd_rows = phase_spmd(bw, errs, z_main)
+    del z_main
+    torch.cuda.empty_cache()
+    phase_spmd_ranks(errs)
 
-    sources = {
-        "admm_worker_select_update": (
-            "src/repro_torch/csrc/admm_update.cu",
-            "src/repro/kernels/admm_update.py:136"),
-        "server_prox_update": (
-            "src/repro_torch/csrc/prox_update.cu",
-            "src/repro/kernels/prox_update.py:117"),
-    }
+    # each kernel's numbers from the path it serves: B1 and B2 from main,
+    # B3 from spmd (B1 runs on both; main is its full-width single device)
     kernels = []
-    for name_, (source, replaces) in sources.items():
-        r = main_rows[name_]
+    for name_, (source, replaces) in SOURCES.items():
+        launches, rows = ((spmd_launches, spmd_rows)
+                          if name_ == "prox_consensus"
+                          else (main_launches, main_rows))
+        r = rows[name_]
         kernels.append(dict(
             name=name_, route="cuda", source=source, replaces=replaces,
             launches=launches[name_], max_abs_err=errs[name_], ms=r["ms"],

@@ -17,6 +17,13 @@ passes ``device="cpu"``:
 
 ``loss_fn(z, worker_data)`` is written in torch; per-worker gradients
 come from ``torch.func.vmap(grad_and_value(loss_fn))``.
+
+With ``mesh=`` the session runs SPMD, one process per rank of an
+initialised ``torch.distributed`` process group: every rank builds the
+same session from the same full data and keeps only the rows it
+differentiates, its state holds the rank's local tiles, and every
+inspection method (``z``, ``objective``, the residual, P, the KKT
+violations) gives the single-device number on every rank.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import numpy as np
 from .configs.base import ADMMConfig
 from .core.consensus import ConsensusProblem, make_problem
 from .core.metrics import kkt_violations, stationarity
+from .core.sharded import full_z_blocks
 from .core.space import (ConsensusSpec, ConsensusState, asybadmm_epoch,
                          consensus_residual, init_consensus_state)
 from .device import DeviceLike
@@ -39,8 +47,9 @@ class ConsensusSession:
 
     spec    : the generic step spec (space, edge, rho_vec, policies);
     cfg     : the ADMMConfig the spec was built from;
-    data    : fixed per-worker data on the spec's device; ``step`` falls
-              back to it when no batch is passed;
+    data    : fixed per-worker data on the spec's device (on a mesh, this
+              rank's rows); ``step`` falls back to it when no batch is
+              passed;
     problem : the flat-mode ConsensusProblem — kept so the objective and
               the stationarity/KKT metrics stay available.
     """
@@ -67,6 +76,9 @@ class ConsensusSession:
         ``cfg.num_blocks`` blocks. Regularizer terms default to the
         config's (``cfg.l1_coef`` / ``cfg.clip``); kwargs override.
         ``backend`` (torch | cuda | auto) overrides ``cfg.backend``.
+        ``mesh`` (a ``launch.mesh.Mesh`` or a preset name) overrides
+        ``cfg.mesh``: every epoch then runs SPMD, workers sharded over
+        the data axes and block servers over ``model``.
         ``device`` None means ``cuda``, and raises ``RuntimeError`` when
         there is no CUDA device."""
         cfg = cfg if cfg is not None else ADMMConfig()
@@ -75,9 +87,11 @@ class ConsensusSession:
             support=support, edge=edge,
             l1_coef=cfg.l1_coef if l1_coef is None else l1_coef,
             clip=cfg.clip if clip is None else clip,
-            l2_coef=l2_coef, rho_scale=rho_scale, device=device)
+            l2_coef=l2_coef, rho_scale=rho_scale,
+            mesh=mesh if mesh is not None else cfg.mesh, device=device)
         spec = problem.spec(cfg, selector=selector, delay_model=delay_model,
-                            backend=backend, mesh=mesh, autotune=autotune)
+                            backend=backend, autotune=autotune,
+                            mesh=problem.mesh or "none")
         return ConsensusSession(spec=spec, cfg=cfg, data=problem.data,
                                 problem=problem)
 
@@ -128,9 +142,9 @@ class ConsensusSession:
     # inspection
     # ------------------------------------------------------------------
     def z(self, state: ConsensusState):
-        """Newest consensus value as a flat vector."""
-        space = self.spec.space
-        return space.to_user(space.current(state.z_hist))
+        """Newest consensus value as a flat vector (on a sharded state,
+        the model shards gathered)."""
+        return self.spec.space.to_user(full_z_blocks(self.spec, state))
 
     def objective(self, state: ConsensusState) -> float:
         return float(self.problem.objective(self.z(state)))
@@ -142,10 +156,12 @@ class ConsensusSession:
     def stationarity(self, state: ConsensusState) -> Dict:
         # per-worker rho_i, so heterogeneous rho_scale runs are scored
         # against the Lagrangian they actually optimized
-        return stationarity(self.problem, state, self.spec.rho_vec)
+        return stationarity(self.problem, state, self.spec.rho_vec,
+                            self.spec)
 
     def kkt_violations(self, state: ConsensusState) -> Dict:
-        return kkt_violations(self.problem, state, self.spec.rho_vec)
+        return kkt_violations(self.problem, state, self.spec.rho_vec,
+                              self.spec)
 
 
 def solve(loss_fn: Callable, data: Any, dim: int, num_epochs: int = 500,

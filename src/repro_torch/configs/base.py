@@ -2,8 +2,9 @@
 
 Field names and defaults are the reference's (``repro/configs/base.py``)
 so a config reads the same in both packages. ``backend`` names the
-port's backends; ``mesh`` and ``autotune`` are accepted but only their
-"off" values run until their slices land (see ``core.space.make_spec``).
+port's backends; ``mesh`` takes a mesh of ``torch.distributed`` ranks
+(``launch.mesh``) or a preset name; ``autotune`` is accepted but only its
+"off" value runs until its slice lands (see ``core.space.make_spec``).
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ class ADMMConfig:
     # compute backend for the epoch's fused worker/server hot path:
     # torch | cuda | auto (auto = cuda on a CUDA device, torch on the CPU)
     backend: str = "auto"
-    # SPMD mesh: only None/"none" (one device) runs in the port so far
+    # SPMD mesh: None/"none" (one device), a launch.mesh.Mesh of
+    # torch.distributed ranks, or a preset name ("test", "pod", "multipod")
     mesh: Any = None
     # kernel tile autotuning: only "off" runs in the port so far
     autotune: str = "off"

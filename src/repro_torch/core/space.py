@@ -19,6 +19,15 @@ path, resolved from ``"auto"`` by :func:`resolve_backend`:
   in registers, so ``w_sum`` never reaches device memory. Proxes outside
   the l1+box family keep the server step on the plain path.
 
+Each space also optionally carries a **mesh** (``mesh=`` on
+``ADMMConfig`` / ``ConsensusSession`` / :func:`make_spec`: a
+``launch.mesh.Mesh`` of ``torch.distributed`` ranks or a preset name).
+When set, ``asybadmm_epoch`` runs the SPMD epoch of ``core/sharded.py``
+on this rank's share: worker bundles split ``(data, model)`` over their
+leading (N, M) axes, the z ring split over ``model``, the paper's w push
+an all-reduce over the data ranks that lands in each block server's
+local shard, whose prox then runs the prox-only kernel.
+
 Randomness: every epoch draws from generators seeded from
 ``(spec.seed, state.t, stream)`` (``device.seeded_generator``), so the
 draws of an epoch depend only on the seed and the epoch counter, and the
@@ -424,6 +433,17 @@ class _PackedOps:
         w_sum = self.reduce_workers(w_cache, edge)
         return self.server_update(z_cur, w_sum, rho_sum, gamma, reg.prox)
 
+    def server_prox(self, z_cur, w_sum, rho_sum, gamma, reg):
+        """Prox step (13) from an already-reduced w_sum — the SPMD path,
+        where the worker reduction is a partial sum + all-reduce over the
+        data ranks and only the prox remains local to the block-server
+        shard."""
+        if self._use_kernels() and reg.fusable:
+            return kernel_ops.prox_consensus(
+                z_cur, w_sum, rho_sum, gamma, reg.l1_coef,
+                0.0 if reg.clip is None else reg.clip)
+        return self.server_update(z_cur, w_sum, rho_sum, gamma, reg.prox)
+
     # ---- state construction --------------------------------------------
     def zeros_workers(self, z0):
         return torch.zeros((self.num_workers,) + tuple(z0.shape),
@@ -443,10 +463,13 @@ class _PackedOps:
 class FlatSpace(_PackedOps):
     """Flat-vector consensus: z is (M, dblk) blocks of a padded vector
     (:class:`~repro_torch.core.blocks.FlatBlocks`); worker bundles are
-    (N, M, dblk) tensors. All mechanics come from :class:`_PackedOps`."""
+    (N, M, dblk) tensors. All mechanics come from :class:`_PackedOps`.
+    With ``mesh`` set, the epoch runs SPMD on local tiles (see
+    ``core/sharded.py``)."""
     blocks: FlatBlocks
     num_workers: int
     backend: str = "torch"
+    mesh: Any = None
 
     def init_repr(self, z0, device):
         if z0 is None:
@@ -518,15 +541,20 @@ def make_spec(space, cfg, loss_fn, *, edge=None, rho_scale=None, reg=None,
     """Build a ConsensusSpec from an ADMMConfig plus problem structure.
 
     ``backend`` (torch | cuda | auto) overrides ``cfg.backend`` and is
-    resolved onto the space for ``device`` (None -> ``cuda``). ``mesh``
-    and ``autotune`` only take their "off" values until the SPMD epoch
-    and the autotuner are ported."""
+    resolved onto the space for ``device`` (None -> ``cuda``).
+
+    ``mesh`` (a ``launch.mesh.Mesh``, or a preset name for
+    ``launch.mesh.resolve_mesh``) overrides ``cfg.mesh`` and is resolved
+    onto the space — when set, ``asybadmm_epoch`` runs the SPMD-sharded
+    epoch (core/sharded.py) over it. A preset builds its mesh over the
+    default process group, which must then be initialised.
+
+    ``autotune`` only takes its "off" value until the autotuner is
+    ported."""
+    from ..launch.mesh import resolve_mesh           # no cycle: mesh.py is leaf
     dev = resolve_device(device)
-    mesh = mesh if mesh is not None else getattr(cfg, "mesh", None)
-    if mesh is not None and mesh != "none":
-        raise NotImplementedError(
-            "mesh= (the SPMD-sharded epoch) is not ported yet: ROADMAP "
-            "Queue A item 7")
+    resolved_mesh = resolve_mesh(
+        mesh if mesh is not None else getattr(cfg, "mesh", None))
     tune = autotune if autotune is not None else getattr(cfg, "autotune",
                                                          "off")
     if tune != "off":
@@ -537,6 +565,10 @@ def make_spec(space, cfg, loss_fn, *, edge=None, rho_scale=None, reg=None,
         dev)
     if space.backend != resolved:
         space = dataclasses.replace(space, backend=resolved)
+    if resolved_mesh is not None:
+        from .sharded import validate_space_mesh
+        space = dataclasses.replace(space, mesh=resolved_mesh)
+        validate_space_mesh(space)
     N, M = space.num_workers, space.num_blocks
     if edge is None:
         edge = torch.ones((N, M), dtype=torch.bool, device=dev)
@@ -573,14 +605,21 @@ def make_spec(space, cfg, loss_fn, *, edge=None, rho_scale=None, reg=None,
 
 
 def init_consensus_state(spec: ConsensusSpec, z0=None) -> ConsensusState:
-    """Algorithm 1 lines 1-2. ``z0`` is a flat vector (default 0)."""
+    """Algorithm 1 lines 1-2. ``z0`` is a flat vector (default 0). With a
+    mesh on the space, the state is this rank's local tiles."""
     space = spec.space
     z0r = space.init_repr(z0, spec.device)
+    rho_vec = spec.rho_vec
+    if space.mesh is not None:
+        from .sharded import local_space, local_tile
+        tile = local_tile(spec)
+        space = local_space(spec, tile.Nl)
+        z0r, rho_vec = tile.cols(z0r, axis=0), tile.rows(rho_vec)
     return ConsensusState(
         z_hist=space.init_history(z0r, spec.delay_model.depth),
         y=space.zeros_workers(z0r),                       # Alg. 1 line 2
         # w init: w = rho_i * x + y with x = z0, y = 0  ->  rho_i * z0
-        w_cache=space.workers_scaled(z0r, spec.rho_vec),
+        w_cache=space.workers_scaled(z0r, rho_vec),
         x=space.broadcast_workers(z0r) if spec.track_x else None,  # line 1
         t=0,
     )
@@ -591,21 +630,27 @@ def state_from_numpy(arrays: Mapping[str, Any], spec: ConsensusSpec,
     """Continue a run started elsewhere (e.g. in the JAX reference): build
     the port's state from numpy leaves ``z_hist``, ``y``, ``w_cache``,
     ``x`` and ``t`` (extra keys such as the reference's ``rng`` are
-    ignored; the port's draws follow from ``spec.seed`` and ``t``)."""
+    ignored; the port's draws follow from ``spec.seed`` and ``t``). The
+    leaves are the full single-device arrays; with a mesh on the space,
+    each rank keeps its local tiles of them."""
     dev = resolve_device(device)
     N, M = spec.edge.shape
     dblk = spec.space.packer.block_dim
     depth = spec.delay_model.depth
+    from .sharded import Tile, local_tile
+    tile = (Tile(n0=0, Nl=N, m0=0, Ml=M, g0=0, Ng=N)
+            if spec.space.mesh is None else local_tile(spec))
 
-    def tensor(name, shape):
+    def tensor(name, shape, worker_bundle=True):
         a = np.array(arrays[name], np.float32)          # a private copy
         if a.shape != shape:
             raise ValueError(f"state_from_numpy: {name} has shape {a.shape}, "
                              f"the spec needs {shape}")
-        return torch.as_tensor(a, device=dev)
+        a = tile.cols(torch.as_tensor(a))
+        return (tile.rows(a) if worker_bundle else a).contiguous().to(dev)
 
     return ConsensusState(
-        z_hist=tensor("z_hist", (depth, M, dblk)),
+        z_hist=tensor("z_hist", (depth, M, dblk), worker_bundle=False),
         y=tensor("y", (N, M, dblk)),
         w_cache=tensor("w_cache", (N, M, dblk)),
         x=tensor("x", (N, M, dblk)) if spec.track_x else None,
@@ -641,8 +686,14 @@ def _check_finite(t: int, z_new: torch.Tensor) -> None:
 
 def asybadmm_epoch(spec: ConsensusSpec, state: ConsensusState, data
                    ) -> Tuple[ConsensusState, Dict[str, torch.Tensor]]:
-    """One epoch of Algorithm 1 across all workers + servers."""
+    """One epoch of Algorithm 1 across all workers + servers.
+
+    With a mesh on the space, the same epoch runs SPMD: this rank's share
+    of it (core/sharded.py), on its local tiles of the state."""
     space = spec.space
+    if space.mesh is not None:
+        from .sharded import sharded_epoch
+        return sharded_epoch(spec, state, data)
     N, M = spec.edge.shape
     dev = spec.device
 
@@ -697,7 +748,11 @@ def asybadmm_epoch(spec: ConsensusSpec, state: ConsensusState, data
 
 def consensus_residual(spec: ConsensusSpec, state: ConsensusState
                        ) -> torch.Tensor:
-    """Cross-worker dispersion of the w cache (0 at consensus)."""
+    """Cross-worker dispersion of the w cache (0 at consensus); on a
+    sharded state, completed over the mesh (the same on every rank)."""
+    if spec.space.mesh is not None:
+        from .sharded import consensus_residual as sharded_residual
+        return sharded_residual(spec, state)
     num = torch.zeros((), dtype=torch.float32, device=spec.device)
     den = torch.zeros((), dtype=torch.float32, device=spec.device)
     for leaf in spec.space.worker_leaves(state.w_cache):

@@ -1,11 +1,13 @@
-"""The epoch's two fused ops, dispatched on the tensors' device.
+"""The epoch's kernel ops, dispatched on the tensors' device: the fused
+worker update, the fused server update (single-device epoch) and the
+server prox from a reduced w_sum (SPMD epoch).
 
 On CUDA tensors each op launches its hand-written kernel (or raises: it
 never falls back to the plain version). On CPU tensors it runs the
 kernel's plain torch version, because there is no kernel to launch.
 
 Lane alignment is a property of the layout (``core.blocks`` rounds every
-block row up to 128), so both ops refuse rows whose width is not a
+block row up to 128), so every op refuses rows whose width is not a
 multiple of 128, with the reference's ``ValueError`` contract.
 """
 from __future__ import annotations
@@ -60,12 +62,30 @@ def server_prox_update(z_cur, w_cache, edge, rho_sum, gamma: float,
         z_cur, w_cache, edge, rho_sum, gamma, l1, clip)
 
 
+def prox_consensus(z_tilde, w_sum, rho_sum, gamma: float, l1: float = 0.0,
+                   clip: float = 0.0):
+    """The prox step (13) from an already-reduced w_sum — the server step
+    of the SPMD epoch, where the worker sum is a partial sum over the
+    local workers plus an all-reduce over the data ranks.
+
+    z_tilde, w_sum: (M, d) lane-aligned; rho_sum: (M,) or (M, 1)
+    per-block penalty sums. Returns z_new (M, d)."""
+    M, d = z_tilde.shape
+    _require_lane_aligned(d, "prox_consensus")
+    rho_sum = rho_sum.reshape(M)
+    if z_tilde.is_cuda:
+        return _prox.prox_consensus_cuda(z_tilde, w_sum, rho_sum, gamma, l1,
+                                         clip)
+    return _prox.prox_consensus_torch(z_tilde, w_sum, rho_sum, gamma, l1,
+                                      clip)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by op."""
-    return {"admm_worker_select_update": _admm.launches,
-            "server_prox_update": _prox.launches}
+    return {"admm_worker_select_update": _admm.launches, **_prox.launches}
 
 
 def reset_launch_counts() -> None:
     _admm.launches = 0
-    _prox.launches = 0
+    for name in _prox.launches:
+        _prox.launches[name] = 0

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package, and the kernels build without
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+rank side of the sharded tests import neither JAX nor the reference
+package, and the kernels build without
 fast math (their plain versions are their yardstick)."""
 import ast
 import subprocess
@@ -16,6 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.api, repro_torch.kernels.ops\n"
+            "import repro_torch.launch.mesh, repro_torch.core.sharded\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -36,7 +38,9 @@ def _imports(path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py",
+        ROOT / "tests" / "torch_sharded_ranks.py"],     # the spawned ranks
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

@@ -1,4 +1,6 @@
-"""The port's epoch ops (``repro_torch.kernels``) against the reference's.
+"""The port's kernel ops (``repro_torch.kernels``) against the reference's:
+the fused worker update (B1), the fused server update (B2) and the
+server prox from a reduced w_sum (B3).
 
 On the CPU each port op runs its kernel's plain torch version; it is held
 against the reference's Pallas kernel in interpret mode (the kernel
@@ -110,6 +112,50 @@ def test_server_prox_update_matches_reference(shape, l1, clip):
         assert float(port.abs().max()) <= clip + 1e-6
 
 
+def _prox_inputs(M, d, seed=0, nan=False):
+    rng = np.random.RandomState(seed)
+    z = rng.randn(M, d).astype(np.float32)
+    w_sum = (3.0 * rng.randn(M, d)).astype(np.float32)
+    rho_sum = (4.0 * rng.rand(M)).astype(np.float32)
+    rho_sum[-1] = 0.0                              # a block with no workers
+    if nan:
+        w_sum[0, :5] = np.nan
+        z[0, 9] = np.inf
+    return z, w_sum, rho_sum
+
+
+@pytest.mark.parametrize("M,d,l1,clip", [
+    (1, 128, 1e-3, 0.8), (5, 256, 0.0, 0.8), (8, 128, 0.05, 0.0),
+    (64, 128, 0.0, 0.0), (3, 384, 1e-3, 0.8), (16, 128, 1e-3, 0.8)])
+def test_prox_consensus_matches_reference(M, d, l1, clip):
+    """B3's op, on the CPU its plain version, against the reference's
+    Pallas kernel (interpret mode) and both oracles; rho_sum as (M,) and
+    as the reference's (M, 1) column."""
+    z, w_sum, rho_sum = _prox_inputs(M, d, seed=M)
+    port = ops.prox_consensus(*_t(z, w_sum, rho_sum), 0.1, l1, clip)
+    kernel = rops.prox_consensus(*_j(z, w_sum, rho_sum), gamma=0.1, l1=l1,
+                                 clip=clip, interpret=True)
+    _close(port, kernel)
+    _close(ops.prox_consensus(*_t(z, w_sum, rho_sum[:, None]), 0.1, l1,
+                              clip), kernel)
+    _close(ref.prox_consensus_ref(*_t(z, w_sum, rho_sum[:, None]), 0.1, l1,
+                                  clip),
+           rref.prox_consensus_ref(*_j(z, w_sum, rho_sum[:, None]), 0.1, l1,
+                                   clip))
+    if clip > 0:
+        assert float(port.abs().max()) <= clip + 1e-6
+
+
+@pytest.mark.parametrize("l1,clip", [(1e-3, 0.8), (0.0, 0.0)])
+def test_prox_consensus_propagates_nan(l1, clip):
+    z, w_sum, rho_sum = _prox_inputs(5, 256, seed=3, nan=True)
+    port = ops.prox_consensus(*_t(z, w_sum, rho_sum), 0.1, l1, clip)
+    _close(port, rops.prox_consensus(*_j(z, w_sum, rho_sum), gamma=0.1,
+                                     l1=l1, clip=clip, interpret=True))
+    assert bool(torch.isnan(port[0, :5]).all())
+    assert not bool(torch.isnan(port[0, 5:]).any())
+
+
 @pytest.mark.parametrize("shape,l1,clip", [
     (SHAPES[1], 1e-3, 0.8), (SHAPES[2], 0.0, None), (SHAPES[4], 0.05, 0.8)])
 def test_torch_backend_matches_the_oracles(shape, l1, clip):
@@ -128,6 +174,10 @@ def test_torch_backend_matches_the_oracles(shape, l1, clip):
                                         make_prox(l1, clip))
     _close(got, ref.server_prox_update_ref(z, w, edge, rho_sum, 0.1, l1,
                                            clip or 0.0))
+    z, w_sum, rho_sum = _t(*_prox_inputs(M, d))
+    got = space.server_prox(z, w_sum, rho_sum, 0.1, make_prox(l1, clip))
+    _close(got, ref.prox_consensus_ref(z, w_sum, rho_sum[:, None], 0.1, l1,
+                                       clip or 0.0))
 
 
 def test_nan_propagates_like_the_reference():
@@ -151,7 +201,7 @@ def test_nan_propagates_like_the_reference():
 
 
 @pytest.mark.parametrize("op", ["admm_worker_select_update",
-                                "server_prox_update"])
+                                "server_prox_update", "prox_consensus"])
 def test_ops_reject_ragged_rows(op):
     """d % 128 != 0 raises the reference's layout-pointing ValueError."""
     a3 = torch.ones((2, 4, 129))
@@ -160,8 +210,10 @@ def test_ops_reject_ragged_rows(op):
     with pytest.raises(ValueError, match=f"{op}.*129"):
         if op == "admm_worker_select_update":
             ops.admm_worker_select_update(a3, a3, a3, a3, sel, rho)
-        else:
+        elif op == "server_prox_update":
             ops.server_prox_update(a3[0], a3, sel, torch.ones(4), 0.1)
+        else:
+            ops.prox_consensus(a3[0], a3[0], torch.ones(4), 0.1)
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -177,9 +229,16 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         ops.server_prox_update(z, w2, edge, rho_sum, 0.1, 1e-3, 0.8),
         prox_update.server_prox_update_torch(z, w2, edge, rho_sum, 0.1, 1e-3,
                                              0.8))
+    z, w_sum, rho_sum = _t(*_prox_inputs(5, 256))
+    assert torch.equal(
+        ops.prox_consensus(z, w_sum, rho_sum, 0.1, 1e-3, 0.8),
+        prox_update.prox_consensus_torch(z, w_sum, rho_sum, 0.1, 1e-3, 0.8))
     assert ops.launch_counts() == {"admm_worker_select_update": 0,
-                                   "server_prox_update": 0}
+                                   "server_prox_update": 0,
+                                   "prox_consensus": 0}
     with pytest.raises(ValueError, match="CUDA"):
         admm_update.admm_worker_select_update_cuda(g, y, zt, w, sel, rho, x)
     with pytest.raises(ValueError, match="CUDA"):
         prox_update.server_prox_update_cuda(z, w2, edge, rho_sum, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        prox_update.prox_consensus_cuda(z, w_sum, rho_sum, 0.1)

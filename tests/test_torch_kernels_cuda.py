@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain torch versions, on the card.
+"""The CUDA kernels (B1, B2, B3) against their plain torch versions, on
+the card.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports neither JAX nor the reference, so it runs on a
@@ -90,6 +91,26 @@ def test_server_kernel_matches_plain(gen, shape, l1, clip, nan):
                                                 clip))
 
 
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("l1,clip", [(1e-3, 0.8), (0.0, 0.8), (0.05, 0.0),
+                                     (0.0, 0.0)])
+@pytest.mark.parametrize("shape", SHAPES + [(1, 64, 128)])
+def test_prox_consensus_kernel_matches_plain(gen, shape, l1, clip, nan):
+    _, M, d = shape
+    z = torch.randn((M, d), generator=gen, device="cuda")
+    w_sum = 3.0 * torch.randn((M, d), generator=gen, device="cuda")
+    rho_sum = 4.0 * torch.rand((M,), generator=gen, device="cuda")
+    rho_sum[-1] = 0.0                           # a block without workers
+    if nan:
+        w_sum[0, :3] = float("nan")
+        w_sum[-1, 1] = float("inf")
+        z[0, 3] = float("inf")
+        z[-1, 5] = float("-inf")
+    _agree(prox_update.prox_consensus_cuda(z, w_sum, rho_sum, 0.1, l1, clip),
+           prox_update.prox_consensus_torch(z, w_sum, rho_sum, 0.1, l1,
+                                            clip))
+
+
 def test_kernels_refuse_bad_tensors(gen):
     g = torch.randn((2, 3, 128), generator=gen, device="cuda")
     sel = torch.ones((2, 3), dtype=torch.bool, device="cuda")
@@ -107,6 +128,11 @@ def test_kernels_refuse_bad_tensors(gen):
     with pytest.raises(ValueError, match="rho_sum"):
         prox_update.server_prox_update_cuda(g[0], g, sel, torch.ones(
             4, device="cuda"), 0.1)
+    with pytest.raises(ValueError, match="w_sum"):
+        prox_update.prox_consensus_cuda(g[0], g[0].T.contiguous().T,
+                                        torch.ones(3, device="cuda"), 0.1)
+    with pytest.raises(ValueError, match="rho_sum"):
+        prox_update.prox_consensus_cuda(g[0], g[0], rho[:2].double(), 0.1)
 
 
 def test_session_on_the_card_goes_through_the_kernels(gen):
@@ -131,5 +157,6 @@ def test_session_on_the_card_goes_through_the_kernels(gen):
         zs[backend] = sess.z(state)
         expect = 5 if backend == "auto" else 0
         assert ops.launch_counts() == {"admm_worker_select_update": expect,
-                                       "server_prox_update": expect}
+                                       "server_prox_update": expect,
+                                       "prox_consensus": 0}
     torch.testing.assert_close(zs["auto"], zs["torch"], rtol=1e-5, atol=1e-5)

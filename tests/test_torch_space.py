@@ -25,6 +25,7 @@ from repro.core import space as rspace
 from repro_torch.configs.base import ADMMConfig
 from repro_torch.core import async_sim, consensus, space
 from repro_torch.data import make_sparse_logreg
+from repro_torch.launch import mesh as tmesh
 
 N, SAMPLES, DIM, M = 4, 32, 512, 8          # dblk = 128 > used_dim = 64
 EPOCHS = 20
@@ -228,8 +229,22 @@ def test_resolve_backend_and_unported_options():
     with pytest.raises(ValueError, match="unknown backend"):
         space.resolve_backend("pallas", "cpu")
     prob = consensus.make_problem(_torch_quad, CENTERS, DIM, M, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    # the SPMD epoch needs a process group: a mesh without one is an
+    # error, never a quiet single-device run
+    with pytest.raises(RuntimeError, match="process group"):
         prob.spec(ADMMConfig(**CFG), mesh="test")
+    with pytest.raises(RuntimeError, match="process group"):
+        prob.spec(dataclasses.replace(ADMMConfig(**CFG), mesh="pod"))
+    assert prob.spec(ADMMConfig(**CFG), mesh="none").space.mesh is None
+    with pytest.raises(RuntimeError, match="process group"):
+        consensus.make_problem(_torch_quad, CENTERS, DIM, M, mesh="test",
+                               device="cpu")
+    # bad mesh shapes and names are ValueErrors, before any group is asked
+    with pytest.raises(ValueError, match="divide"):
+        tmesh.make_test_mesh(8, 3)
+    with pytest.raises(ValueError, match="unknown mesh"):
+        tmesh.resolve_mesh("ring")
+    assert tmesh.resolve_mesh(None) is None
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         prob.spec(dataclasses.replace(ADMMConfig(**CFG), autotune="cached"))
     with pytest.raises(ValueError, match="cuda"):
