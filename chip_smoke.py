@@ -7,19 +7,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device  — the card (nvidia-smi name and power limit), torch and CUDA;
 2. build   — nvcc builds every kernel from ``src/repro_torch/csrc``;
-3. kernels — each kernel (B1, B2, B3) against its plain torch version on
-   the card, at small ragged shapes and the paper path's shape (NaN
-   cells among them) and at full width without x, with times (medians of
-   CUDA-event windows of back-to-back calls) and bounds;
+3. kernels — each kernel (B1-B6) against its plain torch version on the
+   card, at small ragged shapes and the paper path's shape (NaN/Inf
+   cells among them), B5 also at 4096^3 against ``torch.matmul``; B1
+   at full width without x; and B4's path: ``ops.admm_worker_update``
+   on the kdda_like worker bundle (8, 64, 315,904), its launch counted
+   and its inputs held against the plain version, with times
+   (medians of CUDA-event windows of back-to-back calls) and bounds.
+   B5 is held against a float64 product (it sums in another order than
+   cuBLAS): its error there at most MATMUL_RATIO times torch.matmul's;
+   the others within KERNEL_TOL;
 4. main    — ``ConsensusSession.flat`` at the paper's KDDa width
    (N=8 workers, M=64 blocks, 20,216,830 coordinates; the quadratic
    loss and config of ``benchmarks/kernels_bench.py``'s kdda_like case):
    10 epochs on the kernels ("auto"), then 10 on the plain "torch"
    backend with the same seed and so the same draws; z must agree and
    each kernel must have launched once per epoch;
-5. paper   — sparse L1 logistic regression (eq. 22) at the size of
-   ``examples/sparse_logreg_admm.py``, 600 epochs on both backends: the
-   objective must fall and the trajectories agree;
+5. paper   — the paper's entry points on the card: the
+   "AsyBADMM (D=2, 50% blocks)" variant of
+   ``repro_torch.examples.sparse_logreg_admm`` for 600 epochs on both
+   backends (the trajectories must agree), then that script, the
+   quickstart and the Fig. 2 convergence benchmark at their defaults:
+   every variant's objective must fall on the kernels, B1 and B2 launch
+   once per epoch, and the cross-check's ``ops.logreg_grad`` (B5 twice,
+   B6 once) agrees with autograd; the cross-check's B5 and B6 inputs are
+   held against the plain versions;
 6. spmd    — the SPMD epoch (``mesh=``) at the width, config and seed of
    phase 4 on a 1x1 mesh of one NCCL rank, 10 epochs: z within 1e-5 of
    phase 4's, B1 and B3 launched once per epoch and B2 never;
@@ -34,7 +46,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    gradient violation within 1e-5 (relative) of it; one more epoch on
    every rank holds B1 and B3 against their plain versions on that
    rank's tile inputs;
-8. a ``kernels`` summary line, the card's nvidia-smi line, and the last
+8. logreg  — ``ops.logreg_grad`` at the size the repo declares for it
+   (m = 2^20 samples, d = 2^14 features, X dense f32, 68.72 GB, filled
+   on the card in row chunks): launches B5 twice and B6 once; each pass
+   and the gradient are held against float64 (computed on the card in
+   row chunks) by B5's rule, the gradient against autograd too, and
+   each pass's gate must refuse four faulty results (zeros, a sixteenth
+   of K dropped, bf16- and TF32-rounded inputs); each kernel, the
+   gradient and autograd are timed. Runs last, with everything before
+   it freed;
+9. a ``kernels`` summary line, the card's nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -62,6 +83,15 @@ KDDA_WORKERS, KDDA_BLOCKS = 8, 64
 MAIN_EPOCHS = 10
 PAPER_EPOCHS = 600
 KERNEL_TOL = 1e-6              # max|kernel - plain| <= tol * (1 + max|plain|)
+# B5 against float64: max|kernel - f64| <= MATMUL_RATIO * max(max|plain -
+# f64|, MATMUL_FLOOR * max|f64|), over the entries finite in float64.
+# cuBLAS sums in blocks or splits K, so a correct kernel that sums in k
+# order per thread reads up to ~4x its error on the small cells
+MATMUL_RATIO, MATMUL_FLOOR = 8.0, 2.0 ** -22
+CROSSCHECK_TOL = dict(rtol=1e-4, atol=1e-5)   # the reference's logreg_grad tolerance
+LOGREG_M, LOGREG_D = 1 << 20, 1 << 14          # benchmarks/kernels_bench.py:114
+LOGREG_REPS, LOGREG_WINDOWS = 3, 3             # 68 GB passes: fewer windows
+F64_CHUNK = 1 << 27            # float64 elements per chunk of A in the B5 check
 TRAJ_TOL = 1e-5                # the reference's own backend tolerance
 REPS, WINDOWS = 20, 5          # kernel timing: 5 windows of 20 calls
 FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
@@ -118,10 +148,17 @@ def time_ms(fn, reps: int = REPS, windows: int = WINDOWS,
     return statistics.median(times)
 
 
-def compare(kernel, plain) -> float:
-    """max|kernel - plain| over finite entries; NaN/Inf must sit at the
-    same places with the same values. Fails past the tolerance."""
-    kernel, plain = kernel.float(), plain.float()
+def reset_peak() -> None:
+    """Start a path's own peak-memory reading: release the cuBLAS
+    workspace that earlier phases' products left allocated (32 MiB on
+    an H100) and the cached blocks, then reset the peak."""
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def same_nonfinite(kernel, plain) -> None:
+    """NaN and Inf at the same places, with the same infinities."""
     fin = torch.isfinite(plain)
     if not torch.equal(torch.isfinite(kernel), fin):
         fail("kernel and plain versions disagree on non-finite entries")
@@ -130,6 +167,14 @@ def compare(kernel, plain) -> float:
     nonfin = ~fin & ~torch.isnan(plain)
     if not torch.equal(kernel[nonfin], plain[nonfin]):
         fail("kernel and plain versions disagree on infinite entries")
+
+
+def compare(kernel, plain) -> float:
+    """max|kernel - plain| over finite entries; NaN/Inf must sit at the
+    same places with the same values. Fails past the tolerance."""
+    kernel, plain = kernel.float(), plain.float()
+    same_nonfinite(kernel, plain)
+    fin = torch.isfinite(plain)
     if not bool(fin.any()):
         return 0.0
     err = float((kernel[fin] - plain[fin]).abs().max())
@@ -137,6 +182,60 @@ def compare(kernel, plain) -> float:
     if err > KERNEL_TOL * (1.0 + scale):
         fail(f"max|kernel - plain| = {err:.3e} > {KERNEL_TOL} * (1 + {scale:.3e})")
     return err
+
+
+def f64_matmul(a, b, transpose_a: bool):
+    """A B in float64 on the card, A converted in chunks of its stored
+    rows (never a float64 copy of all of A)."""
+    b64 = b.double()
+    rows = max(1, F64_CHUNK // max(1, a.shape[1]))
+    if transpose_a:                              # a stored (K, M)
+        c = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float64,
+                        device=a.device)
+        for k0 in range(0, a.shape[0], rows):
+            c += a[k0:k0 + rows].double().T @ b64[k0:k0 + rows]
+        return c
+    return torch.cat([a[m0:m0 + rows].double() @ b64
+                      for m0 in range(0, a.shape[0], rows)])
+
+
+def f64_err(out, exact) -> float:
+    """max|out - exact| over the entries finite in ``exact`` (NaN where
+    ``out`` is not finite there)."""
+    fin = torch.isfinite(exact)
+    return float((out.double() - exact)[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+
+
+def f64_limit(plain, exact) -> tuple:
+    """B5's limit on a result's error against float64: MATMUL_RATIO times
+    the plain fp32 result's own, or times MATMUL_FLOOR * max|exact|
+    where that is larger. Returns (limit, the plain result's error)."""
+    plain_err = f64_err(plain, exact)
+    scale = f64_err(torch.zeros_like(exact), exact)       # max|exact|
+    return MATMUL_RATIO * max(plain_err, MATMUL_FLOOR * scale), plain_err
+
+
+def held_to_f64(what: str, out, plain, exact) -> dict:
+    """``out`` within B5's float64 limit (``f64_limit``); fails past it."""
+    limit, plain_err = f64_limit(plain, exact)
+    err = f64_err(out, exact)
+    if not err <= limit:
+        fail(f"{what}: max|result - float64| = {err:.3e} past its limit "
+             f"{limit:.3e} ({MATMUL_RATIO:g} x the plain result's "
+             f"{plain_err:.3e})")
+    return {"err_vs_f64": err, "plain_err_vs_f64": plain_err,
+            "f64_limit": limit}
+
+
+def matmul_errors(kernel, plain, exact) -> dict:
+    """B5's check: NaN/Inf where the plain version has them, and the
+    kernel within its float64 limit; with max|kernel - plain|."""
+    same_nonfinite(kernel, plain)
+    out = held_to_f64("matmul kernel", kernel, plain, exact)
+    fin = torch.isfinite(plain)
+    diff = float((kernel - plain).abs()[fin].max()) if bool(fin.any()) else 0.0
+    return {"max_abs_err": diff, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -226,12 +325,66 @@ def prox_bytes_flops(case):
     return 3 * M * d * 4 + rho_sum.numel() * 4, 8 * M * d
 
 
+def worker_update_case(shape, dtype, rho, gen, nan=False):
+    g, y, z = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    if nan:
+        g.view(-1)[:3] = float("nan")
+        y.view(-1)[5] = float("inf")
+        z.view(-1)[7] = float("-inf")
+    return (g.view(-1), y.view(-1), z.view(-1), rho)
+
+
+def worker_update_bytes_flops(case):
+    g = case[0]
+    return 6 * g.numel() * g.element_size() + 4, 5 * g.numel()
+
+
+def matmul_case(m, k, n, transpose_a, gen, nan=False):
+    a = torch.randn((k, m) if transpose_a else (m, k), generator=gen,
+                    device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda")
+    if nan and k > 1 and n > 2:
+        a[0, 0] = float("nan")                     # a row (or column) of C
+        b[1, 2] = float("inf")                     # a column of C
+    return (a, b, transpose_a)
+
+
+def matmul_bytes_flops(case):
+    a, b, transpose_a = case
+    K, N = b.shape
+    M = a.shape[1] if transpose_a else a.shape[0]
+    return 4 * (a.numel() + b.numel() + M * N), 2 * M * N * K
+
+
+def margin_case(shape, gen, nan=False):
+    s = 4.0 * torch.randn(shape, generator=gen, device="cuda")
+    y = torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5,
+                    -1.0, 1.0)
+    if nan:                                        # exp overflow, and NaN
+        extremes = [1e4, -1e4, 100.0, -100.0, 89.0, -89.0, float("nan")]
+        n = min(len(extremes), s.numel())
+        s.view(-1)[:n] = torch.tensor(extremes[:n], device="cuda")
+    return (s, y)
+
+
+def margin_bytes_flops(case):
+    s = case[0]
+    return 12 * s.numel(), 5 * s.numel()
+
+
 PLAIN = {"admm_worker_select_update": "admm_worker_select_update_torch",
          "server_prox_update": "server_prox_update_torch",
-         "prox_consensus": "prox_consensus_torch"}
+         "prox_consensus": "prox_consensus_torch",
+         "admm_worker_update": "admm_worker_update_torch",
+         "matmul": "matmul_torch",
+         "margin": "margin_torch"}
 COUNTS = {"admm_worker_select_update": worker_bytes_flops,
           "server_prox_update": server_bytes_flops,
-          "prox_consensus": prox_bytes_flops}
+          "prox_consensus": prox_bytes_flops,
+          "admm_worker_update": worker_update_bytes_flops,
+          "matmul": matmul_bytes_flops,
+          "margin": margin_bytes_flops}
 # the TPU kernel each replaces, and its source
 SOURCES = {
     "admm_worker_select_update": (
@@ -243,31 +396,54 @@ SOURCES = {
     "prox_consensus": (
         "src/repro_torch/csrc/prox_update.cu",
         "src/repro/kernels/prox_update.py:69"),
+    "admm_worker_update": (
+        "src/repro_torch/csrc/admm_update.cu",
+        "src/repro/kernels/admm_update.py:67"),
+    "matmul": (
+        "src/repro_torch/csrc/logreg_grad.cu",
+        "src/repro/kernels/logreg_grad.py:51"),
+    "margin": (
+        "src/repro_torch/csrc/logreg_grad.cu",
+        "src/repro/kernels/logreg_grad.py:87"),
 }
 
 
 def kernel_module(name: str):
-    from repro_torch.kernels import admm_update, prox_update
+    from repro_torch.kernels import admm_update, logreg, prox_update
     return {"admm_worker_select_update": admm_update,
+            "admm_worker_update": admm_update,
             "server_prox_update": prox_update,
-            "prox_consensus": prox_update}[name]
+            "prox_consensus": prox_update,
+            "matmul": logreg,
+            "margin": logreg}[name]
 
 
-def check(name: str, case, errs) -> float:
-    """max|Δ| of ``name``'s kernel against its plain version on ``case``,
-    folded into ``errs``; fails past the tolerance."""
+def check(name: str, case, errs) -> dict:
+    """``name``'s kernel against its plain version on ``case`` (the
+    matmul against float64 too); max|Δ| folded into ``errs``; fails past
+    the tolerance."""
     mod = kernel_module(name)
     ks = getattr(mod, f"{name}_cuda")(*case)
     ps = getattr(mod, PLAIN[name])(*case)
     torch.cuda.synchronize()
-    if isinstance(ks, torch.Tensor):
-        ks, ps = (ks,), (ps,)
-    err = max(compare(k, p) for k, p in zip(ks, ps))
-    errs[name] = max(errs[name], err)
-    return err
+    if name == "matmul":
+        a, b, transpose_a = case
+        out = matmul_errors(ks, ps, f64_matmul(a, b, transpose_a))
+    else:
+        if isinstance(ks, torch.Tensor):
+            ks, ps = (ks,), (ps,)
+        out = {"max_abs_err": max(compare(k, p) for k, p in zip(ks, ps))}
+    errs[name] = max(errs[name], out["max_abs_err"])
+    return out
 
 
 PROXES = ((1e-3, 0.8), (0.0, 0.8), (1e-3, 0.0), (0.0, 0.0))   # (l1, clip)
+FLAT_SHAPES = ((1024,), (2048,), (8, 128), (2, 8, 128), (4, 2, 128))
+# the reference's four, the gradient passes' N = 1, the cross-check's
+MATMUL_SHAPES = ((128, 128, 128), (256, 384, 128), (100, 50, 30),
+                 (129, 257, 65), (129, 257, 1), (1000, 3000, 1),
+                 (96, 1024, 1), (1024, 96, 1))
+MARGIN_SHAPES = ((1, 1), (129, 1), (96, 1), (256, 128), (1000, 3))
 
 
 def phase_kernels(bw: float, errs):
@@ -293,8 +469,36 @@ def phase_kernels(bw: float, errs):
                 check("prox_consensus", prox_case(M, d, gen, l1, clip, nan),
                       errs)
                 cells += 1
-    emit("kernels_small", cells=cells, max_abs_err=errs)
+    for shape in FLAT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for rho in (0.5, 100.0):
+                for nan in (False, True):
+                    check("admm_worker_update",
+                          worker_update_case(shape, dtype, rho, gen, nan),
+                          errs)
+                    cells += 1
+    matmul_f64 = {"err_vs_f64": 0.0, "plain_err_vs_f64": 0.0,
+                  "share_of_limit": 0.0}
+    for (m, k, n) in MATMUL_SHAPES:
+        for transpose_a in (False, True):
+            for nan in (False, True):
+                out = check("matmul", matmul_case(m, k, n, transpose_a, gen,
+                                                  nan), errs)
+                out["share_of_limit"] = (out["err_vs_f64"] / out["f64_limit"]
+                                         if out["f64_limit"] else 0.0)
+                for key in matmul_f64:
+                    matmul_f64[key] = max(matmul_f64[key], out[key])
+                cells += 1
+    for shape in MARGIN_SHAPES:
+        for nan in (False, True):
+            check("margin", margin_case(shape, gen, nan), errs)
+            cells += 1
+    emit("kernels_small", cells=cells, max_abs_err=errs,
+         matmul_vs_float64=matmul_f64)
 
+    # B5 square, timed against torch.matmul (the plain version) with TF32 off
+    case = matmul_case(4096, 4096, 4096, False, gen)
+    emit("kernels_square", **measure("matmul", case, bw, errs))
     # full width without x (the track_x=False option, which no path below
     # drives); the paths' own inputs are checked by check_on_path
     from repro_torch.core.blocks import make_flat_blocks
@@ -306,33 +510,73 @@ def phase_kernels(bw: float, errs):
     torch.cuda.empty_cache()
 
 
-def measure(name: str, case, bw: float, errs) -> dict:
+def phase_worker_update(bw: float, errs):
+    """B4's path: ``ops.admm_worker_update``, the package's unmasked
+    worker update, on the kdda_like worker bundle (8, 64, 315,904) f32;
+    its inputs held against the plain version and timed there."""
+    from repro_torch.core.blocks import make_flat_blocks
+    from repro_torch.kernels import ops
+
+    dblk = make_flat_blocks(KDDA_DIM, KDDA_BLOCKS).block_dim
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g, y, z = (torch.randn((KDDA_WORKERS, KDDA_BLOCKS, dblk), generator=gen,
+                           device="cuda") for _ in range(3))
+    ops.reset_launch_counts()
+    with capture_inputs(copy=False, names=("admm_worker_update",)) as inputs:
+        x, y_new, w = ops.admm_worker_update(g, y, z, 2.0)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    expect_counts("worker_update", launches, {"admm_worker_update": 1})
+    if not (x.shape == w.shape == g.shape and torch.equal(y_new, -g)
+            and bool(torch.isfinite(x).all() & torch.isfinite(w).all())):
+        fail("worker_update: outputs are not finite (x, -g, w) of the "
+             "bundle's shape")
+    (case,) = inputs["admm_worker_update"]
+    row = measure("admm_worker_update", case, bw, errs)
+    emit("worker_update", launches=launches, **row)
+    del g, y, z, x, y_new, w, case, inputs
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def measure(name: str, case, bw: float, errs, reps: int = REPS,
+            windows: int = WINDOWS) -> dict:
     """``name``'s kernel against its plain version on ``case``: max|Δ|
-    (folded into ``errs``), both times, and the bound."""
-    err = check(name, case, errs)
+    (folded into ``errs``), both times, and the bound; for the matmul
+    the plain version is ``torch.matmul``, which is also its library
+    time."""
+    out = check(name, case, errs)
     mod = kernel_module(name)
     kernel, plain = getattr(mod, f"{name}_cuda"), getattr(mod, PLAIN[name])
-    ms = time_ms(lambda: kernel(*case))
-    plain_ms = time_ms(lambda: plain(*case))
+    ms = time_ms(lambda: kernel(*case), reps, windows)
+    plain_ms = time_ms(lambda: plain(*case), reps, windows)
     bytes_, flops = COUNTS[name](case)
     bound_ms, bound_by = bound(bytes_, flops, bw)
-    return dict(name=name, shape=list(case[1].shape), max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bytes=bytes_, flops=flops,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(name=name, shape=list(case[1].shape),
+                shapes=[list(t.shape) for t in case
+                        if isinstance(t, torch.Tensor)],
+                ms=ms, plain_ms=plain_ms,
+                library_ms=plain_ms if name == "matmul" else None,
+                bytes=bytes_, flops=flops, bound_ms=bound_ms,
+                bound_by=bound_by, **out)
 
 
 @contextlib.contextmanager
-def capture_inputs():
-    """Inside the block, keep a copy of the arguments of each kernel's
-    latest launch, by name; the launch itself goes ahead unchanged."""
+def capture_inputs(copy: bool = True, names=None):
+    """Inside the block, keep the arguments of every launch of each kernel
+    (of ``names``; all by default), by name in launch order: copies, or
+    with ``copy=False`` the tensors themselves (inputs too large to copy,
+    which nothing writes to afterwards). The launches go ahead
+    unchanged."""
     inputs, restore = {}, []
-    for name in PLAIN:
+    for name in (names or PLAIN):
         mod = kernel_module(name)
         real = getattr(mod, f"{name}_cuda")
 
         def wrapped(*args, _real=real, _name=name):
-            inputs[_name] = tuple(
-                a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            inputs.setdefault(_name, []).append(tuple(
+                a.clone() if copy and isinstance(a, torch.Tensor) else a
+                for a in args))
             return _real(*args)
 
         setattr(mod, f"{name}_cuda", wrapped)
@@ -347,12 +591,13 @@ def capture_inputs():
 def check_on_path(path: str, inputs, names, bw: float, errs) -> dict:
     """Each kernel against its plain version on the inputs a path gave it
     in one epoch (``capture_inputs``), timed there; ``names`` are the
-    kernels the path must have launched."""
-    if set(inputs) != set(names):
+    kernels the path must have launched, once each."""
+    if set(inputs) != set(names) or any(len(c) != 1 for c in inputs.values()):
         fail(f"{path}: kernels launched in the captured epoch: "
-             f"{sorted(inputs)}, expected {sorted(names)}")
+             f"{ {k: len(c) for k, c in inputs.items()} }, expected one "
+             f"launch of each of {sorted(names)}")
     rows = {}
-    for name, case in inputs.items():
+    for name, (case,) in inputs.items():
         rows[name] = measure(name, case, bw, errs)
         emit("kernels_on_path", path=path, **rows[name])
     inputs.clear()
@@ -389,13 +634,18 @@ def kdda_problem(workers=KDDA_WORKERS, dim=KDDA_DIM):
     return cfg, torch.randn((workers, dim), generator=gen, device="cuda")
 
 
+def expect_counts(path: str, launches, want) -> None:
+    """Each kernel launched ``want[name]`` times on ``path``, every other
+    kernel never."""
+    full = {k: want.get(k, 0) for k in PLAIN}
+    if launches != full:
+        fail(f"{path}: launches {launches}, expected {full}")
+
+
 def expect_launches(path: str, launches, epochs: int, names) -> None:
     """``names`` launched once an epoch on ``path``, every other kernel
     never."""
-    want = {k: (epochs if k in names else 0) for k in PLAIN}
-    if launches != want:
-        fail(f"{path}: launches {launches} in {epochs} epochs, expected "
-             f"{want}")
+    expect_counts(path, launches, {k: epochs for k in names})
 
 
 MAIN_KERNELS = ("admm_worker_select_update", "server_prox_update")
@@ -412,7 +662,7 @@ def phase_main(bw: float, errs):
     sess = ConsensusSession.flat(quad_loss, centers, dim=KDDA_DIM, cfg=cfg)
     if sess.spec.space.backend != "cuda":
         fail(f"'auto' resolved to {sess.spec.space.backend!r} on the card")
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     ops.reset_launch_counts()
     state, times = run_epochs(sess, MAIN_EPOCHS)
     launches = ops.launch_counts()
@@ -492,28 +742,24 @@ def profile_epochs(path: str, sess, state, epoch_ms: float, epochs: int = 3):
 # phase 5: the paper's workload
 # ---------------------------------------------------------------------------
 
-def logreg_loss(z, d):
-    X, y = d
-    return torch.mean(torch.log1p(torch.exp(-y * (X @ z))))
+PAPER_VARIANT = "AsyBADMM (D=2, 50% blocks)"
 
 
 def phase_paper(bw: float, errs):
-    from repro_torch.api import ConsensusSession
-    from repro_torch.configs.base import ADMMConfig
-    from repro_torch.data import make_sparse_logreg
+    """The paper's entry points on the card: one variant of
+    ``examples.sparse_logreg_admm`` on both backends (same draws), then
+    that script, the quickstart and the Fig. 2 benchmark at their
+    defaults."""
+    from repro_torch.benchmarks import convergence
+    from repro_torch.examples import quickstart
+    from repro_torch.examples import sparse_logreg_admm as slr
     from repro_torch.kernels import ops
 
-    dim = 1024
-    data = make_sparse_logreg(num_workers=8, samples_per_worker=96, dim=dim,
-                              density=0.08, seed=0)
-    # examples/sparse_logreg_admm.py's "AsyBADMM (D=2, 50% blocks)"
-    cfg = ADMMConfig(rho=2.0, gamma=0.1, max_delay=2, block_fraction=0.5,
-                     num_blocks=16, seed=1)
+    data = slr.make_data()
+    cfg = slr.VARIANTS[PAPER_VARIANT]
     out = {}
     for backend in ("auto", "torch"):
-        sess = ConsensusSession.flat(logreg_loss, (data.X, data.y), dim=dim,
-                                     cfg=cfg, support=data.support,
-                                     l1_coef=1e-3, clip=1e4, backend=backend)
+        sess = slr.session_for(data, cfg, device="cuda", backend=backend)
         state = sess.init()
         obj0 = sess.objective(state)
         ops.reset_launch_counts()
@@ -546,11 +792,74 @@ def phase_paper(bw: float, errs):
                for a, b in zip(k["zs"], p["zs"])):
         fail(f"paper workload: kernel and torch trajectories differ by "
              f"{diff:.3e}")
-    emit("paper", epochs=PAPER_EPOCHS, dim=dim, workers=8, blocks=16,
+    emit("paper", variant=PAPER_VARIANT, epochs=PAPER_EPOCHS,
+         dim=data.X.shape[-1], workers=data.X.shape[0], blocks=cfg.num_blocks,
          z_max_abs_diff_vs_torch=diff,
          **{b: {key: v for key, v in r.items() if key != "zs"}
             for b, r in out.items()})
     check_on_path("paper", inputs, MAIN_KERNELS, bw, errs)
+
+    entry = {}
+    # examples/sparse_logreg_admm.py: three variants and the cross-check
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with capture_inputs(names=("matmul", "margin")) as cross:
+        res = slr.main([])
+    entry["sparse_logreg_admm_s"] = time.perf_counter() - t0
+    epochs = sum(r["epochs"] for r in res["rows"])
+    expect_counts("sparse_logreg_admm", ops.launch_counts(),
+                  {"admm_worker_select_update": epochs,
+                   "server_prox_update": epochs, "matmul": 2, "margin": 1})
+    ck = res["crosscheck"]
+    if not torch.allclose(ck["g_kernel"], ck["g_auto"], **CROSSCHECK_TOL):
+        fail(f"sparse_logreg_admm: logreg_grad and autograd differ by "
+             f"{ck['max_abs_err']:.3e}")
+    entry["crosscheck_max_abs_err"] = ck["max_abs_err"]
+    for row in res["rows"]:
+        if row["backend"] != "cuda" or \
+                not row["objective"] < row["objective_start"]:
+            fail(f"sparse_logreg_admm: {row}")
+    entry["sparse_logreg_admm"] = res["rows"]
+
+    # examples/quickstart.py
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    qs = quickstart.main([])
+    entry["quickstart_s"] = time.perf_counter() - t0
+    expect_launches("quickstart", ops.launch_counts(), quickstart.EPOCHS,
+                    MAIN_KERNELS)
+    if qs["backend"] != "cuda" or \
+            not qs["history"][-1]["objective"] < qs["objective_start"]:
+        fail(f"quickstart: {qs}")
+    entry["quickstart"] = {"P": qs["P"], "kkt": qs["kkt"],
+                           "objective_start": qs["objective_start"],
+                           "objective_end": qs["history"][-1]["objective"]}
+
+    # benchmarks/convergence.py (one warm-up epoch per variant)
+    ops.reset_launch_counts()
+    lines = []
+    t0 = time.perf_counter()
+    conv = convergence.main(emit=lines.append)
+    entry["convergence_s"] = time.perf_counter() - t0
+    epochs = len(convergence.VARIANTS) * (convergence.EPOCHS + 1)
+    expect_launches("convergence", ops.launch_counts(), epochs, MAIN_KERNELS)
+    for r, (_, vcfg) in zip(conv, convergence.VARIANTS):
+        start = convergence.build_session(vcfg, device="cuda")
+        obj0 = start.objective(start.init())
+        if r["backend"] != "cuda" or not r["trace"][-1] < obj0:
+            fail(f"convergence: {r['name']} on {r['backend']}: objective "
+                 f"{obj0} -> {r['trace']}")
+    entry["convergence"] = lines
+    emit("paper_entry_points", **entry)
+
+    # the cross-check's own B5 and B6 launches against the plain versions
+    if [len(cross.get(n, ())) for n in ("matmul", "margin")] != [2, 1]:
+        fail(f"sparse_logreg_admm: cross-check launches "
+             f"{ {n: len(c) for n, c in cross.items()} }")
+    for name, cases in cross.items():
+        for case in cases:
+            emit("kernels_on_path", path="paper_crosscheck",
+                 **measure(name, case, bw, errs))
 
 
 # ---------------------------------------------------------------------------
@@ -575,7 +884,7 @@ def phase_spmd(bw: float, errs, z_main):
             cfg, centers = kdda_problem()
             sess = ConsensusSession.flat(quad_loss, centers, dim=KDDA_DIM,
                                          cfg=cfg, mesh=make_test_mesh(1, 1))
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             ops.reset_launch_counts()
             state, times = run_epochs(sess, MAIN_EPOCHS)
             launches = ops.launch_counts()
@@ -642,9 +951,11 @@ def spmd_rank(rank: int, world: int, init_method: str, out_dir: str):
             sess.step(state)
         torch.cuda.synchronize()
         errs = {name: 0.0 for name in PLAIN}
-        shapes = {name: list(case[1].shape) for name, case in inputs.items()}
-        for name, case in inputs.items():
-            check(name, case, errs)
+        shapes = {name: [list(case[1].shape) for case in cases]
+                  for name, cases in inputs.items()}
+        for name, cases in inputs.items():
+            for case in cases:
+                check(name, case, errs)
         torch.save({"z": z, "launches": launches, "epoch_ms": times,
                     "coords": dict(mesh.coords),
                     "grad_split": grad_split_size(sess.spec),
@@ -700,8 +1011,8 @@ def phase_spmd_ranks(errs):
             fail(f"spmd_ranks: rank {r['coords']} ran grad split "
                  f"{r['grad_split']} on tile {r['tile']} with "
                  f"{r['data_rows']} data rows")
-        want = {"admm_worker_select_update": [4, 32, 32768],
-                "prox_consensus": [32, 32768]}
+        want = {"admm_worker_select_update": [[4, 32, 32768]],
+                "prox_consensus": [[32, 32768]]}
         if r["captured"] != want:
             fail(f"spmd_ranks: rank {r['coords']} launched "
                  f"{r['captured']} in the captured epoch, expected {want}")
@@ -721,14 +1032,189 @@ def phase_spmd_ranks(errs):
          N=KDDA_WORKERS, M=KDDA_BLOCKS, dim=RANKS_DIM, epochs=RANKS_EPOCHS,
          tile=ranks[0]["tile"], launches_per_rank=ranks[0]["launches"],
          data_rows_per_rank=ranks[0]["data_rows"],
-         kernels_on_tiles={name: {"shape": shape, "max_abs_err": max(
+         kernels_on_tiles={name: {"shape": shapes[0], "max_abs_err": max(
              r["max_abs_err"][name] for r in ranks)}
-             for name, shape in ranks[0]["captured"].items()},
+             for name, shapes in ranks[0]["captured"].items()},
          z_max_abs_diff_vs_single=max(diffs),
          measures_single=measures_single,
          measures_rank0=ranks[0]["measures"],
          epoch_ms_median_per_rank=[statistics.median(r["epoch_ms"][1:])
                                    for r in ranks])
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the logistic-regression gradient at its declared size
+# ---------------------------------------------------------------------------
+
+LOGREG_WORKSPACE = 8 << 30     # bytes beside X: float64 chunks, autograd
+
+
+def plain_logreg_grad(X, y, w):
+    """``ops.logreg_grad`` composed of the kernels' plain versions."""
+    lg = kernel_module("matmul")
+    m, d = X.shape
+    s = lg.matmul_torch(X, w.reshape(d, 1))
+    v = lg.margin_torch(s, y.reshape(m, 1))
+    return lg.matmul_torch(X, v, transpose_a=True).reshape(d) / m
+
+
+def autograd_logreg_grad(X, y, w):
+    w = w.detach().requires_grad_(True)
+    loss = torch.mean(torch.log1p(torch.exp(-y * (X @ w))))
+    (g,) = torch.autograd.grad(loss, w)
+    return g
+
+
+def drop_bits(t, bits: int):
+    """A copy of float32 ``t`` rounded to 23 - ``bits`` mantissa bits
+    (16: bfloat16, 13: TF32), to nearest with ties away from zero."""
+    i = t.clone().view(torch.int32)
+    return ((i + (1 << (bits - 1))) & -(1 << bits)).view(torch.float32)
+
+
+def rounded_product(a, b, transpose_a: bool, bits: int):
+    """B5 on ``a`` and ``b`` rounded by ``drop_bits`` (``a`` a chunk of
+    stored rows at a time): what a kernel with low-precision inputs
+    would return."""
+    lg = kernel_module("matmul")
+    rb = drop_bits(b, bits)
+    rows = F64_CHUNK // a.shape[1]
+    parts = [lg.matmul_cuda(drop_bits(a[r:r + rows], bits),
+                            rb[r:r + rows] if transpose_a else rb,
+                            transpose_a)
+             for r in range(0, a.shape[0], rows)]
+    return sum(parts) if transpose_a else torch.cat(parts)
+
+
+def refused_by_gate(what: str, case, plain, exact) -> dict:
+    """Four results a faulty B5 could return for ``case``: zeros, the
+    product with the first sixteenth of K dropped, and the product of
+    inputs rounded to bfloat16 or to TF32. B5's float64 gate must refuse
+    each; returns each one's error as a multiple of the limit."""
+    lg = kernel_module("matmul")
+    a, b, transpose_a = case
+    limit, _ = f64_limit(plain, exact)
+    dropped = b.clone()
+    dropped[:b.shape[0] // 16] = 0
+    faulty = {"zeros": lambda: torch.zeros_like(plain),
+              "sixteenth_of_K_dropped": lambda: lg.matmul_cuda(
+                  a, dropped, transpose_a),
+              "bf16_inputs": lambda: rounded_product(a, b, transpose_a, 16),
+              "tf32_inputs": lambda: rounded_product(a, b, transpose_a, 13)}
+    ratios = {}
+    for name, make in faulty.items():
+        ratios[name] = f64_err(make(), exact) / limit
+        if not ratios[name] > 1.0:
+            fail(f"{what}: B5's float64 gate let a faulty result through "
+                 f"({name}: {ratios[name]:.3g} of its limit)")
+    return ratios
+
+
+def phase_logreg(bw: float, errs):
+    """``ops.logreg_grad`` on a dense f32 X of m = 2^20 samples and
+    d = 2^14 features (68.72 GB), filled on the card in row chunks:
+    B5 twice and B6 once; each pass and the gradient held against
+    float64 (and the gate shown to refuse faulty passes), the gradient
+    against autograd; everything timed."""
+    from repro_torch.kernels import ops
+
+    lg = kernel_module("matmul")
+    m, d = LOGREG_M, LOGREG_D
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    if free < 4 * m * d + LOGREG_WORKSPACE:
+        fail(f"logreg: X ({m} x {d} f32) needs {4 * m * d} B and the checks "
+             f"{LOGREG_WORKSPACE} B more; the card has {free} B free of "
+             f"{total}")
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    t0 = time.perf_counter()
+    X = torch.empty((m, d), device="cuda")
+    rows = F64_CHUNK // d
+    for r0 in range(0, m, rows):         # make_sparse_logreg's density 0.1
+        chunk = X[r0:r0 + rows]
+        chunk.normal_(generator=gen)
+        chunk.mul_(torch.rand(chunk.shape, generator=gen, device="cuda") < 0.1)
+    y = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.5,
+                    -1.0, 1.0)
+    w = 0.01 * torch.randn(d, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    with capture_inputs(copy=False, names=("matmul", "margin")) as inputs:
+        g = ops.logreg_grad(X, y, w)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    expect_counts("logreg", launches, {"matmul": 2, "margin": 1})
+    if g.shape != (d,) or not bool(torch.isfinite(g).all()):
+        fail("logreg: the gradient is not a finite vector of length d")
+    (pass1, pass2), (marg,) = inputs["matmul"], inputs["margin"]
+    s_k, v_k = marg[0], pass2[1]       # pass 1's output, B6's output
+    g_raw = lg.matmul_cuda(*pass2)     # pass 2's output, recomputed
+    plain1, plain2 = lg.matmul_torch(*pass1), lg.matmul_torch(*pass2)
+
+    # float64 on the card: pass 1 (X w), then in one sweep over X pass 2
+    # on the kernel's v, and m times the exact gradient
+    s64 = f64_matmul(X, w[:, None], False)
+    y64 = y.double()[:, None]
+    c64 = f64_matmul(X, torch.cat([v_k.double(),
+                                   -y64 * torch.sigmoid(-y64 * s64)], dim=1),
+                     True)
+    exact2, g64 = c64[:, :1], c64[:, 1] / m
+    pass1_err = matmul_errors(s_k, plain1, s64)
+    pass1_err["faulty_over_limit"] = refused_by_gate("logreg pass 1", pass1,
+                                                     plain1, s64)
+    pass2_err = matmul_errors(g_raw, plain2, exact2)
+    pass2_err["faulty_over_limit"] = refused_by_gate("logreg pass 2", pass2,
+                                                     plain2, exact2)
+    grad_err = held_to_f64("logreg_grad", g, plain_logreg_grad(X, y, w), g64)
+    g_auto = autograd_logreg_grad(X, y, w)
+    if not torch.allclose(g, g_auto, **CROSSCHECK_TOL):
+        fail(f"logreg: kernels and autograd differ by "
+             f"{float((g - g_auto).abs().max()):.3e}")
+    auto_vs_f64 = f64_err(g_auto, g64)
+    margin_err = check("margin", marg, errs)["max_abs_err"]
+    errs["matmul"] = max(errs["matmul"], pass1_err["max_abs_err"],
+                         pass2_err["max_abs_err"])
+    del s64, y64, c64, exact2, g64, g_raw, plain1, plain2
+
+    reps, windows = LOGREG_REPS, LOGREG_WINDOWS
+    timed = {}
+    for key, case in (("pass1", pass1), ("pass2", pass2)):
+        bytes_, flops = matmul_bytes_flops(case)
+        bound_ms, bound_by = bound(bytes_, flops, bw)
+        timed[key] = dict(
+            shapes=[list(case[0].shape), list(case[1].shape)],
+            transpose_a=case[2],
+            ms=time_ms(lambda: lg.matmul_cuda(*case), reps, windows, 1),
+            plain_ms=time_ms(lambda: lg.matmul_torch(*case), reps, windows,
+                             1),
+            bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    timed["pass1"].update(pass1_err)
+    timed["pass2"].update(pass2_err)
+    bytes_, flops = margin_bytes_flops(marg)
+    bound_ms, bound_by = bound(bytes_, flops, bw)
+    timed["margin"] = dict(
+        shapes=[list(marg[0].shape)] * 2, max_abs_err=margin_err,
+        ms=time_ms(lambda: lg.margin_cuda(*marg)),
+        plain_ms=time_ms(lambda: lg.margin_torch(*marg)),
+        bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    grad = dict(
+        ms=time_ms(lambda: ops.logreg_grad(X, y, w), reps, windows, 1),
+        plain_ms=time_ms(lambda: plain_logreg_grad(X, y, w), reps, windows,
+                         1),
+        autograd_ms=time_ms(lambda: autograd_logreg_grad(X, y, w), reps,
+                            windows, 1),
+        bound_ms=sum(timed[k]["bound_ms"] for k in timed),
+        **grad_err, autograd_err_vs_f64=auto_vs_f64,
+        max_abs_diff_vs_autograd=float((g - g_auto).abs().max()))
+    peak = torch.cuda.max_memory_allocated()
+    emit("logreg", m=m, d=d, x_bytes=X.numel() * 4, fill_s=fill_s,
+         free_bytes_before=free, peak_bytes=peak, launches=launches,
+         grad=grad, **timed, card=smi_line())
+    del X, y, w, g, g_auto, s_k, v_k, pass1, pass2, marg, inputs
+    torch.cuda.empty_cache()
+    return launches, timed
 
 
 def main() -> int:
@@ -753,26 +1239,42 @@ def main() -> int:
 
     errs = {name: 0.0 for name in PLAIN}
     phase_kernels(bw, errs)
+    wu_launches, wu_row = phase_worker_update(bw, errs)
     main_launches, main_rows, z_main = phase_main(bw, errs)
     phase_paper(bw, errs)
     spmd_launches, spmd_rows = phase_spmd(bw, errs, z_main)
     del z_main
     torch.cuda.empty_cache()
     phase_spmd_ranks(errs)
+    logreg_launches, logreg_rows = phase_logreg(bw, errs)
 
     # each kernel's numbers from the path it serves: B1 and B2 from main,
-    # B3 from spmd (B1 runs on both; main is its full-width single device)
+    # B3 from spmd (B1 runs on both; main is its full-width single device),
+    # B4 from its op on the kdda_like bundle, B5 (its two passes of one
+    # gradient, summed) and B6 from logreg
+    passes = [logreg_rows["pass1"], logreg_rows["pass2"]]
+    logreg_kernels = {
+        "matmul": {key: sum(r[key] for r in passes)
+                   for key in ("ms", "plain_ms", "bound_ms")},
+        "margin": logreg_rows["margin"]}
+    logreg_kernels["matmul"]["bound_by"] = "bytes" if all(
+        r["bound_by"] == "bytes" for r in passes) else "operations"
+    logreg_kernels["matmul"]["library_ms"] = logreg_kernels["matmul"][
+        "plain_ms"]                     # the plain version is torch.matmul
+    paths = {"prox_consensus": (spmd_launches, spmd_rows),
+             "admm_worker_update": (wu_launches, {"admm_worker_update":
+                                                  wu_row}),
+             "matmul": (logreg_launches, logreg_kernels),
+             "margin": (logreg_launches, logreg_kernels)}
     kernels = []
     for name_, (source, replaces) in SOURCES.items():
-        launches, rows = ((spmd_launches, spmd_rows)
-                          if name_ == "prox_consensus"
-                          else (main_launches, main_rows))
+        launches, rows = paths.get(name_, (main_launches, main_rows))
         r = rows[name_]
         kernels.append(dict(
             name=name_, route="cuda", source=source, replaces=replaces,
             launches=launches[name_], max_abs_err=errs[name_], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None))
+            bound_by=r["bound_by"], library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,16 @@
-// Fused AsyBADMM worker update, eqs. (11)+(12)+(9), with Algorithm 1's
-// sel-masked merges of y / w_cache / x — one pass over the worker bundles.
+// AsyBADMM worker update, eqs. (11)+(12)+(9), in two kernels that share
+// one update() helper (so both round as the plain torch versions do):
 //
-// Replaces the TPU kernel
-//   src/repro/kernels/admm_update.py::admm_worker_select_update_3d
-//   (Pallas body _kernel_3d).
+//   worker_select_update_kernel — with Algorithm 1's sel-masked merges of
+//       y / w_cache / x, one pass over the (N, M, d) worker bundles.
+//       Replaces src/repro/kernels/admm_update.py::
+//       admm_worker_select_update_3d (Pallas body _kernel_3d);
+//   worker_update_kernel — the unmasked update over a flat buffer with a
+//       scalar rho, returning (x, y', w), in f32 or bf16. Replaces
+//       src/repro/kernels/admm_update.py::admm_worker_update_2d (Pallas
+//       body _kernel_2d).
 //
-// For every row r = (n, m) of the (N, M, d) bundles:
+// worker_select_update_kernel, for every row r = (n, m) of the bundles:
 //   selected:   x = z~ - (g + y) / rho[n],  y' = -g,  w = rho[n] * x + y'
 //   unselected: y' = y, w = w_old, x = x_old  (a copy)
 //
@@ -22,12 +27,24 @@
 // the branch never diverges within a warp. The kernel allocates nothing
 // and launches on the caller's stream.
 //
+// worker_update_kernel reads g, y, z~ and writes x, y', w: 6 buffers of
+// n elements, 24n bytes in f32 (3.88 GB for the (8, 64, 315,904) worker
+// bundle), 12n in bf16 — memory-bound the same way. One thread per
+// 16-byte vector (4 floats or 8 bf16) in a grid-stride loop with 64-bit
+// indices; the buffer's element count is a multiple of 8*128 (the
+// reference's vreg contract), so there is no ragged tail. rho is read
+// from device memory, so a new rho is a new value, not a new launch
+// configuration, and the host never waits for the card to learn it.
+//
 // Numerics: no fast math. The division is IEEE (__fdiv_rn) and rho*x and
 // the add are rounded separately (__fmul_rn/__fadd_rn), so the compiler
 // contracts nothing into an FMA and the result equals the plain torch
-// version (two separately rounded operations) bit for bit.
+// version (two separately rounded operations) bit for bit. bf16 inputs
+// are widened to f32, computed as f32, and each output is rounded to
+// bf16 once (round to nearest even), as the plain version does.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -72,6 +89,69 @@ __global__ void worker_select_update_kernel(
   }
 }
 
+// 16 bytes of T as f32 lanes, and back (bf16 rounded to nearest even).
+template <typename T>
+struct Pack;
+
+template <>
+struct Pack<float> {
+  using Vec = float4;
+  static constexpr int kLanes = 4;
+  static __device__ __forceinline__ void load(const Vec& v, float* f) {
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  }
+  static __device__ __forceinline__ Vec store(const float* f) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+template <>
+struct Pack<__nv_bfloat16> {
+  using Vec = uint4;
+  static constexpr int kLanes = 8;
+  static __device__ __forceinline__ void load(const Vec& v, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 p = __bfloat1622float2(h[j]);
+      f[2 * j] = p.x;
+      f[2 * j + 1] = p.y;
+    }
+  }
+  static __device__ __forceinline__ Vec store(const float* f) {
+    Vec v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+    return v;
+  }
+};
+
+template <typename T>
+__global__ void worker_update_kernel(
+    const typename Pack<T>::Vec* __restrict__ g,
+    const typename Pack<T>::Vec* __restrict__ y,
+    const typename Pack<T>::Vec* __restrict__ zt,
+    const float* __restrict__ rho, typename Pack<T>::Vec* __restrict__ x_out,
+    typename Pack<T>::Vec* __restrict__ y_out,
+    typename Pack<T>::Vec* __restrict__ w_out, int64_t total) {
+  constexpr int L = Pack<T>::kLanes;
+  const float r = *rho;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    float gf[L], yf[L], zf[L], xo[L], yo[L], wo[L];
+    Pack<T>::load(g[i], gf);
+    Pack<T>::load(y[i], yf);
+    Pack<T>::load(zt[i], zf);
+#pragma unroll
+    for (int j = 0; j < L; ++j) update(gf[j], yf[j], zf[j], r, xo[j], yo[j], wo[j]);
+    x_out[i] = Pack<T>::store(xo);
+    y_out[i] = Pack<T>::store(yo);
+    w_out[i] = Pack<T>::store(wo);
+  }
+}
+
 // Enough blocks to fill every SM at full occupancy; the grid-stride loop
 // covers the rest.
 int grid_blocks(int device, int64_t total, int threads) {
@@ -81,6 +161,27 @@ int grid_blocks(int device, int64_t total, int threads) {
   const int64_t need = (total + threads - 1) / threads;
   const int64_t full = static_cast<int64_t>(sms) * (2048 / threads);
   return static_cast<int>(need < full ? need : full);
+}
+
+template <typename T>
+int launch_worker_update(const void* g, const void* y, const void* z_tilde,
+                         const void* rho, void* x_out, void* y_out,
+                         void* w_out, int64_t n, int device, void* stream) {
+  using Vec = typename Pack<T>::Vec;
+  const int64_t total = n / Pack<T>::kLanes;
+  if (total == 0) return 0;
+  int current = -1;
+  cudaGetDevice(&current);
+  if (current != device) cudaSetDevice(device);
+  const int threads = 256;
+  const int blocks = grid_blocks(device, total, threads);
+  worker_update_kernel<T><<<blocks, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Vec*>(g), static_cast<const Vec*>(y),
+      static_cast<const Vec*>(z_tilde), static_cast<const float*>(rho),
+      static_cast<Vec*>(x_out), static_cast<Vec*>(y_out),
+      static_cast<Vec*>(w_out), total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -118,4 +219,23 @@ extern "C" int admm_worker_select_update(
         gp, yp, zp, wp, nullptr, sp, rp, yo, wo, nullptr, M, d4, total);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The unmasked update over n elements (n % 8 == 0; every pointer 16-byte
+// aligned). dtype 0 is f32, 1 is bf16; rho is one f32 on the device.
+// Returns cudaGetLastError() after the launch; 0 means launched, -1 an
+// unknown dtype.
+extern "C" int admm_worker_update(const void* g, const void* y,
+                                  const void* z_tilde, const void* rho,
+                                  void* x_out, void* y_out, void* w_out,
+                                  int64_t n, int dtype, int device,
+                                  void* stream) {
+  if (dtype == 0)
+    return launch_worker_update<float>(g, y, z_tilde, rho, x_out, y_out,
+                                       w_out, n, device, stream);
+  if (dtype == 1)
+    return launch_worker_update<__nv_bfloat16>(g, y, z_tilde, rho, x_out,
+                                               y_out, w_out, n, device,
+                                               stream);
+  return -1;
 }

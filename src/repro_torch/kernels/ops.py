@@ -1,23 +1,32 @@
-"""The epoch's kernel ops, dispatched on the tensors' device: the fused
-worker update, the fused server update (single-device epoch) and the
-server prox from a reduced w_sum (SPMD epoch).
+"""The kernel ops, dispatched on the tensors' device: the epoch's fused
+worker update, fused server update (single-device epoch) and server
+prox from a reduced w_sum (SPMD epoch); and the package's other kernel
+entry points, the unmasked worker update on a flat buffer, the matmul
+and the logistic-regression gradient built on it.
 
 On CUDA tensors each op launches its hand-written kernel (or raises: it
 never falls back to the plain version). On CPU tensors it runs the
 kernel's plain torch version, because there is no kernel to launch.
 
 Lane alignment is a property of the layout (``core.blocks`` rounds every
-block row up to 128), so every op refuses rows whose width is not a
-multiple of 128, with the reference's ``ValueError`` contract.
+block row up to 128), so every epoch op refuses rows whose width is not
+a multiple of 128, and ``admm_worker_update`` buffers whose element
+count is not a multiple of 8*128, with the reference's ``ValueError``
+contract. ``matmul`` and ``logreg_grad`` take any shape (data matrices
+are not laid out by the package) and float32 only.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from . import admm_update as _admm
+from . import logreg as _lg
 from . import prox_update as _prox
 
 LANE = 128
+SUBLANE = 8
 
 
 def _require_lane_aligned(d: int, op: str) -> None:
@@ -80,12 +89,73 @@ def prox_consensus(z_tilde, w_sum, rho_sum, gamma: float, l1: float = 0.0,
                                       clip)
 
 
+def _flat_aligned(v):
+    """``v`` as a flat buffer; raises for element counts that are not
+    (8 x 128)-aligned: alignment is the layout's job."""
+    n = v.numel()
+    if n % (SUBLANE * LANE) != 0:
+        raise ValueError(
+            f"buffer of {n} elements (shape {tuple(v.shape)}) is not "
+            f"({SUBLANE}x{LANE})-vreg aligned; kernel ops require "
+            f"lane-aligned buffers. Pack through a lane-aligned layout "
+            f"(core.blocks.make_flat_blocks rounds block_dim up to {LANE}) "
+            f"instead of passing raw leaves.")
+    return v.reshape(n)
+
+
+def admm_worker_update(g, y, z_tilde, rho):
+    """Fused eqs. (11)+(12)+(9) on arbitrarily shaped buffers of one
+    shape, f32 or bf16, whose element count is a multiple of 8*128.
+    ``rho`` is a number or a one-element tensor. Returns (x, y', w) in
+    the buffers' shape and dtype."""
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"admm_worker_update takes float32 or bfloat16, got "
+                        f"{g.dtype}")
+    flat = [_flat_aligned(t) for t in (g, y, z_tilde)]
+    if g.is_cuda:
+        outs = _admm.admm_worker_update_cuda(*flat, rho)
+    else:
+        outs = _admm.admm_worker_update_torch(*flat, rho)
+    return tuple(o.reshape(g.shape) for o in outs)
+
+
+def matmul(a, b, transpose_a: bool = False):
+    """C = A B, or A^T B (``a`` stored (K, M)) without building A^T.
+    float32, 2-D, any sizes."""
+    _lg.require_f32("matmul", a=a, b=b)
+    if a.is_cuda:
+        return _lg.matmul_cuda(a, b, transpose_a)
+    return _lg.matmul_torch(a, b, transpose_a)
+
+
+def _margin(s, y):
+    """v = -y * sigmoid(-y * s) elementwise; float32."""
+    _lg.require_f32("margin", s=s, y=y)
+    if s.is_cuda:
+        return _lg.margin_cuda(s, y)
+    return _lg.margin_torch(s, y)
+
+
+def logreg_grad(X, y, w):
+    """Gradient of the mean logistic loss: X (m, d), y (m,) in {-1, +1},
+    w (d,), all float32. Two ``matmul`` launches around one ``margin``
+    launch (X w, then X^T v with X^T never built), then / m."""
+    m, d = X.shape
+    s = matmul(X, w.reshape(d, 1))
+    v = _margin(s, y.reshape(m, 1))
+    g = matmul(X, v, transpose_a=True)
+    return g.reshape(d) / m
+
+
+_COUNTERS = (_admm.launches, _prox.launches, _lg.launches)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by op."""
-    return {"admm_worker_select_update": _admm.launches, **_prox.launches}
+    return {name: n for counter in _COUNTERS for name, n in counter.items()}
 
 
 def reset_launch_counts() -> None:
-    _admm.launches = 0
-    for name in _prox.launches:
-        _prox.launches[name] = 0
+    for counter in _COUNTERS:
+        for name in counter:
+            counter[name] = 0

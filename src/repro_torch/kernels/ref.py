@@ -1,6 +1,7 @@
-"""Plain torch oracles for the epoch's kernel entry points — the
-reference's ``repro/kernels/ref.py`` in torch, in its unfused form
-(``y' = y + rho*(x - z~)``, the worker sum as one ``torch.sum``).
+"""Plain torch oracles for the kernel entry points — the reference's
+``repro/kernels/ref.py`` in torch, in its unfused form
+(``y' = y + rho*(x - z~)``, the worker sum as one ``torch.sum``, the
+logistic gradient as two products around the margin).
 """
 from __future__ import annotations
 
@@ -53,3 +54,16 @@ def server_prox_update_ref(z_cur, w_cache, edge, rho_sum, gamma: float,
     w_sum = torch.sum(torch.where(edge[..., None], w_cache, 0.0), dim=0)
     return prox_consensus_ref(z_cur, w_sum, rho_sum.reshape(-1, 1),
                               gamma, l1, clip)
+
+
+def logreg_margin_ref(X, y, w):
+    """v = -y * sigmoid(-y * (X @ w)) — per-sample dloss/dmargin."""
+    s = X @ w
+    return -y * torch.sigmoid(-y * s)
+
+
+def logreg_grad_ref(X, y, w):
+    """grad of mean_i log(1+exp(-y_i x_i.w)) wrt w (eq. 22 smooth part)."""
+    m = X.shape[0]
+    v = logreg_margin_ref(X, y, w)
+    return (X.T @ v) / m

@@ -1,7 +1,7 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-rank side of the sharded tests import neither JAX nor the reference
-package, and the kernels build without
-fast math (their plain versions are their yardstick)."""
+"""The port stands alone: ``repro_torch`` (its kernels, examples and
+benchmarks too), ``chip_smoke.py`` and the rank side of the sharded
+tests import neither JAX nor the reference package, and the kernels
+build without fast math (their plain versions are their yardstick)."""
 import ast
 import subprocess
 import sys
@@ -18,6 +18,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.api, repro_torch.kernels.ops\n"
             "import repro_torch.launch.mesh, repro_torch.core.sharded\n"
+            "import repro_torch.kernels.logreg\n"
+            "import repro_torch.examples.quickstart\n"
+            "import repro_torch.examples.sparse_logreg_admm\n"
+            "import repro_torch.benchmarks.convergence\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -51,5 +55,17 @@ def test_kernels_build_without_fast_math():
     src = (PORT / "kernels" / "_build.py").read_text()
     assert "fast_math" not in src and "fast-math" not in src
     assert "arch=compute_90a,code=sm_90a" in src
-    for cu in (PORT / "csrc").glob("*.cu"):
-        assert "fast_math" not in cu.read_text()
+    sources = sorted((PORT / "csrc").glob("*.cu"))
+    assert [p.stem for p in sources] == sorted(_build_sources())
+    for cu in sources:
+        text = cu.read_text()
+        assert "fast_math" not in text and "__expf(" not in text
+
+
+def _build_sources():
+    """``_build.SOURCES``: every source under csrc/ is built."""
+    tree = ast.parse((PORT / "kernels" / "_build.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "SOURCES":
+            return ast.literal_eval(node.value)
+    raise AssertionError("_build.py has no SOURCES")

@@ -1,6 +1,7 @@
 """The port's kernel ops (``repro_torch.kernels``) against the reference's:
-the fused worker update (B1), the fused server update (B2) and the
-server prox from a reduced w_sum (B3).
+the fused worker update (B1), the fused server update (B2), the
+server prox from a reduced w_sum (B3) and the unmasked worker update on
+a flat buffer (B4, f32 and bf16).
 
 On the CPU each port op runs its kernel's plain torch version; it is held
 against the reference's Pallas kernel in interpret mode (the kernel
@@ -91,6 +92,86 @@ def test_worker_select_update_matches_reference(shape, with_x):
     for p, r in zip(ref.admm_worker_select_update_ref(*_t(*args)),
                     rref.admm_worker_select_update_ref(*_j(*args))):
         _close(p, r)
+
+
+# the reference's flat-op shapes (every one (8*128)-element aligned)
+FLAT_SHAPES = [(1024,), (2048,), (8, 128), (2, 8, 128), (4, 2, 128)]
+
+
+def _as_dtype(a, dtype):
+    """One f32 numpy array as (torch, jax) tensors of ``dtype``; both
+    round f32 to bf16 to nearest even, so they hold the same values."""
+    if dtype == "float32":
+        return torch.as_tensor(a), jnp.asarray(a)
+    return torch.as_tensor(a).to(torch.bfloat16), jnp.asarray(a, jnp.bfloat16)
+
+
+@pytest.mark.parametrize("shape", FLAT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rho", [0.5, 100.0])
+def test_admm_worker_update_matches_reference(shape, dtype, rho):
+    """f32 at 1e-6 against the reference's kernel (interpret mode); bf16
+    at the reference's own bf16 tolerance, 4e-2 * max(1, rho): the
+    reference rounds g + y to bf16 before the division, the port rounds
+    each output once. Both also against the f32 oracle at the
+    reference's tolerances for it (``tests/test_kernels.py:32-38``: the
+    oracle's unfused y' = y + rho (x - z~) cancels, so f32 is held at
+    rtol 1e-5 / atol 1e-4 there)."""
+    rng = np.random.RandomState(hash((shape, rho)) % 2**31)
+    arrays = [rng.randn(*shape).astype(np.float32) for _ in range(3)]
+    pairs = [_as_dtype(a, dtype) for a in arrays]
+    port = ops.admm_worker_update(*(p[0] for p in pairs), rho)
+    kernel = rops.admm_worker_update(*(p[1] for p in pairs), rho,
+                                     interpret=True)
+    exact = rref.admm_worker_update_ref(
+        *(p[1].astype(jnp.float32) for p in pairs), rho)
+    if dtype == "float32":
+        tol, oracle_tol = dict(rtol=TOL, atol=TOL), dict(rtol=1e-5, atol=1e-4)
+    else:
+        tol = oracle_tol = dict(rtol=4e-2, atol=4e-2 * max(1.0, rho))
+    for p, k, e in zip(port, kernel, exact):
+        assert tuple(p.shape) == shape and str(p.dtype) == f"torch.{dtype}"
+        np.testing.assert_allclose(p.float().numpy(),
+                                   np.asarray(k, np.float32), **tol)
+        np.testing.assert_allclose(p.float().numpy(),
+                                   np.asarray(e, np.float32), **oracle_tol)
+    # the port's oracle, unfused form, against the reference's
+    for p, r in zip(ref.admm_worker_update_ref(*_t(*arrays), rho),
+                    rref.admm_worker_update_ref(*_j(*arrays), rho)):
+        _close(p, r)
+
+
+def test_admm_worker_update_y_identity():
+    """Eq. 25: y' must equal -g exactly, in both dtypes."""
+    g = np.random.RandomState(0).randn(1024).astype(np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        tg = torch.as_tensor(g).to(dtype)
+        o = torch.ones(1024, dtype=dtype)
+        _, yn, _ = ops.admm_worker_update(tg, o, o, 3.0)
+        assert torch.equal(yn, -tg)
+
+
+@pytest.mark.parametrize("shape", [(64,), (7, 33), (3, 5, 17), (513,)])
+def test_admm_worker_update_rejects_unaligned(shape):
+    """Ragged buffers get no pad copy: the reference's error, naming the
+    layout builder that produces aligned tables."""
+    a = torch.ones(shape)
+    with pytest.raises(ValueError, match="make_flat_blocks"):
+        ops.admm_worker_update(a, a, a, 1.0)
+
+
+def test_admm_worker_update_takes_f32_or_bf16():
+    for dtype in (torch.float16, torch.float64):
+        a = torch.ones(1024, dtype=dtype)
+        with pytest.raises(TypeError, match="bfloat16"):
+            ops.admm_worker_update(a, a, a, 1.0)
+    a = torch.ones(1024)
+    rho = torch.tensor([2.0])                 # a one-element tensor rho
+    for p, q in zip(ops.admm_worker_update(a, a, a, rho),
+                    ops.admm_worker_update(a, a, a, 2.0)):
+        assert torch.equal(p, q)
+    with pytest.raises(ValueError, match="one value"):
+        ops.admm_worker_update(a, a, a, torch.ones(2))
 
 
 PROXES = [(1e-3, 0.8), (0.0, 0.8), (0.05, 0.0), (0.0, 0.0)]
@@ -233,9 +314,17 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert torch.equal(
         ops.prox_consensus(z, w_sum, rho_sum, 0.1, 1e-3, 0.8),
         prox_update.prox_consensus_torch(z, w_sum, rho_sum, 0.1, 1e-3, 0.8))
+    flat = [t.reshape(-1)[:1024] for t in (g, y, zt)]
+    assert all(torch.equal(a, b) for a, b in zip(
+        ops.admm_worker_update(*flat, 2.0),
+        admm_update.admm_worker_update_torch(*flat, 2.0)))
     assert ops.launch_counts() == {"admm_worker_select_update": 0,
+                                   "admm_worker_update": 0,
                                    "server_prox_update": 0,
-                                   "prox_consensus": 0}
+                                   "prox_consensus": 0,
+                                   "matmul": 0, "margin": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        admm_update.admm_worker_update_cuda(*flat, 2.0)
     with pytest.raises(ValueError, match="CUDA"):
         admm_update.admm_worker_select_update_cuda(g, y, zt, w, sel, rho, x)
     with pytest.raises(ValueError, match="CUDA"):
