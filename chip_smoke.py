@@ -7,16 +7,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device  — the card (nvidia-smi name and power limit), torch and CUDA;
 2. build   — nvcc builds every kernel from ``src/repro_torch/csrc``;
-3. kernels — each kernel (B1-B6) against its plain torch version on the
+3. kernels — each kernel (B1-B7) against its plain torch version on the
    card, at small ragged shapes and the paper path's shape (NaN/Inf
-   cells among them), B5 also at 4096^3 against ``torch.matmul``; B1
+   cells among them; B5 and B6 in bf16 and f16 too, B7 at the reference
+   test's shapes in f32 and bf16), B5 also at 4096^3 against
+   ``torch.matmul``; B1
    at full width without x; and B4's path: ``ops.admm_worker_update``
    on the kdda_like worker bundle (8, 64, 315,904), its launch counted
    and its inputs held against the plain version, with times
    (medians of CUDA-event windows of back-to-back calls) and bounds.
-   B5 is held against a float64 product (it sums in another order than
-   cuBLAS): its error there at most MATMUL_RATIO times torch.matmul's;
-   the others within KERNEL_TOL;
+   B5 and B7 are held against float64 (they sum in another order than
+   their plain versions): their error there at most MATMUL_RATIO times
+   the plain version's; the others within KERNEL_TOL;
 4. main    — ``ConsensusSession.flat`` at the paper's KDDa width
    (N=8 workers, M=64 blocks, 20,216,830 coordinates; the quadratic
    loss and config of ``benchmarks/kernels_bench.py``'s kdda_like case):
@@ -46,7 +48,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    gradient violation within 1e-5 (relative) of it; one more epoch on
    every rank holds B1 and B3 against their plain versions on that
    rank's tile inputs;
-8. logreg  — ``ops.logreg_grad`` at the size the repo declares for it
+8. serve   — the dense model stack at qwen3-1.7b's full width (28
+   layers, d_model 2048, 16 / 8 heads of 128, vocab 151,936, fp32,
+   random weights from a seed): ``Model.prefill`` of 4 x 4096 tokens on
+   the flash path, where B7 launches once per layer (28), and on the
+   naive path (last-position logits within 2e-3 of each other); B7 on
+   one layer's inputs held to float64 attention by B5's rule, the gate
+   shown to refuse three faulty results (no causal mask, the last K tile
+   dropped, bf16-rounded inputs), timed beside its plain version and
+   ``scaled_dot_product_attention``; then ``Engine.generate`` with
+   launch/serve.py's defaults (4 requests x 16-token prompts, 24 new
+   tokens, greedy) through the KV-cache decode, which launches no
+   kernel: decode logits within 5e-4 of the prefill's at every prompt
+   position, first tokens the flash prefill's argmax wherever its top-2
+   gap exceeds the measured difference; prefill and decode times, peak
+   memory;
+9. logreg  — ``ops.logreg_grad`` at the size the repo declares for it
    (m = 2^20 samples, d = 2^14 features, X dense f32, 68.72 GB, filled
    on the card in row chunks): launches B5 twice and B6 once; each pass
    and the gradient are held against float64 (computed on the card in
@@ -55,7 +72,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    of K dropped, bf16- and TF32-rounded inputs); each kernel, the
    gradient and autograd are timed. Runs last, with everything before
    it freed;
-9. a ``kernels`` summary line, the card's nvidia-smi line, and the last
+10. a ``kernels`` summary line, the card's nvidia-smi line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -100,6 +117,12 @@ RANKS_DIM = 2_097_152                    # dblk 32,768 at M=64
 RANKS_EPOCHS = 5
 PG_TIMEOUT_S = 300             # a collective that waits longer fails
 RANKS_JOIN_S = 600             # the ranks of spmd_ranks, all together
+SERVE_ARCH = "qwen3-1.7b"      # launch/serve.py's default arch, full width
+SERVE_BATCH, SERVE_SEQ = 4, 4096          # the prefill: 4 prompts x 4096
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 16, 24   # launch/serve.py's
+FLASH_NAIVE_TOL = 2e-3         # tests/test_flash_attention.py:69
+DECODE_TOL = 5e-4              # tests/test_decode_consistency.py:39
+FLASH_REPS, FLASH_WINDOWS = 5, 3   # the plain version moves ~13 GB a call
 
 
 def emit(phase: str, **fields) -> None:
@@ -228,11 +251,12 @@ def held_to_f64(what: str, out, plain, exact) -> dict:
             "f64_limit": limit}
 
 
-def matmul_errors(kernel, plain, exact) -> dict:
-    """B5's check: NaN/Inf where the plain version has them, and the
-    kernel within its float64 limit; with max|kernel - plain|."""
+def f64_rule_errors(what: str, kernel, plain, exact) -> dict:
+    """B5's check (B7's too): NaN/Inf where the plain version has them,
+    and the kernel within its float64 limit; with max|kernel - plain|."""
+    kernel, plain = kernel.float(), plain.float()
     same_nonfinite(kernel, plain)
-    out = held_to_f64("matmul kernel", kernel, plain, exact)
+    out = held_to_f64(what, kernel, plain, exact)
     fin = torch.isfinite(plain)
     diff = float((kernel - plain).abs()[fin].max()) if bool(fin.any()) else 0.0
     return {"max_abs_err": diff, **out}
@@ -354,7 +378,7 @@ def matmul_bytes_flops(case):
     a, b, transpose_a = case
     K, N = b.shape
     M = a.shape[1] if transpose_a else a.shape[0]
-    return 4 * (a.numel() + b.numel() + M * N), 2 * M * N * K
+    return a.element_size() * (a.numel() + b.numel() + M * N), 2 * M * N * K
 
 
 def margin_case(shape, gen, nan=False):
@@ -370,7 +394,59 @@ def margin_case(shape, gen, nan=False):
 
 def margin_bytes_flops(case):
     s = case[0]
-    return 12 * s.numel(), 5 * s.numel()
+    return 3 * s.element_size() * s.numel(), 5 * s.numel()
+
+
+def attention_case(BH, S, hd, causal, dtype, gen, nan=False):
+    q, k, v = (torch.randn((BH, S, hd), generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    if nan:
+        q[0, S // 2, 3] = float("nan")         # one query row
+        k[-1, S // 3, 5] = float("nan")        # one key of the last head
+        v[0, 63, 7] = float("inf")             # a key of the first K tile,
+    return (q, k, v, causal)                   # which every row visits
+
+
+def attention_pairs(S: int, T: int, causal: bool) -> int:
+    """The (query, key) pairs the function needs: all S * T, or under
+    causal the keys at or before each query's index."""
+    if not causal:
+        return S * T
+    n = min(S, T)
+    return n * (n + 1) // 2 + (S - n) * T
+
+
+def attention_bytes_flops(case):
+    """q, k, v read and the output written once; a multiply-add (2
+    operations) per needed pair and channel in each of q kᵀ and p v."""
+    q, k, v, causal = case[:4]
+    BH, S, hd = q.shape
+    bytes_ = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return bytes_, 4 * BH * attention_pairs(S, k.shape[1], causal) * hd
+
+
+def f64_attention(q, k, v, causal=True, scale=None):
+    """B7's function in float64 on the card, one head at a time, with the
+    scale rounded to float32 as the kernel and the plain version take
+    it."""
+    S, T, hd = q.shape[1], k.shape[1], q.shape[2]
+    scale = float(torch.tensor(hd ** -0.5 if scale is None else scale,
+                               dtype=torch.float32))
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device).tril()
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for h in range(q.shape[0]):
+        s = (q[h].double() @ k[h].double().T) * scale
+        if causal:
+            s = torch.where(mask, s, -1e30)
+        out[h] = torch.softmax(s, dim=-1) @ v[h].double()
+    return out
+
+
+def sdpa(q, k, v, causal=True, scale=None):
+    """B7's function as one PyTorch call: the library yardstick, timed
+    here and used nowhere in the port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=scale)
 
 
 PLAIN = {"admm_worker_select_update": "admm_worker_select_update_torch",
@@ -378,13 +454,15 @@ PLAIN = {"admm_worker_select_update": "admm_worker_select_update_torch",
          "prox_consensus": "prox_consensus_torch",
          "admm_worker_update": "admm_worker_update_torch",
          "matmul": "matmul_torch",
-         "margin": "margin_torch"}
+         "margin": "margin_torch",
+         "flash_attention": "flash_attention_torch"}
 COUNTS = {"admm_worker_select_update": worker_bytes_flops,
           "server_prox_update": server_bytes_flops,
           "prox_consensus": prox_bytes_flops,
           "admm_worker_update": worker_update_bytes_flops,
           "matmul": matmul_bytes_flops,
-          "margin": margin_bytes_flops}
+          "margin": margin_bytes_flops,
+          "flash_attention": attention_bytes_flops}
 # the TPU kernel each replaces, and its source
 SOURCES = {
     "admm_worker_select_update": (
@@ -405,12 +483,21 @@ SOURCES = {
     "margin": (
         "src/repro_torch/csrc/logreg_grad.cu",
         "src/repro/kernels/logreg_grad.py:87"),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:65"),
 }
+# one PyTorch call for the same function, where there is one
+LIBRARY = {"matmul": lambda a, b, transpose_a: torch.matmul(
+               a.T if transpose_a else a, b),
+           "flash_attention": sdpa}
 
 
 def kernel_module(name: str):
-    from repro_torch.kernels import admm_update, logreg, prox_update
-    return {"admm_worker_select_update": admm_update,
+    from repro_torch.kernels import (admm_update, flash_attention, logreg,
+                                     prox_update)
+    return {"flash_attention": flash_attention,
+            "admm_worker_select_update": admm_update,
             "admm_worker_update": admm_update,
             "server_prox_update": prox_update,
             "prox_consensus": prox_update,
@@ -420,15 +507,19 @@ def kernel_module(name: str):
 
 def check(name: str, case, errs) -> dict:
     """``name``'s kernel against its plain version on ``case`` (the
-    matmul against float64 too); max|Δ| folded into ``errs``; fails past
-    the tolerance."""
+    matmul and flash attention against float64 instead); max|Δ| folded
+    into ``errs``; fails past the tolerance."""
     mod = kernel_module(name)
     ks = getattr(mod, f"{name}_cuda")(*case)
     ps = getattr(mod, PLAIN[name])(*case)
     torch.cuda.synchronize()
     if name == "matmul":
         a, b, transpose_a = case
-        out = matmul_errors(ks, ps, f64_matmul(a, b, transpose_a))
+        out = f64_rule_errors("matmul kernel", ks, ps,
+                              f64_matmul(a, b, transpose_a))
+    elif name == "flash_attention":
+        out = f64_rule_errors("flash attention kernel", ks, ps,
+                              f64_attention(*case))
     else:
         if isinstance(ks, torch.Tensor):
             ks, ps = (ks,), (ps,)
@@ -444,6 +535,11 @@ MATMUL_SHAPES = ((128, 128, 128), (256, 384, 128), (100, 50, 30),
                  (129, 257, 65), (129, 257, 1), (1000, 3000, 1),
                  (96, 1024, 1), (1024, 96, 1))
 MARGIN_SHAPES = ((1, 1), (129, 1), (96, 1), (256, 128), (1000, 3))
+HALF_TYPES = (torch.bfloat16, torch.float16)   # B5 and B6's 16-bit types
+HALF_X = (1 << 18, 1 << 14)    # X of B5's timed bf16 passes: 8.6 GB
+# the reference test's (BH, S, hd) (tests/test_flash_attention.py:21-22)
+ATTENTION_SHAPES = ((2, 128, 128), (4, 256, 128), (1, 512, 256),
+                    (3, 384, 128))
 
 
 def phase_kernels(bw: float, errs):
@@ -493,8 +589,61 @@ def phase_kernels(bw: float, errs):
         for nan in (False, True):
             check("margin", margin_case(shape, gen, nan), errs)
             cells += 1
+    # B5 and B6 in the 16-bit types: f32 accumulation, one rounding
+    half_errs = {"matmul": 0.0, "margin": 0.0}
+    for dtype in HALF_TYPES:
+        for (m, k, n) in MATMUL_SHAPES:
+            for transpose_a in (False, True):
+                a, b, _ = matmul_case(m, k, n, transpose_a, gen, nan=True)
+                out = check("matmul", (a.to(dtype), b.to(dtype),
+                                       transpose_a), half_errs)
+                matmul_f64["share_of_limit"] = max(
+                    matmul_f64["share_of_limit"],
+                    out["err_vs_f64"] / out["f64_limit"]
+                    if out["f64_limit"] else 0.0)
+                cells += 1
+        for shape in MARGIN_SHAPES:
+            s_, y_ = margin_case(shape, gen, nan=True)
+            check("margin", (s_.to(dtype), y_.to(dtype)), half_errs)
+            cells += 1
+    # B7 at the reference test's shapes, causal and not, f32 and bf16
+    flash_f64 = {"err_vs_f64": 0.0, "plain_err_vs_f64": 0.0,
+                 "share_of_limit": 0.0}
+    for (BH, S, hd) in ATTENTION_SHAPES:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                for nan in (False, True):
+                    out = check("flash_attention", attention_case(
+                        BH, S, hd, causal, dtype, gen, nan), errs)
+                    out["share_of_limit"] = (
+                        out["err_vs_f64"] / out["f64_limit"]
+                        if out["f64_limit"] else 0.0)
+                    for key in flash_f64:
+                        flash_f64[key] = max(flash_f64[key], out[key])
+                    cells += 1
     emit("kernels_small", cells=cells, max_abs_err=errs,
-         matmul_vs_float64=matmul_f64)
+         max_abs_err_16_bit=half_errs, matmul_vs_float64=matmul_f64,
+         flash_attention_vs_float64=flash_f64)
+
+    # B5's two gradient passes and B6 timed in bf16 (B5 on an X of
+    # HALF_X, B6 on the margin's (2^20, 1)), held against float64
+    m, d = HALF_X
+    X = torch.empty((m, d), dtype=torch.bfloat16, device="cuda")
+    for r0 in range(0, m, F64_CHUNK // d):
+        X[r0:r0 + F64_CHUNK // d] = torch.randn(
+            (F64_CHUNK // d, d), generator=gen, device="cuda")
+    w, v = (torch.randn((n, 1), generator=gen, device="cuda").bfloat16()
+            for n in (d, m))
+    s_, y_ = margin_case((LOGREG_M, 1), gen)
+    emit("kernels_16_bit", dtype="bfloat16",
+         matmul_Xw=measure("matmul", (X, w, False), bw, half_errs,
+                           LOGREG_REPS, LOGREG_WINDOWS),
+         matmul_XTv=measure("matmul", (X, v, True), bw, half_errs,
+                            LOGREG_REPS, LOGREG_WINDOWS),
+         margin=measure("margin", (s_.bfloat16(), y_.bfloat16()), bw,
+                        half_errs))
+    del X, w, v, s_, y_
+    torch.cuda.empty_cache()
 
     # B5 square, timed against torch.matmul (the plain version) with TF32 off
     case = matmul_case(4096, 4096, 4096, False, gen)
@@ -550,33 +699,40 @@ def measure(name: str, case, bw: float, errs, reps: int = REPS,
     kernel, plain = getattr(mod, f"{name}_cuda"), getattr(mod, PLAIN[name])
     ms = time_ms(lambda: kernel(*case), reps, windows)
     plain_ms = time_ms(lambda: plain(*case), reps, windows)
+    library_ms, library = None, {}
+    if name in LIBRARY:
+        call = LIBRARY[name]
+        library_ms = time_ms(lambda: call(*case), reps, windows)
+        library["library_max_abs_diff_vs_plain"] = float(
+            (call(*case).float() - plain(*case).float()).abs().max())
     bytes_, flops = COUNTS[name](case)
     bound_ms, bound_by = bound(bytes_, flops, bw)
     return dict(name=name, shape=list(case[1].shape),
                 shapes=[list(t.shape) for t in case
                         if isinstance(t, torch.Tensor)],
-                ms=ms, plain_ms=plain_ms,
-                library_ms=plain_ms if name == "matmul" else None,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bytes=bytes_, flops=flops, bound_ms=bound_ms,
-                bound_by=bound_by, **out)
+                bound_by=bound_by, **out, **library)
 
 
 @contextlib.contextmanager
-def capture_inputs(copy: bool = True, names=None):
+def capture_inputs(copy: bool = True, names=None, keep=None):
     """Inside the block, keep the arguments of every launch of each kernel
-    (of ``names``; all by default), by name in launch order: copies, or
-    with ``copy=False`` the tensors themselves (inputs too large to copy,
-    which nothing writes to afterwards). The launches go ahead
-    unchanged."""
+    (of ``names``; all by default; the first ``keep`` of each when
+    given), by name in launch order: copies, or with ``copy=False`` the
+    tensors themselves (inputs too large to copy, which nothing writes
+    to afterwards). The launches go ahead unchanged."""
     inputs, restore = {}, []
     for name in (names or PLAIN):
         mod = kernel_module(name)
         real = getattr(mod, f"{name}_cuda")
 
         def wrapped(*args, _real=real, _name=name):
-            inputs.setdefault(_name, []).append(tuple(
-                a.clone() if copy and isinstance(a, torch.Tensor) else a
-                for a in args))
+            kept = inputs.setdefault(_name, [])
+            if keep is None or len(kept) < keep:
+                kept.append(tuple(
+                    a.clone() if copy and isinstance(a, torch.Tensor) else a
+                    for a in args))
             return _real(*args)
 
         setattr(mod, f"{name}_cuda", wrapped)
@@ -704,19 +860,22 @@ def phase_main(bw: float, errs):
             z_kernel)
 
 
-def profile_epochs(path: str, sess, state, epoch_ms: float, epochs: int = 3):
-    """Device time by kernel over a few epochs (torch.profiler), and the
-    device's idle share of an unprofiled epoch (``epoch_ms``): the
+def profile_calls(path: str, run, wall_ms: float, calls: int,
+                  unit: str = "epoch"):
+    """Device time by kernel over ``calls`` calls of ``run`` (one epoch,
+    one prefill, one decode step: a ``unit``) with torch.profiler, and
+    the device's idle share of an unprofiled call (``wall_ms``): the
     profiler's own start-up lands in its window, so that window's wall
-    time is not the epoch's."""
+    time is not the call's. The table by kernel goes to
+    ``<path>_profile.json`` in the output directory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(epochs):
-            state, _ = sess.step(state)
+        for _ in range(calls):
+            run()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -724,18 +883,29 @@ def profile_epochs(path: str, sess, state, epoch_ms: float, epochs: int = 3):
         if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0:
             rows.append((ev.device_time_total, ev.key, ev.count))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3 / epochs
+    busy_ms = sum(r[0] for r in rows) / 1e3 / calls
     out = HERE / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"{path}_profile.json").write_text(json.dumps(
-        {"epochs": epochs, "epoch_ms": epoch_ms,
-         "by_kernel": [{"name": k, "device_ms_per_epoch": t / 1e3 / epochs,
-                        "count_per_epoch": c / epochs}
+        {f"{unit}s": calls, f"{unit}_ms": wall_ms,
+         "by_kernel": [{"name": k, f"device_ms_per_{unit}": t / 1e3 / calls,
+                        f"count_per_{unit}": c / calls}
                        for t, k, c in rows]}, indent=1))
-    return {"epochs": epochs, "device_busy_ms_per_epoch": busy_ms,
-            "device_idle_share": max(0.0, 1.0 - busy_ms / epoch_ms),
-            "top": [{"name": k[:80], "device_ms": t / 1e3 / epochs,
-                     "count": c / epochs} for t, k, c in rows[:8]]}
+    return {f"{unit}s": calls, f"device_busy_ms_per_{unit}": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "top": [{"name": k[:80], "device_ms": t / 1e3 / calls,
+                     "count": c / calls} for t, k, c in rows[:8]]}
+
+
+def profile_epochs(path: str, sess, state, epoch_ms: float, epochs: int = 3):
+    """``profile_calls`` over ``epochs`` epochs of ``sess`` from
+    ``state``."""
+    held = [state]
+
+    def run():
+        held[0], _ = sess.step(held[0])
+
+    return profile_calls(path, run, epoch_ms, epochs)
 
 
 # ---------------------------------------------------------------------------
@@ -1043,7 +1213,200 @@ def phase_spmd_ranks(errs):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the logistic-regression gradient at its declared size
+# phase 8: the model stack at qwen3-1.7b's full width, and its serving path
+# ---------------------------------------------------------------------------
+
+def refused_attention(case, plain, exact) -> dict:
+    """Three results a faulty B7 could return for ``case``: no causal
+    mask, the last K tile (64 keys) dropped, bf16-rounded inputs. B5's
+    float64 gate must refuse each; returns each one's error as a
+    multiple of the limit."""
+    fa = kernel_module("flash_attention")
+    q, k, v, causal, scale = case
+    limit, _ = f64_limit(plain, exact)
+    T = k.shape[1]
+    faulty = {
+        "no_causal_mask": lambda: fa.flash_attention_cuda(q, k, v, False,
+                                                          scale),
+        "last_K_tile_dropped": lambda: fa.flash_attention_cuda(
+            q, k[:, :T - 64].contiguous(), v[:, :T - 64].contiguous(),
+            causal, scale),
+        "bf16_inputs": lambda: fa.flash_attention_cuda(
+            drop_bits(q, 16), drop_bits(k, 16), drop_bits(v, 16), causal,
+            scale)}
+    ratios = {}
+    for name, make in faulty.items():
+        ratios[name] = f64_err(make(), exact) / limit
+        if not ratios[name] > 1.0:
+            fail(f"serve: B7's float64 gate let a faulty result through "
+                 f"({name}: {ratios[name]:.3g} of its limit)")
+    return ratios
+
+
+def phase_serve(bw: float, errs):
+    """The dense model stack at qwen3-1.7b's full width with random
+    weights: ``Model.prefill`` of SERVE_BATCH x SERVE_SEQ tokens on the
+    flash path (B7 once per layer: the path's launches) and on the naive
+    path; B7 on layer 0's inputs against float64, its gate against
+    faulty results, and its times; then ``Engine.generate`` with
+    launch/serve.py's defaults through the KV-cache decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine
+
+    cfg = get_config(SERVE_ARCH)
+    model, flash = build_model(cfg), build_model(cfg.with_(attn_impl="flash"))
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ),
+                           generator=gen, device="cuda")
+
+    def prefill(m, toks, mode="last"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.prefill(params, toks, logits_mode=mode)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # the path: the flash prefill, its launches counted, layer 0's B7
+    # inputs kept
+    reset_peak()
+    ops.reset_launch_counts()
+    with capture_inputs(names=("flash_attention",), keep=1) as inputs:
+        flash_logits, flash_first_ms = prefill(flash, tokens)
+    launches = ops.launch_counts()
+    flash_peak = torch.cuda.max_memory_allocated()
+    expect_counts("serve prefill (flash)", launches,
+                  {"flash_attention": cfg.num_layers})
+    flash_ms = [prefill(flash, tokens)[1] for _ in range(2)]
+    flash_profile = profile_calls(
+        "serve_prefill", lambda: flash.prefill(params, tokens,
+                                               logits_mode="last"),
+        statistics.median(flash_ms), 1, "prefill")
+    reset_peak()
+    ops.reset_launch_counts()
+    naive_logits, naive_first_ms = prefill(model, tokens)
+    expect_counts("serve prefill (naive)", ops.launch_counts(), {})
+    naive_peak = torch.cuda.max_memory_allocated()
+    naive_ms = [prefill(model, tokens)[1] for _ in range(2)]
+    if flash_logits.shape != (SERVE_BATCH, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(flash_logits).all()):
+        fail(f"serve: flash prefill logits {tuple(flash_logits.shape)} are "
+             f"not finite last-position logits")
+    flash_vs_naive = float((flash_logits - naive_logits).abs().max())
+    if not flash_vs_naive < FLASH_NAIVE_TOL:
+        fail(f"serve: flash and naive prefill logits differ by "
+             f"{flash_vs_naive:.3e} (limit {FLASH_NAIVE_TOL})")
+    del flash_logits, naive_logits, tokens
+
+    # B7 on the path's own inputs: float64, faulty results, times
+    (case,) = inputs["flash_attention"]
+    hd = cfg.resolved_head_dim
+    if [list(t.shape) for t in case[:3]] != [
+            [SERVE_BATCH * cfg.num_heads, SERVE_SEQ, hd]] * 3 or \
+            case[3] is not True:
+        fail(f"serve: B7 was given {[list(t.shape) for t in case[:3]]}, "
+             f"causal={case[3]}")
+    row = measure("flash_attention", case, bw, errs, FLASH_REPS,
+                  FLASH_WINDOWS)
+    fa = kernel_module("flash_attention")
+    exact = f64_attention(*case)
+    row["faulty_over_limit"] = refused_attention(
+        case, fa.flash_attention_torch(*case), exact)
+    del exact, inputs
+    torch.cuda.empty_cache()
+
+    # serving: launch/serve.py's defaults at full width
+    engine = Engine(model, params, max_len=SERVE_PROMPT + SERVE_NEW + 8)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS,
+                                                SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    reset_peak()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    decode_launches = ops.launch_counts()
+    decode_peak = torch.cuda.max_memory_allocated()
+    expect_counts("serve decode", decode_launches, {})
+    if res.tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or \
+            res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
+        fail(f"serve: generated tokens {res.tokens.shape}, ids "
+             f"{res.tokens.min()}..{res.tokens.max()}")
+
+    # decode against prefill at each prompt position, timed per step
+    cache = model.init_cache(SERVE_REQUESTS, engine.max_len)
+    step_ms, steps = [], []
+    for t in range(SERVE_PROMPT):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, prompts[:, t:t + 1], cache, t)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        steps.append(lg[:, 0])
+    decoded = torch.stack(steps, dim=1)
+    full, _ = prefill(model, prompts, "all")
+    decode_err = float((decoded - full).abs().max())
+    if not decode_err < DECODE_TOL:
+        fail(f"serve: decode and prefill logits differ by {decode_err:.3e} "
+             f"(limit {DECODE_TOL})")
+    # the first token is the flash prefill's argmax wherever its top-2
+    # gap exceeds what separates the decode's last logits from it
+    last, _ = prefill(flash, prompts)
+    last = last[:, -1]
+    delta = float((decoded[:, -1] - last).abs().max())
+    top2 = last.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > delta
+    first = torch.as_tensor(res.tokens[:, 0], device="cuda")
+    if not torch.equal(first[decided], last.argmax(-1)[decided]):
+        fail(f"serve: first tokens {first.tolist()} against the flash "
+             f"prefill's argmax {last.argmax(-1).tolist()}")
+    step = statistics.median(step_ms[1:])
+    held = [cache, SERVE_PROMPT]
+
+    def one_step():        # decode further steps after the prompt
+        _, held[0] = model.decode_step(params, prompts[:, :1], held[0],
+                                       held[1])
+        held[1] += 1
+
+    decode_profile = profile_calls("serve_decode", one_step, step, 5,
+                                   "decode_step")
+    serve = dict(requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                 max_new=SERVE_NEW, generate_s=generate_s,
+                 generate_tokens_per_s=SERVE_REQUESTS * SERVE_NEW
+                 / generate_s, decode_steps=SERVE_PROMPT + SERVE_NEW,
+                 decode_ms_per_step=step,
+                 decode_tokens_per_s=SERVE_REQUESTS / (step / 1e3),
+                 launches=decode_launches, peak_bytes=decode_peak,
+                 profile=decode_profile,
+                 decode_vs_prefill_max_abs_err=decode_err,
+                 first_token_delta=delta,
+                 first_tokens_decided=int(decided.sum()),
+                 tokens_req0=res.tokens[0].tolist())
+    emit("serve", arch=cfg.name, params=n_params,
+         weight_bytes=sum(p.numel() * p.element_size()
+                          for p in params.parameters()), init_s=init_s,
+         prefill=dict(batch=SERVE_BATCH, seq=SERVE_SEQ, launches=launches,
+                      flash_ms=flash_ms, flash_first_ms=flash_first_ms,
+                      naive_ms=naive_ms, naive_first_ms=naive_first_ms,
+                      flash_peak_bytes=flash_peak, profile=flash_profile,
+                      naive_peak_bytes=naive_peak,
+                      flash_vs_naive_max_abs_diff=flash_vs_naive),
+         flash_attention=row, serve=serve, card=smi_line())
+    del params, engine, cache, decoded, full, last, case
+    torch.cuda.empty_cache()
+    return launches, {"flash_attention": row}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the logistic-regression gradient at its declared size
 # ---------------------------------------------------------------------------
 
 LOGREG_WORKSPACE = 8 << 30     # bytes beside X: float64 chunks, autograd
@@ -1161,10 +1524,10 @@ def phase_logreg(bw: float, errs):
                                    -y64 * torch.sigmoid(-y64 * s64)], dim=1),
                      True)
     exact2, g64 = c64[:, :1], c64[:, 1] / m
-    pass1_err = matmul_errors(s_k, plain1, s64)
+    pass1_err = f64_rule_errors("matmul kernel", s_k, plain1, s64)
     pass1_err["faulty_over_limit"] = refused_by_gate("logreg pass 1", pass1,
                                                      plain1, s64)
-    pass2_err = matmul_errors(g_raw, plain2, exact2)
+    pass2_err = f64_rule_errors("matmul kernel", g_raw, plain2, exact2)
     pass2_err["faulty_over_limit"] = refused_by_gate("logreg pass 2", pass2,
                                                      plain2, exact2)
     grad_err = held_to_f64("logreg_grad", g, plain_logreg_grad(X, y, w), g64)
@@ -1246,12 +1609,13 @@ def main() -> int:
     del z_main
     torch.cuda.empty_cache()
     phase_spmd_ranks(errs)
+    serve_launches, serve_rows = phase_serve(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)
 
     # each kernel's numbers from the path it serves: B1 and B2 from main,
     # B3 from spmd (B1 runs on both; main is its full-width single device),
     # B4 from its op on the kdda_like bundle, B5 (its two passes of one
-    # gradient, summed) and B6 from logreg
+    # gradient, summed) and B6 from logreg, B7 from serve's flash prefill
     passes = [logreg_rows["pass1"], logreg_rows["pass2"]]
     logreg_kernels = {
         "matmul": {key: sum(r[key] for r in passes)
@@ -1265,7 +1629,8 @@ def main() -> int:
              "admm_worker_update": (wu_launches, {"admm_worker_update":
                                                   wu_row}),
              "matmul": (logreg_launches, logreg_kernels),
-             "margin": (logreg_launches, logreg_kernels)}
+             "margin": (logreg_launches, logreg_kernels),
+             "flash_attention": (serve_launches, serve_rows)}
     kernels = []
     for name_, (source, replaces) in SOURCES.items():
         launches, rows = paths.get(name_, (main_launches, main_rows))

@@ -58,16 +58,39 @@
 // on the card, and every product rounded on its own, so the result is the
 // plain version's bit for bit. For -y*s << 0, expf overflows to inf and
 // v = -y * 0; a NaN in s or y stays NaN.
+//
+// Element types. Every kernel is a template on the element type T: float,
+// __nv_bfloat16 or __half, one type for all operands, as the TPU kernels
+// take their input's dtype. Values are widened to float on load, every sum
+// and product is taken in float, and each output is rounded to T once
+// (round to nearest even), as the plain versions widen and round.
 
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-template <bool kTransA, int BM, int BN, int BK, int TM, int TN>
+__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ float ldf(const __half* p) {
+  return __half2float(__ldg(p));
+}
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void stf(__half* p, float v) {
+  *p = __float2half(v);
+}
+
+template <typename T, bool kTransA, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                  float* __restrict__ C, int64_t M, int64_t N, int64_t K) {
+    matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                  T* __restrict__ C, int64_t M, int64_t N, int64_t K) {
   constexpr int TY = BM / TM, TX = BN / TN, THREADS = TY * TX;
   // tile elements each thread loads per K step
   constexpr int A_LOADS = BM * BK / THREADS, B_LOADS = BK * BN / THREADS;
@@ -100,7 +123,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       }
       const int64_t m = m0 + mm, k = k0 + kk;
       float a = 0.f;
-      if (m < M && k < K) a = kTransA ? A[k * M + m] : A[m * K + k];
+      if (m < M && k < K) a = ldf(kTransA ? A + k * M + m : A + m * K + k);
       As[kk][mm] = a;
     }
 #pragma unroll
@@ -108,7 +131,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       const int e = tid + r * THREADS;
       const int kk = e / BN, nn = e % BN;
       const int64_t k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < N) ? B[k * N + n] : 0.f;
+      Bs[kk][nn] = (k < K && n < N) ? ldf(B + k * N + n) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -131,7 +154,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int64_t n = n0 + tx + j * TX;
-      if (m < M && n < N) C[m * N + n] = acc[i][j];
+      if (m < M && n < N) stf(C + m * N + n, acc[i][j]);
     }
   }
 }
@@ -140,39 +163,41 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kUnroll = 8;             // loads in flight per lane
 constexpr int kColWarps = 16;          // gemv_cols_kernel: warps per block
 
-__global__ void gemv_rows_kernel(const float* __restrict__ A,
-                                 const float* __restrict__ b,
-                                 float* __restrict__ c, int64_t M,
+template <typename T>
+__global__ void gemv_rows_kernel(const T* __restrict__ A,
+                                 const T* __restrict__ b,
+                                 T* __restrict__ c, int64_t M,
                                  int64_t K) {
   const int lane = threadIdx.x & 31;
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
   for (int64_t m = warp; m < M; m += warps) {
-    const float* a = A + m * K;
+    const T* a = A + m * K;
     float acc = 0.f;
     int64_t k = lane;
     for (; k + 32 * (kUnroll - 1) < K; k += 32 * kUnroll) {
       float av[kUnroll], bv[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        av[u] = __ldg(a + k + 32 * u);
-        bv[u] = __ldg(b + k + 32 * u);
+        av[u] = ldf(a + k + 32 * u);
+        bv[u] = ldf(b + k + 32 * u);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) acc = fmaf(av[u], bv[u], acc);
     }
-    for (; k < K; k += 32) acc = fmaf(__ldg(a + k), __ldg(b + k), acc);
+    for (; k < K; k += 32) acc = fmaf(ldf(a + k), ldf(b + k), acc);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       acc += __shfl_xor_sync(kFullMask, acc, off);
-    if (lane == 0) c[m] = acc;
+    if (lane == 0) stf(c + m, acc);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(32 * kColWarps)
-    gemv_cols_kernel(const float* __restrict__ A,
-                     const float* __restrict__ b, float* __restrict__ c,
+    gemv_cols_kernel(const T* __restrict__ A,
+                     const T* __restrict__ b, T* __restrict__ c,
                      int64_t M, int64_t K) {
   __shared__ float part[kColWarps][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -182,19 +207,19 @@ __global__ void __launch_bounds__(32 * kColWarps)
   const int64_t k_end = (k_begin + seg < K) ? k_begin + seg : K;
   float acc = 0.f;
   if (j < M) {
-    const float* a = A + j;
+    const T* a = A + j;
     int64_t k = k_begin;
     for (; k + kUnroll <= k_end; k += kUnroll) {
       float av[kUnroll], bv[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        av[u] = __ldg(a + (k + u) * M);
-        bv[u] = __ldg(b + k + u);
+        av[u] = ldf(a + (k + u) * M);
+        bv[u] = ldf(b + k + u);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) acc = fmaf(av[u], bv[u], acc);
     }
-    for (; k < k_end; ++k) acc = fmaf(__ldg(a + k * M), __ldg(b + k), acc);
+    for (; k < k_end; ++k) acc = fmaf(ldf(a + k * M), ldf(b + k), acc);
   }
   part[w][lane] = acc;
   __syncthreads();
@@ -202,30 +227,31 @@ __global__ void __launch_bounds__(32 * kColWarps)
     float sum = part[0][lane];
 #pragma unroll
     for (int i = 1; i < kColWarps; ++i) sum += part[i][lane];
-    c[j] = sum;
+    stf(c + j, sum);
   }
 }
 
-__global__ void margin_kernel(const float* __restrict__ s,
-                              const float* __restrict__ y,
-                              float* __restrict__ v, int64_t total) {
+template <typename T>
+__global__ void margin_kernel(const T* __restrict__ s,
+                              const T* __restrict__ y,
+                              T* __restrict__ v, int64_t total) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < total; i += stride) {
-    const float ny = -y[i];
-    const float t = __fmul_rn(ny, s[i]);
+    const float ny = -ldf(y + i);
+    const float t = __fmul_rn(ny, ldf(s + i));
     const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-t)));
-    v[i] = __fmul_rn(ny, sig);
+    stf(v + i, __fmul_rn(ny, sig));
   }
 }
 
-template <bool kTransA, int BM, int BN, int BK, int TM, int TN>
-int launch_matmul(const float* a, const float* b, float* c, int64_t M,
-                  int64_t N, int64_t K, cudaStream_t stream) {
+template <typename T, bool kTransA, int BM, int BN, int BK, int TM, int TN>
+int launch_matmul(const T* a, const T* b, T* c, int64_t M, int64_t N,
+                  int64_t K, cudaStream_t stream) {
   const int64_t gx = (M + BM - 1) / BM, gy = (N + BN - 1) / BN;
   if (gx > 2147483647LL || gy > 65535) return -2;
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  matmul_kernel<kTransA, BM, BN, BK, TM, TN>
+  matmul_kernel<T, kTransA, BM, BN, BK, TM, TN>
       <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(a, b, c, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
@@ -243,16 +269,17 @@ int fill_blocks(int device, int64_t need, int threads) {
   return static_cast<int>(need < full ? need : full);
 }
 
-int launch_gemv(bool trans_a, const float* a, const float* b, float* c,
-                int64_t M, int64_t K, int device, cudaStream_t stream) {
+template <typename T>
+int launch_gemv(bool trans_a, const T* a, const T* b, T* c, int64_t M,
+                int64_t K, int device, cudaStream_t stream) {
   if (trans_a) {
     const int64_t blocks = (M + 31) / 32;
     if (blocks > 2147483647LL) return -2;
-    gemv_cols_kernel<<<static_cast<unsigned>(blocks), 32 * kColWarps, 0,
+    gemv_cols_kernel<T><<<static_cast<unsigned>(blocks), 32 * kColWarps, 0,
                        stream>>>(a, b, c, M, K);
   } else {
     const int threads = 256;
-    gemv_rows_kernel<<<fill_blocks(device, (M + 7) / 8, threads), threads, 0,
+    gemv_rows_kernel<T><<<fill_blocks(device, (M + 7) / 8, threads), threads, 0,
                        stream>>>(a, b, c, M, K);
   }
   return static_cast<int>(cudaGetLastError());
@@ -264,36 +291,69 @@ void use_device(int device) {
   if (current != device) cudaSetDevice(device);
 }
 
-}  // namespace
-
-// C (M, N) = A (M, K) B (K, N), or A^T B with A stored (K, M) when
-// transpose_a != 0. All f32, contiguous row-major. Returns
-// cudaGetLastError() after the launch (0: launched), or -2 when the grid
-// would need more blocks than CUDA allows (65,535 column tiles).
-extern "C" int logreg_matmul(const void* a, const void* b, void* c, int64_t M,
-                             int64_t N, int64_t K, int transpose_a,
-                             int device, void* stream) {
-  if (M == 0 || N == 0) return 0;
-  use_device(device);
-  const float* ap = static_cast<const float*>(a);
-  const float* bp = static_cast<const float*>(b);
-  float* cp = static_cast<float*>(c);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N == 1) return launch_gemv(transpose_a != 0, ap, bp, cp, M, K, device, s);
-  return transpose_a ? launch_matmul<true, 64, 64, 16, 4, 4>(ap, bp, cp, M, N, K, s)
-                     : launch_matmul<false, 64, 64, 16, 4, 4>(ap, bp, cp, M, N, K, s);
+template <typename T>
+int matmul_typed(const void* a, const void* b, void* c, int64_t M, int64_t N,
+                 int64_t K, bool trans_a, int device, cudaStream_t s) {
+  const T* ap = static_cast<const T*>(a);
+  const T* bp = static_cast<const T*>(b);
+  T* cp = static_cast<T*>(c);
+  if (N == 1) return launch_gemv<T>(trans_a, ap, bp, cp, M, K, device, s);
+  return trans_a
+             ? launch_matmul<T, true, 64, 64, 16, 4, 4>(ap, bp, cp, M, N, K, s)
+             : launch_matmul<T, false, 64, 64, 16, 4, 4>(ap, bp, cp, M, N, K, s);
 }
 
-// v = -y * sigmoid(-y * s) over n f32 elements. Returns
-// cudaGetLastError() after the launch; 0 means launched.
+template <typename T>
+int margin_typed(const void* s, const void* y, void* v, int64_t n, int device,
+                 cudaStream_t stream) {
+  const int threads = 256;
+  margin_kernel<T><<<fill_blocks(device, (n + threads - 1) / threads,
+                                 threads),
+                     threads, 0, stream>>>(static_cast<const T*>(s),
+                                           static_cast<const T*>(y),
+                                           static_cast<T*>(v), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Element type codes of the entry points' `dtype` argument.
+enum : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// C (M, N) = A (M, K) B (K, N), or A^T B with A stored (K, M) when
+// transpose_a != 0. All of one element type (`dtype`: 0 float32,
+// 1 bfloat16, 2 float16), contiguous row-major. Returns
+// cudaGetLastError() after the launch (0: launched), -2 when the grid
+// would need more blocks than CUDA allows (65,535 column tiles), -3 for
+// an unknown dtype.
+extern "C" int logreg_matmul(const void* a, const void* b, void* c, int64_t M,
+                             int64_t N, int64_t K, int transpose_a,
+                             int dtype, int device, void* stream) {
+  if (M == 0 || N == 0) return 0;
+  use_device(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool t = transpose_a != 0;
+  switch (dtype) {
+    case kF32: return matmul_typed<float>(a, b, c, M, N, K, t, device, s);
+    case kBF16:
+      return matmul_typed<__nv_bfloat16>(a, b, c, M, N, K, t, device, s);
+    case kF16: return matmul_typed<__half>(a, b, c, M, N, K, t, device, s);
+    default: return -3;
+  }
+}
+
+// v = -y * sigmoid(-y * s) over n elements of one element type (`dtype`
+// as for logreg_matmul). Returns cudaGetLastError() after the launch (0:
+// launched), -3 for an unknown dtype.
 extern "C" int logreg_margin(const void* s, const void* y, void* v,
-                             int64_t n, int device, void* stream) {
+                             int64_t n, int dtype, int device, void* stream) {
   if (n == 0) return 0;
   use_device(device);
-  const int threads = 256;
-  margin_kernel<<<fill_blocks(device, (n + threads - 1) / threads, threads),
-                  threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(s), static_cast<const float*>(y),
-      static_cast<float*>(v), n);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return margin_typed<float>(s, y, v, n, device, st);
+    case kBF16: return margin_typed<__nv_bfloat16>(s, y, v, n, device, st);
+    case kF16: return margin_typed<__half>(s, y, v, n, device, st);
+    default: return -3;
+  }
 }

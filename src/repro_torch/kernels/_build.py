@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("admm_update", "prox_update", "logreg_grad")
+SOURCES = ("admm_update", "prox_update", "logreg_grad", "flash_attention")
 
 # IEEE division and no fast math: the kernels must agree with their plain
 # torch versions (see the notes at the top of each source).

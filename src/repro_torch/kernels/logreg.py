@@ -21,7 +21,11 @@ kernel does (``torch.sigmoid`` is 1 / (1 + exp(-t)) on the card). Each
 tensors' device and current stream; ``launches`` counts the launches of
 each, by op name.
 
-Both kernels take float32 only; any other dtype raises ``TypeError``.
+Both kernels take float32, bfloat16 or float16, one dtype for all
+operands, as the reference's kernels take their input's dtype: they
+widen to float32, sum and multiply there, and round each output to the
+input dtype once. The plain versions widen and round the same way. Any
+other dtype, or operands of two dtypes, raise ``TypeError``.
 """
 from __future__ import annotations
 
@@ -36,28 +40,37 @@ _fns = {}
 
 _ARGTYPES = {
     "logreg_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int] * 3 + [ctypes.c_void_p],
     "logreg_margin": [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
+# the element types the kernels take, by their code in csrc/logreg_grad.cu
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def require_f32(op: str, **tensors) -> None:
+def require_float(op: str, **tensors) -> None:
+    """Every operand float32, bfloat16 or float16, all of one dtype."""
+    dtypes = {t.dtype for t in tensors.values()}
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: {name} is {t.dtype}; the kernel takes "
-                            f"float32 only")
+        if t.dtype not in DTYPES or len(dtypes) > 1:
+            raise TypeError(
+                f"{op}: {name} is {t.dtype} (operands: "
+                f"{sorted(map(str, dtypes))}); the kernel takes float32, "
+                f"bfloat16 or float16, one dtype for all operands")
 
 
 def matmul_torch(a, b, transpose_a: bool = False):
     """a: (M, K), or (K, M) with ``transpose_a``; b: (K, N). Returns
-    (M, N)."""
-    return torch.matmul(a.T if transpose_a else a, b)
+    (M, N) in a's dtype, from a float32 product."""
+    af, bf = a.float(), b.float()
+    return torch.matmul(af.T if transpose_a else af, bf).to(a.dtype)
 
 
 def margin_torch(s, y):
-    """s, y: one shape. Returns v = -y * sigmoid(-y * s)."""
-    return -y * torch.sigmoid(-y * s)
+    """s, y: one shape. Returns v = -y * sigmoid(-y * s) in s's dtype,
+    computed in float32."""
+    sf, yf = s.float(), y.float()
+    return (-yf * torch.sigmoid(-yf * sf)).to(s.dtype)
 
 
 def _function(name: str):
@@ -71,7 +84,7 @@ def _function(name: str):
 
 
 def _check(op: str, dev, **tensors) -> None:
-    require_f32(op, **tensors)
+    require_float(op, **tensors)
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{op}: {name} is on {t.device}, expected {dev}")
@@ -83,7 +96,7 @@ def _check(op: str, dev, **tensors) -> None:
 
 def matmul_cuda(a, b, transpose_a: bool = False):
     """The CUDA kernel. Same arguments and result as the plain version;
-    a and b float32, contiguous, on one CUDA device."""
+    a and b of one float dtype, contiguous, on one CUDA device."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"matmul_cuda needs CUDA tensors, got {dev}")
@@ -97,14 +110,14 @@ def matmul_cuda(a, b, transpose_a: bool = False):
         raise ValueError(f"matmul_cuda: inner sizes differ: a "
                          f"{tuple(a.shape)} (transpose_a={transpose_a}), b "
                          f"{tuple(b.shape)}")
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=a.dtype, device=dev)
     if M == 0 or N == 0:
         return out
     fn = _function("logreg_matmul")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-                 int(bool(transpose_a)), dev.index, stream)
+                 int(bool(transpose_a)), DTYPES[a.dtype], dev.index, stream)
     if err == -2:
         raise ValueError(f"matmul_cuda: ({M}, {N}) needs more tiles than "
                          f"a grid holds")
@@ -116,7 +129,8 @@ def matmul_cuda(a, b, transpose_a: bool = False):
 
 def margin_cuda(s, y):
     """The CUDA kernel. Same arguments and result as the plain version;
-    s and y float32, contiguous, one shape, on one CUDA device."""
+    s and y of one float dtype, contiguous, one shape, on one CUDA
+    device."""
     dev = s.device
     if dev.type != "cuda":
         raise ValueError(f"margin_cuda needs CUDA tensors, got {dev}")
@@ -131,7 +145,7 @@ def margin_cuda(s, y):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(s.data_ptr(), y.data_ptr(), out.data_ptr(), s.numel(),
-                 dev.index, stream)
+                 DTYPES[s.dtype], dev.index, stream)
     if err != 0:
         raise RuntimeError(f"margin kernel launch failed: cudaError {err}")
     launches["margin"] += 1

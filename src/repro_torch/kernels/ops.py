@@ -2,7 +2,8 @@
 worker update, fused server update (single-device epoch) and server
 prox from a reduced w_sum (SPMD epoch); and the package's other kernel
 entry points, the unmasked worker update on a flat buffer, the matmul
-and the logistic-regression gradient built on it.
+and the logistic-regression gradient built on it, and the model
+stack's flash attention.
 
 On CUDA tensors each op launches its hand-written kernel (or raises: it
 never falls back to the plain version). On CPU tensors it runs the
@@ -13,7 +14,8 @@ block row up to 128), so every epoch op refuses rows whose width is not
 a multiple of 128, and ``admm_worker_update`` buffers whose element
 count is not a multiple of 8*128, with the reference's ``ValueError``
 contract. ``matmul`` and ``logreg_grad`` take any shape (data matrices
-are not laid out by the package) and float32 only.
+are not laid out by the package) in float32, bfloat16 or float16, with
+a float32 accumulator and the result in the input dtype.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict
 import torch
 
 from . import admm_update as _admm
+from . import flash_attention as _fa
 from . import logreg as _lg
 from . import prox_update as _prox
 
@@ -121,16 +124,18 @@ def admm_worker_update(g, y, z_tilde, rho):
 
 def matmul(a, b, transpose_a: bool = False):
     """C = A B, or A^T B (``a`` stored (K, M)) without building A^T.
-    float32, 2-D, any sizes."""
-    _lg.require_f32("matmul", a=a, b=b)
+    2-D, any sizes; float32, bfloat16 or float16 (one dtype), summed in
+    float32, C in the operands' dtype."""
+    _lg.require_float("matmul", a=a, b=b)
     if a.is_cuda:
         return _lg.matmul_cuda(a, b, transpose_a)
     return _lg.matmul_torch(a, b, transpose_a)
 
 
 def _margin(s, y):
-    """v = -y * sigmoid(-y * s) elementwise; float32."""
-    _lg.require_f32("margin", s=s, y=y)
+    """v = -y * sigmoid(-y * s) elementwise, computed in float32, in the
+    operands' dtype."""
+    _lg.require_float("margin", s=s, y=y)
     if s.is_cuda:
         return _lg.margin_cuda(s, y)
     return _lg.margin_torch(s, y)
@@ -138,8 +143,8 @@ def _margin(s, y):
 
 def logreg_grad(X, y, w):
     """Gradient of the mean logistic loss: X (m, d), y (m,) in {-1, +1},
-    w (d,), all float32. Two ``matmul`` launches around one ``margin``
-    launch (X w, then X^T v with X^T never built), then / m."""
+    w (d,), all of one float dtype. Two ``matmul`` launches around one
+    ``margin`` launch (X w, then X^T v with X^T never built), then / m."""
     m, d = X.shape
     s = matmul(X, w.reshape(d, 1))
     v = _margin(s, y.reshape(m, 1))
@@ -147,7 +152,19 @@ def logreg_grad(X, y, w):
     return g.reshape(d) / m
 
 
-_COUNTERS = (_admm.launches, _prox.launches, _lg.launches)
+def flash_attention(q, k, v, causal: bool = True, scale=None):
+    """softmax(q kᵀ * scale [causal mask]) v with an online softmax:
+    q (BH, S, hd), k and v (BH, T, hd), one float dtype, GQA heads
+    already expanded. Returns (BH, S, hd) in q's dtype. ``scale``
+    defaults to 1/sqrt(hd). On CUDA tensors the kernel takes hd 128 or
+    256 and any S, T."""
+    _fa.check_operands("flash_attention", q, k, v)
+    if q.is_cuda:
+        return _fa.flash_attention_cuda(q, k, v, causal, scale)
+    return _fa.flash_attention_torch(q, k, v, causal, scale)
+
+
+_COUNTERS = (_admm.launches, _prox.launches, _lg.launches, _fa.launches)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,5 @@
-"""The port stands alone: ``repro_torch`` (its kernels, examples and
-benchmarks too), ``chip_smoke.py`` and the rank side of the sharded
+"""The port stands alone: ``repro_torch`` (its kernels, examples,
+benchmarks, models, serving engine and launchers too), ``chip_smoke.py`` and the rank side of the sharded
 tests import neither JAX nor the reference package, and the kernels
 build without fast math (their plain versions are their yardstick)."""
 import ast
@@ -22,6 +22,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "import repro_torch.examples.quickstart\n"
             "import repro_torch.examples.sparse_logreg_admm\n"
             "import repro_torch.benchmarks.convergence\n"
+            "import repro_torch.models, repro_torch.serving.engine\n"
+            "import repro_torch.launch.serve\n"
+            "import repro_torch.kernels.flash_attention\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")

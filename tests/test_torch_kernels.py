@@ -322,7 +322,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                    "admm_worker_update": 0,
                                    "server_prox_update": 0,
                                    "prox_consensus": 0,
-                                   "matmul": 0, "margin": 0}
+                                   "matmul": 0, "margin": 0,
+                                   "flash_attention": 0}
     with pytest.raises(ValueError, match="CUDA"):
         admm_update.admm_worker_update_cuda(*flat, 2.0)
     with pytest.raises(ValueError, match="CUDA"):

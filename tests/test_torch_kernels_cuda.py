@@ -1,4 +1,4 @@
-"""The CUDA kernels (B1-B6) against their plain torch versions, on the
+"""The CUDA kernels (B1-B7) against their plain torch versions, on the
 card.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
@@ -13,14 +13,21 @@ versions do (no FMA contraction, IEEE division, expf), so in practice
 they agree exactly. The matmul (B5) sums in another order than cuBLAS,
 so it is held against a float64 product instead: its largest error
 there at most 8 times the plain fp32 result's own (or 8 * 2^-22 of the
-largest exact entry, where that is larger).
+largest exact entry, where that is larger). Flash attention (B7) sums
+in another order than its plain version (the full softmax) and is held
+to float64 attention by the same rule. In bfloat16 both are held to the
+float64 result of the same (bf16) inputs, where the plain result's own
+error is its rounding to bf16.
 """
 import pytest
 import torch
 
 from repro_torch.api import ConsensusSession
+from repro_torch.configs import get_smoke
 from repro_torch.configs.base import ADMMConfig
-from repro_torch.kernels import admm_update, logreg, ops, prox_update
+from repro_torch.kernels import (admm_update, flash_attention, logreg, ops,
+                                 prox_update)
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -164,7 +171,8 @@ def test_session_on_the_card_goes_through_the_kernels(gen):
                                        "admm_worker_update": 0,
                                        "server_prox_update": expect,
                                        "prox_consensus": 0,
-                                       "matmul": 0, "margin": 0}
+                                       "matmul": 0, "margin": 0,
+                                       "flash_attention": 0}
     torch.testing.assert_close(zs["auto"], zs["torch"], rtol=1e-5, atol=1e-5)
 
 
@@ -271,7 +279,9 @@ def test_logreg_kernels_refuse_bad_tensors(gen):
     with pytest.raises(TypeError, match="float32"):
         logreg.matmul_cuda(a.double(), a.T.contiguous().double())
     with pytest.raises(TypeError, match="float32"):
-        logreg.margin_cuda(a.half(), a.half())
+        logreg.margin_cuda(a.double(), a.double())
+    with pytest.raises(TypeError, match="one dtype"):
+        logreg.matmul_cuda(a.half(), a.T.contiguous().bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         logreg.matmul_cuda(a.T, a)
     with pytest.raises(ValueError, match="inner sizes"):
@@ -281,3 +291,123 @@ def test_logreg_kernels_refuse_bad_tensors(gen):
     with pytest.raises(TypeError, match="bfloat16"):
         admm_update.admm_worker_update_cuda(*(torch.ones(
             1024, dtype=torch.float16, device="cuda") for _ in range(3)), 1.0)
+
+
+def _within_f64_rule(out, plain, exact):
+    """B5's rule: max|out - exact| <= 8 * max(max|plain - exact|,
+    2^-22 * max|exact|), over the entries finite in float64."""
+    fin = torch.isfinite(exact)
+    if not bool(fin.any()):
+        return
+    err, plain_err, scale = (float(t[fin].abs().max()) for t in
+                             (out.double() - exact, plain.double() - exact,
+                              exact))
+    assert err <= 8 * max(plain_err, 2.0 ** -22 * scale), (err, plain_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("transpose_a", [False, True])
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (129, 257, 65),
+                                   (129, 257, 1), (1000, 3000, 1)])
+def test_matmul_kernel_takes_16_bit_types(gen, m, k, n, transpose_a, dtype):
+    a = torch.randn((k, m) if transpose_a else (m, k), generator=gen,
+                    device="cuda").to(dtype)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+    ops.reset_launch_counts()
+    c = ops.matmul(a, b, transpose_a=transpose_a)
+    assert ops.launch_counts()["matmul"] == 1
+    assert c.shape == (m, n) and c.dtype == dtype
+    plain = logreg.matmul_torch(a, b, transpose_a)
+    exact = (a.double().T if transpose_a else a.double()) @ b.double()
+    _within_f64_rule(c, plain, exact)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(129, 1), (1000, 3), (1 << 20, 1)])
+def test_margin_kernel_takes_16_bit_types(gen, shape, dtype):
+    s = (4.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    y = torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5,
+                    -1.0, 1.0).to(dtype)
+    s.view(-1)[:2] = torch.tensor([float("nan"), 100.0], device="cuda")
+    v = ops._margin(s, y)
+    assert v.dtype == dtype
+    _agree(v.float(), logreg.margin_torch(s, y).float())
+
+
+def _f64_attention(q, k, v, causal, scale):
+    """Attention in float64, one head at a time."""
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    S, T = q.shape[1], k.shape[1]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device).tril()
+    for h in range(q.shape[0]):
+        s = (q[h].double() @ k[h].double().T) * scale
+        if causal:
+            s = torch.where(mask, s, -1e30)
+        out[h] = torch.softmax(s, dim=-1) @ v[h].double()
+    return out
+
+
+def _attention_case(gen, BH, S, T, hd, dtype, nan):
+    q, k, v = (torch.randn((BH, n, hd), generator=gen, device="cuda")
+               .to(dtype) for n in (S, T, T))
+    if nan:
+        q[0, S // 2, 3] = float("nan")           # one query row
+        k[-1, T // 3, 5] = float("nan")          # one key, last head
+        v[0, min(T, 64) - 1, 7] = float("inf")   # a key of the first tile
+    return q, k, v
+
+
+# the reference test's shapes, ragged S and T, S != T
+ATTN_SHAPES = [(2, 128, 128, 128), (4, 256, 256, 128), (1, 512, 512, 256),
+               (3, 384, 384, 128), (2, 100, 100, 128), (1, 65, 200, 128),
+               (2, 300, 70, 256)]
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BH,S,T,hd", ATTN_SHAPES)
+def test_flash_attention_kernel_within_float64_bound(gen, BH, S, T, hd,
+                                                     causal, dtype, nan):
+    q, k, v = _attention_case(gen, BH, S, T, hd, dtype, nan)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert out.shape == q.shape and out.dtype == dtype
+    plain = flash_attention.flash_attention_torch(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(out), torch.isnan(plain))
+    assert torch.equal(torch.isinf(out), torch.isinf(plain))
+    _within_f64_rule(out, plain, _f64_attention(q, k, v, causal,
+                                                hd ** -0.5))
+    # no atomics: a second call repeats the first bit for bit
+    torch.testing.assert_close(ops.flash_attention(q, k, v, causal), out,
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "chatglm3-6b"])
+def test_flash_prefill_on_the_card_launches_b7_per_layer(gen, arch):
+    cfg = get_smoke(arch)
+    params = build_model(cfg).init(0)
+    tok = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                        device="cuda")
+    ref = build_model(cfg).prefill(params, tok)
+    ops.reset_launch_counts()
+    out = build_model(cfg.with_(attn_impl="flash")).prefill(params, tok)
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    assert float((out - ref).abs().max()) < 2e-3
+
+
+def test_flash_kernel_refuses_bad_tensors(gen):
+    q = torch.randn((2, 64, 128), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_cuda(q[..., :64].contiguous(),
+                                             q[..., :64].contiguous(),
+                                             q[..., :64].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_cuda(q, q.transpose(0, 1)
+                                             .contiguous().transpose(0, 1), q)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention.flash_attention_cuda(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="do not fit"):
+        flash_attention.flash_attention_cuda(q, q[:1], q[:1])

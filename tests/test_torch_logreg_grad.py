@@ -135,17 +135,83 @@ def test_margin_overflow_and_nan():
 @pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16,
                                    torch.float16])
 def test_logreg_ops_take_float32_only(dtype):
+    """float32, bfloat16 and float16 are the kernels' types; any other
+    dtype, or operands of two dtypes, raise ``TypeError`` (the message
+    names float32). A 16-bit call returns its operands' dtype."""
     a = torch.ones((4, 3), dtype=dtype)
     f = torch.ones((4, 3))
     with pytest.raises(TypeError, match="float32"):
-        ops.matmul(a, torch.ones((3, 2), dtype=dtype))
-    with pytest.raises(TypeError, match="float32"):
         ops.matmul(f, torch.ones((3, 2), dtype=dtype))
     with pytest.raises(TypeError, match="float32"):
-        ops._margin(a, a)
-    with pytest.raises(TypeError, match="float32"):
-        ops.logreg_grad(a, torch.ones(4, dtype=dtype),
-                        torch.ones(3, dtype=dtype))
+        ops._margin(f, a)
+    if dtype == torch.float64:
+        with pytest.raises(TypeError, match="float32"):
+            ops.matmul(a, torch.ones((3, 2), dtype=dtype))
+        with pytest.raises(TypeError, match="float32"):
+            ops._margin(a, a)
+        with pytest.raises(TypeError, match="float32"):
+            ops.logreg_grad(a, torch.ones(4, dtype=dtype),
+                            torch.ones(3, dtype=dtype))
+    else:
+        assert ops.matmul(a, torch.ones((3, 2), dtype=dtype)).dtype == dtype
+        assert ops._margin(a, a).dtype == dtype
+        assert ops.logreg_grad(a, torch.ones(4, dtype=dtype), torch.ones(
+            3, dtype=dtype)).dtype == dtype
+
+
+# bf16 parity: the reference's interpret-mode kernels take the input dtype
+# (f32 accumulator, output in a.dtype); held at the reference's own bf16
+# tolerance, 5e-2 (tests/test_flash_attention.py:42)
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+def _bf16(a):
+    """numpy f32 values exactly representable in bf16, and both tensors."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return torch.as_tensor(np.asarray(j, np.float32)).bfloat16(), j
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES + [(129, 257, 1)])
+@pytest.mark.parametrize("transpose_a", [False, True])
+def test_matmul_bf16_matches_reference(m, k, n, transpose_a):
+    rng = np.random.RandomState(6)
+    (ta, ja), (tb, jb) = (_bf16(rng.randn(*s).astype(np.float32)) for s in
+                          ((k, m) if transpose_a else (m, k), (k, n)))
+    C = ops.matmul(ta, tb, transpose_a=transpose_a)
+    assert C.dtype == torch.bfloat16 and C.shape == (m, n)
+    Cr = rops.matmul(ja, jb, transpose_a=transpose_a, interpret=True)
+    assert Cr.dtype == jnp.bfloat16
+    np.testing.assert_allclose(C.float().numpy(), np.asarray(Cr, np.float32),
+                               **BF16_TOL)
+    # fp32 accumulator, one rounding: within half a bf16 ulp of the exact
+    exact = (ta.double().T if transpose_a else ta.double()) @ tb.double()
+    assert bool(((C.double() - exact).abs()
+                 <= exact.abs() * 2.0 ** -8 + 1e-30).all())
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (256, 128)])
+def test_margin_bf16_matches_reference(shape):
+    rng = np.random.RandomState(7)
+    (ts, js), (ty, jy) = _bf16((rng.randn(*shape) * 4).astype(np.float32)), \
+        _bf16(rng.choice([-1.0, 1.0], shape).astype(np.float32))
+    v = ops._margin(ts, ty)
+    assert v.dtype == torch.bfloat16
+    vr = rlg.margin(js, jy, interpret=True)
+    np.testing.assert_allclose(v.float().numpy(), np.asarray(vr, np.float32),
+                               **BF16_TOL)
+    # computed in float32 and rounded once
+    assert torch.equal(v, logreg.margin_torch(ts.float(), ty.float())
+                       .bfloat16())
+
+
+def test_logreg_grad_bf16_matches_reference():
+    X, y, w = _logreg_inputs(200, 300)
+    (tX, jX), (ty, jy), (tw, jw) = map(_bf16, (X, y, w))
+    g = ops.logreg_grad(tX, ty, tw)
+    assert g.dtype == torch.bfloat16
+    gr = rops.logreg_grad(jX, jy, jw, interpret=True)
+    np.testing.assert_allclose(g.float().numpy(), np.asarray(gr, np.float32),
+                               **BF16_TOL)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
