@@ -10,7 +10,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. kernels — each kernel (B1-B7) against its plain torch version on the
    card, at small ragged shapes and the paper path's shape (NaN/Inf
    cells among them; B5 and B6 in bf16 and f16 too, B7 at the reference
-   test's shapes in f32 and bf16), B5 also at 4096^3 against
+   test's shapes in f32, bf16 and f16), B5 also at 4096^3 against
    ``torch.matmul``; B1
    at full width without x; and B4's path: ``ops.admm_worker_update``
    on the kdda_like worker bundle (8, 64, 315,904), its launch counted
@@ -18,7 +18,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (medians of CUDA-event windows of back-to-back calls) and bounds.
    B5 and B7 are held against float64 (they sum in another order than
    their plain versions): their error there at most MATMUL_RATIO times
-   the plain version's; the others within KERNEL_TOL;
+   the plain version's (B7 in 16 bits row by row too); the others
+   within KERNEL_TOL;
 4. main    — ``ConsensusSession.flat`` at the paper's KDDa width
    (N=8 workers, M=64 blocks, 20,216,830 coordinates; the quadratic
    loss and config of ``benchmarks/kernels_bench.py``'s kdda_like case):
@@ -62,7 +63,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    kernel: decode logits within 5e-4 of the prefill's at every prompt
    position, first tokens the flash prefill's argmax wherever its top-2
    gap exceeds the measured difference; prefill and decode times, peak
-   memory;
+   memory. Last (phase line ``serve_bf16``), the f32 weights freed, the
+   same prefill in bf16 (weights of the same seed rounded to bf16),
+   flash (B7's 16-bit design, 28 launches) and naive, each one's logits
+   against the f32 prefill of the same rounded weights (flash within
+   SERVE_BF16_RATIO times naive's error; flash through a faulty B7
+   past it), with a profile; layer 0's bf16 B7 inputs checked (row by
+   row too), gated against four faulty results and timed the same way,
+   and the same inputs in f16;
 9. logreg  — ``ops.logreg_grad`` at the size the repo declares for it
    (m = 2^20 samples, d = 2^14 features, X dense f32, 68.72 GB, filled
    on the card in row chunks): launches B5 twice and B6 once; each pass
@@ -81,6 +89,7 @@ Imports only ``repro_torch`` (from ``src/``), never JAX or ``repro``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import datetime
 import json
 import statistics
@@ -112,6 +121,8 @@ F64_CHUNK = 1 << 27            # float64 elements per chunk of A in the B5 check
 TRAJ_TOL = 1e-5                # the reference's own backend tolerance
 REPS, WINDOWS = 20, 5          # kernel timing: 5 windows of 20 calls
 FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
+TC16_FLOPS = 989e12            # H100 SXM tensor cores, dense bf16 / fp16
+TF32_FLOPS = 495e12            # H100 SXM tensor cores, dense TF32
 RANKS_WORLD, RANKS_MODEL = 4, 2          # phase spmd_ranks: data=2 x model=2
 RANKS_DIM = 2_097_152                    # dblk 32,768 at M=64
 RANKS_EPOCHS = 5
@@ -123,6 +134,20 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 16, 24   # launch/serve.py's
 FLASH_NAIVE_TOL = 2e-3         # tests/test_flash_attention.py:69
 DECODE_TOL = 5e-4              # tests/test_decode_consistency.py:39
 FLASH_REPS, FLASH_WINDOWS = 5, 3   # the plain version moves ~13 GB a call
+# B7 in 16 bits is also held row by row (one output row of one head): a
+# row's error at most MATMUL_RATIO times the plain result's error in that
+# row, or times the type's unit roundoff (the output's own rounding) of
+# the row's max|f64| where that is larger. The one limit over all rows is
+# set by the rows of largest output (the first rows of a causal head,
+# which see few keys) and lets a fault in the late rows through
+HALF_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+# the bf16 prefill's last logits against the f32 prefill of the same
+# (bf16-rounded) weights: the flash path's error at most this many times
+# the naive path's. Both round every layer's activations to bf16 and so
+# carry errors of one order; the flash path differs only in attention's
+# summation order and where P is rounded. The same prefill through a
+# faulty B7 (no causal mask; the last 64 keys dropped) must read past it
+SERVE_BF16_RATIO = 2.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -251,15 +276,44 @@ def held_to_f64(what: str, out, plain, exact) -> dict:
             "f64_limit": limit}
 
 
-def f64_rule_errors(what: str, kernel, plain, exact) -> dict:
+def f64_row_limits(plain, exact):
+    """B7's 16-bit limit for each row (the last axis): MATMUL_RATIO times
+    the plain result's error in the row, or times the type's unit
+    roundoff of the row's max|exact| where that is larger (entries
+    finite in ``exact`` only)."""
+    fin = torch.isfinite(exact)
+    plain_err = torch.where(fin, (plain.double() - exact).abs(), 0.0)
+    scale = torch.where(fin, exact.abs(), 0.0).amax(-1)
+    unit = HALF_ROUNDOFF[str(plain.dtype).replace("torch.", "")]
+    return MATMUL_RATIO * torch.maximum(plain_err.amax(-1), unit * scale)
+
+
+def f64_row_ratio(out, exact, limits) -> float:
+    """The largest row error of ``out`` as a multiple of its row's limit
+    (NaN where ``out`` is not finite but ``exact`` is)."""
+    fin = torch.isfinite(exact)
+    err = torch.where(fin, (out.double() - exact).abs(), 0.0).amax(-1)
+    return float(torch.where(err == 0, 0.0, err / limits).max())
+
+
+def f64_rule_errors(what: str, kernel, plain, exact,
+                    by_row: bool = False) -> dict:
     """B5's check (B7's too): NaN/Inf where the plain version has them,
-    and the kernel within its float64 limit; with max|kernel - plain|."""
+    and the kernel within its float64 limit; with max|kernel - plain|.
+    With ``by_row`` (B7), a 16-bit result is held row by row as well."""
+    rows = {}
+    if by_row and plain.dtype in (torch.bfloat16, torch.float16):
+        ratio = f64_row_ratio(kernel, exact, f64_row_limits(plain, exact))
+        if not ratio <= 1.0:
+            fail(f"{what}: a row's max|result - float64| is {ratio:.3g} "
+                 f"of its row's limit")
+        rows = {"row_ratio": ratio}
     kernel, plain = kernel.float(), plain.float()
     same_nonfinite(kernel, plain)
     out = held_to_f64(what, kernel, plain, exact)
     fin = torch.isfinite(plain)
     diff = float((kernel - plain).abs()[fin].max()) if bool(fin.any()) else 0.0
-    return {"max_abs_err": diff, **out}
+    return {"max_abs_err": diff, **out, **rows}
 
 
 # ---------------------------------------------------------------------------
@@ -303,9 +357,10 @@ def server_case(N, M, d, gen, l1, clip, nan=False, edge_frac=0.7):
     return (z, w, edge, rho_sum, 0.1, l1, clip)
 
 
-def bound(bytes_: int, flops: int, bw: float):
-    """The least time for the work, ms, and what bounds it."""
-    t_bytes, t_ops = bytes_ / bw, flops / FP32_FLOPS
+def bound(bytes_: int, flops: int, bw: float, rate: float = FP32_FLOPS):
+    """The least time for the work, ms, and what bounds it: the bytes at
+    the memory rate or the operations at ``rate``."""
+    t_bytes, t_ops = bytes_ / bw, flops / rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -425,6 +480,13 @@ def attention_bytes_flops(case):
     return bytes_, 4 * BH * attention_pairs(S, k.shape[1], causal) * hd
 
 
+def attention_rate(case) -> float:
+    """The peak rate of B7's arithmetic on ``case``'s type: the 16-bit
+    tensor cores, or in float32 a third of TF32's (3xTF32 runs three
+    TF32 products for each float32 one)."""
+    return TF32_FLOPS / 3 if case[0].dtype == torch.float32 else TC16_FLOPS
+
+
 def f64_attention(q, k, v, causal=True, scale=None):
     """B7's function in float64 on the card, one head at a time, with the
     scale rounded to float32 as the kernel and the plain version take
@@ -444,9 +506,10 @@ def f64_attention(q, k, v, causal=True, scale=None):
 
 def sdpa(q, k, v, causal=True, scale=None):
     """B7's function as one PyTorch call: the library yardstick, timed
-    here and used nowhere in the port."""
+    here and used nowhere in the port. On a (1, BH, S, hd) view: on the
+    3-D tensors PyTorch does not take its fused attention kernels."""
     return torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, scale=scale)
+        q[None], k[None], v[None], is_causal=causal, scale=scale)[0]
 
 
 PLAIN = {"admm_worker_select_update": "admm_worker_select_update_torch",
@@ -486,6 +549,10 @@ SOURCES = {
     "flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:65"),
+    # B7's 16-bit design (wgmma), on the serve path's bf16 prefill
+    "flash_attention_bf16": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:65"),
 }
 # one PyTorch call for the same function, where there is one
 LIBRARY = {"matmul": lambda a, b, transpose_a: torch.matmul(
@@ -519,7 +586,7 @@ def check(name: str, case, errs) -> dict:
                               f64_matmul(a, b, transpose_a))
     elif name == "flash_attention":
         out = f64_rule_errors("flash attention kernel", ks, ps,
-                              f64_attention(*case))
+                              f64_attention(*case), by_row=True)
     else:
         if isinstance(ks, torch.Tensor):
             ks, ps = (ks,), (ps,)
@@ -606,12 +673,13 @@ def phase_kernels(bw: float, errs):
             s_, y_ = margin_case(shape, gen, nan=True)
             check("margin", (s_.to(dtype), y_.to(dtype)), half_errs)
             cells += 1
-    # B7 at the reference test's shapes, causal and not, f32 and bf16
+    # B7 at the reference test's shapes, causal and not, in its three
+    # types (3xTF32 in f32, wgmma in bf16 and f16)
     flash_f64 = {"err_vs_f64": 0.0, "plain_err_vs_f64": 0.0,
                  "share_of_limit": 0.0}
     for (BH, S, hd) in ATTENTION_SHAPES:
         for causal in (True, False):
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 for nan in (False, True):
                     out = check("flash_attention", attention_case(
                         BH, S, hd, causal, dtype, gen, nan), errs)
@@ -699,20 +767,25 @@ def measure(name: str, case, bw: float, errs, reps: int = REPS,
     kernel, plain = getattr(mod, f"{name}_cuda"), getattr(mod, PLAIN[name])
     ms = time_ms(lambda: kernel(*case), reps, windows)
     plain_ms = time_ms(lambda: plain(*case), reps, windows)
-    library_ms, library = None, {}
+    library_ms, extra = None, {}
     if name in LIBRARY:
         call = LIBRARY[name]
         library_ms = time_ms(lambda: call(*case), reps, windows)
-        library["library_max_abs_diff_vs_plain"] = float(
+        extra["library_max_abs_diff_vs_plain"] = float(
             (call(*case).float() - plain(*case).float()).abs().max())
     bytes_, flops = COUNTS[name](case)
-    bound_ms, bound_by = bound(bytes_, flops, bw)
+    rate = attention_rate(case) if name == "flash_attention" else FP32_FLOPS
+    bound_ms, bound_by = bound(bytes_, flops, bw, rate)
+    if name == "flash_attention":
+        extra["dtype"] = str(case[0].dtype).replace("torch.", "")
+        if case[0].dtype == torch.float32:    # the FFMA design's bound
+            extra["ffma_bound_ms"] = bound(bytes_, flops, bw)[0]
     return dict(name=name, shape=list(case[1].shape),
                 shapes=[list(t.shape) for t in case
                         if isinstance(t, torch.Tensor)],
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bytes=bytes_, flops=flops, bound_ms=bound_ms,
-                bound_by=bound_by, **out, **library)
+                bound_by=bound_by, **out, **extra)
 
 
 @contextlib.contextmanager
@@ -1217,30 +1290,183 @@ def phase_spmd_ranks(errs):
 # ---------------------------------------------------------------------------
 
 def refused_attention(case, plain, exact) -> dict:
-    """Three results a faulty B7 could return for ``case``: no causal
-    mask, the last K tile (64 keys) dropped, bf16-rounded inputs. B5's
-    float64 gate must refuse each; returns each one's error as a
-    multiple of the limit."""
+    """Results a faulty B7 could return for ``case``, which its float64
+    gate must refuse: no causal mask; the last 64 keys dropped; inputs
+    with too few mantissa bits (f32 inputs rounded to bf16's 7, 16-bit
+    inputs cut to 3); in 16 bits also K and V read one 64-key tile late
+    (the first 64 keys dropped). In 16 bits the gate is B5's rule and
+    the row-by-row one (``f64_row_limits``): one limit over all rows,
+    set by the early rows' outputs, lets 64 lost keys of 4,096 in the
+    last 64 rows through. Returns each one's error as a multiple of the
+    gate's limit (the larger reading of the two rules), and in 16 bits
+    each rule's reading."""
     fa = kernel_module("flash_attention")
     q, k, v, causal, scale = case
     limit, _ = f64_limit(plain, exact)
     T = k.shape[1]
     faulty = {
-        "no_causal_mask": lambda: fa.flash_attention_cuda(q, k, v, False,
-                                                          scale),
+        "no_causal_mask": lambda: fa.flash_attention_cuda(
+            q, k, v, False, scale),
         "last_K_tile_dropped": lambda: fa.flash_attention_cuda(
             q, k[:, :T - 64].contiguous(), v[:, :T - 64].contiguous(),
-            causal, scale),
-        "bf16_inputs": lambda: fa.flash_attention_cuda(
+            causal, scale)}
+    half = q.dtype != torch.float32
+    if not half:
+        faulty["bf16_inputs"] = lambda: fa.flash_attention_cuda(
             drop_bits(q, 16), drop_bits(k, 16), drop_bits(v, 16), causal,
-            scale)}
-    ratios = {}
+            scale)
+    else:
+        row_limits = f64_row_limits(plain, exact)
+
+        def cut(t):
+            return drop_bits(t.float(), 20).to(t.dtype)
+        faulty["inputs_3_mantissa_bits"] = lambda: fa.flash_attention_cuda(
+            cut(q), cut(k), cut(v), causal, scale)
+        faulty["K_V_one_tile_late"] = lambda: fa.flash_attention_cuda(
+            q, k[:, 64:].contiguous(), v[:, 64:].contiguous(), causal, scale)
+    ratios, by_rule = {}, {}
     for name, make in faulty.items():
-        ratios[name] = f64_err(make(), exact) / limit
+        out = make()
+        ratios[name] = f64_err(out, exact) / limit
+        if half:
+            by_rule[name] = {"all_rows": ratios[name],
+                             "by_row": f64_row_ratio(out, exact, row_limits)}
+            ratios[name] = max(by_rule[name].values())
+        del out
         if not ratios[name] > 1.0:
             fail(f"serve: B7's float64 gate let a faulty result through "
-                 f"({name}: {ratios[name]:.3g} of its limit)")
-    return ratios
+                 f"({name}, {q.dtype}: {ratios[name]:.3g} of its limit)")
+    return {"faulty_over_limit": ratios,
+            **({"faulty_over_limit_by_rule": by_rule} if half else {})}
+
+
+def b7_on_path(case, cfg, dtype, bw, errs) -> dict:
+    """B7 on the inputs the prefill gave it at layer 0: held to float64
+    by B5's rule (in 16 bits row by row too), the gate shown to refuse
+    faulty results (``refused_attention``), timed beside its plain
+    version and SDPA in the same dtype."""
+    hd = cfg.resolved_head_dim
+    if [list(t.shape) for t in case[:3]] != [
+            [SERVE_BATCH * cfg.num_heads, SERVE_SEQ, hd]] * 3 or \
+            case[3] is not True or case[0].dtype != dtype:
+        fail(f"serve: B7 was given {[list(t.shape) for t in case[:3]]} "
+             f"{case[0].dtype}, causal={case[3]}")
+    row = measure("flash_attention", case, bw, errs, FLASH_REPS,
+                  FLASH_WINDOWS)
+    fa = kernel_module("flash_attention")
+    exact = f64_attention(*case)
+    row.update(refused_attention(case, fa.flash_attention_torch(*case),
+                                 exact))
+    return row
+
+
+def serve_bf16(cfg, tokens, bw, errs) -> tuple:
+    """The serve prefill in bf16: the same arch, seed and tokens, so the
+    weights are the f32 draws rounded to bf16. Flash (B7 once per layer:
+    the path's launches) and naive, timed; each one's last-position
+    logits against the f32 prefill of the same bf16-rounded weights (the
+    flash path within SERVE_BF16_RATIO times the naive path's error, and
+    the flash path through a faulty B7 past it); a profile of one flash
+    prefill; B7 on layer 0's bf16 inputs (``b7_on_path``), and on the
+    same inputs in f16."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    cfg16 = cfg.with_(dtype="bfloat16", param_dtype="bfloat16")
+    naive16 = build_model(cfg16)
+    flash16 = build_model(cfg16.with_(attn_impl="flash"))
+    params16 = naive16.init(0)
+
+    def prefill(m, params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.prefill(params, tokens, logits_mode="last")
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    reset_peak()
+    ops.reset_launch_counts()
+    with capture_inputs(names=("flash_attention",), keep=1) as inputs:
+        flash_logits, flash_first_ms = prefill(flash16, params16)
+    launches = ops.launch_counts()
+    flash_peak = torch.cuda.max_memory_allocated()
+    expect_counts("serve prefill (flash, bf16)", launches,
+                  {"flash_attention": cfg.num_layers})
+    flash_ms = [prefill(flash16, params16)[1] for _ in range(2)]
+    profile = profile_calls(
+        "serve_prefill_bf16", lambda: flash16.prefill(
+            params16, tokens, logits_mode="last"),
+        statistics.median(flash_ms), 1, "prefill")
+    reset_peak()
+    ops.reset_launch_counts()
+    naive_logits, naive_first_ms = prefill(naive16, params16)
+    expect_counts("serve prefill (naive, bf16)", ops.launch_counts(), {})
+    naive_peak = torch.cuda.max_memory_allocated()
+    naive_ms = [prefill(naive16, params16)[1]]
+
+    # the flash prefill through a faulty B7 in every layer
+    fa = kernel_module("flash_attention")
+    real = fa.flash_attention_cuda
+    faults = {
+        "no_causal_mask": lambda q, k, v, causal, scale: real(
+            q, k, v, False, scale),
+        "last_K_tile_dropped": lambda q, k, v, causal, scale: real(
+            q, k[:, :-64].contiguous(), v[:, :-64].contiguous(), causal,
+            scale)}
+    faulty_logits = {}
+    for name_, fault in faults.items():
+        fa.flash_attention_cuda = fault
+        try:
+            faulty_logits[name_] = flash16.prefill(params16, tokens,
+                                                   logits_mode="last")
+        finally:
+            fa.flash_attention_cuda = real
+
+    params32 = copy.deepcopy(params16).float()
+    ref = build_model(cfg.with_(attn_impl="flash")).prefill(
+        params32, tokens, logits_mode="last")
+    del params32, params16
+    for name_, lg in (("flash", flash_logits), ("naive", naive_logits)):
+        if lg.shape != (SERVE_BATCH, 1, cfg.vocab_size) or \
+                lg.dtype != torch.bfloat16 or not bool(
+                    torch.isfinite(lg).all()):
+            fail(f"serve: bf16 {name_} prefill logits {tuple(lg.shape)} "
+                 f"{lg.dtype} are not finite bf16 last-position logits")
+    flash_err = float((flash_logits.float() - ref).abs().max())
+    naive_err = float((naive_logits.float() - ref).abs().max())
+    if not flash_err <= SERVE_BF16_RATIO * naive_err:
+        fail(f"serve: bf16 flash prefill logits {flash_err:.3e} from the "
+             f"f32 prefill of the same weights, past {SERVE_BF16_RATIO:g} "
+             f"x the naive path's {naive_err:.3e}")
+    faulty_over_naive = {
+        name_: float((lg.float() - ref).abs().max()) / naive_err
+        for name_, lg in faulty_logits.items()}
+    for name_, ratio in faulty_over_naive.items():
+        if not ratio > SERVE_BF16_RATIO:
+            fail(f"serve: the bf16 flash prefill through a faulty B7 "
+                 f"({name_}) reads {ratio:.3g} x the naive path's error, "
+                 f"within its limit of {SERVE_BF16_RATIO:g}")
+    del flash_logits, naive_logits, faulty_logits, ref
+    torch.cuda.empty_cache()
+
+    (case,) = inputs["flash_attention"]
+    row = b7_on_path(case, cfg, torch.bfloat16, bw, errs)
+    # the same inputs in f16 (on no path): checked, gated and timed
+    case_f16 = tuple(t.half() if isinstance(t, torch.Tensor) else t
+                     for t in case)
+    row_f16 = b7_on_path(case_f16, cfg, torch.float16, bw,
+                         {"flash_attention": 0.0})
+    del case, case_f16, inputs
+    torch.cuda.empty_cache()
+    return launches, row, dict(
+        dtype="bfloat16", launches=launches, flash_ms=flash_ms,
+        flash_first_ms=flash_first_ms, naive_ms=naive_ms,
+        naive_first_ms=naive_first_ms, flash_peak_bytes=flash_peak,
+        naive_peak_bytes=naive_peak, profile=profile,
+        flash_err_vs_f32=flash_err, naive_err_vs_f32=naive_err,
+        ratio_limit=SERVE_BF16_RATIO,
+        faulty_b7_err_over_naive=faulty_over_naive,
+        flash_attention_f16=row_f16)
 
 
 def phase_serve(bw: float, errs):
@@ -1249,7 +1475,8 @@ def phase_serve(bw: float, errs):
     flash path (B7 once per layer: the path's launches) and on the naive
     path; B7 on layer 0's inputs against float64, its gate against
     faulty results, and its times; then ``Engine.generate`` with
-    launch/serve.py's defaults through the KV-cache decode."""
+    launch/serve.py's defaults through the KV-cache decode; last, with
+    the f32 weights freed, the same prefill in bf16 (``serve_bf16``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -1302,23 +1529,12 @@ def phase_serve(bw: float, errs):
     if not flash_vs_naive < FLASH_NAIVE_TOL:
         fail(f"serve: flash and naive prefill logits differ by "
              f"{flash_vs_naive:.3e} (limit {FLASH_NAIVE_TOL})")
-    del flash_logits, naive_logits, tokens
+    del flash_logits, naive_logits
 
     # B7 on the path's own inputs: float64, faulty results, times
     (case,) = inputs["flash_attention"]
-    hd = cfg.resolved_head_dim
-    if [list(t.shape) for t in case[:3]] != [
-            [SERVE_BATCH * cfg.num_heads, SERVE_SEQ, hd]] * 3 or \
-            case[3] is not True:
-        fail(f"serve: B7 was given {[list(t.shape) for t in case[:3]]}, "
-             f"causal={case[3]}")
-    row = measure("flash_attention", case, bw, errs, FLASH_REPS,
-                  FLASH_WINDOWS)
-    fa = kernel_module("flash_attention")
-    exact = f64_attention(*case)
-    row["faulty_over_limit"] = refused_attention(
-        case, fa.flash_attention_torch(*case), exact)
-    del exact, inputs
+    row = b7_on_path(case, cfg, torch.float32, bw, errs)
+    del case, inputs
     torch.cuda.empty_cache()
 
     # serving: launch/serve.py's defaults at full width
@@ -1400,9 +1616,21 @@ def phase_serve(bw: float, errs):
                       naive_peak_bytes=naive_peak,
                       flash_vs_naive_max_abs_diff=flash_vs_naive),
          flash_attention=row, serve=serve, card=smi_line())
-    del params, engine, cache, decoded, full, last, case
+    del params, model, flash, engine, cache, held, res, decoded, full, last
     torch.cuda.empty_cache()
-    return launches, {"flash_attention": row}
+
+    # the same prefill in bf16 (after the decode, the f32 weights freed),
+    # its own B7 counted and checked
+    errs16 = {"flash_attention": 0.0}
+    launches16, row16, prefill16 = serve_bf16(cfg, tokens, bw, errs16)
+    errs["flash_attention_bf16"] = errs16["flash_attention"]
+    emit("serve_bf16", arch=cfg.name, prefill=prefill16,
+         flash_attention=row16, card=smi_line())
+    del tokens
+    torch.cuda.empty_cache()
+    return (launches, {"flash_attention": row},
+            {"flash_attention_bf16": launches16["flash_attention"]},
+            {"flash_attention_bf16": row16})
 
 
 # ---------------------------------------------------------------------------
@@ -1609,7 +1837,8 @@ def main() -> int:
     del z_main
     torch.cuda.empty_cache()
     phase_spmd_ranks(errs)
-    serve_launches, serve_rows = phase_serve(bw, errs)
+    serve_launches, serve_rows, serve16_launches, serve16_rows = \
+        phase_serve(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)
 
     # each kernel's numbers from the path it serves: B1 and B2 from main,
@@ -1630,7 +1859,8 @@ def main() -> int:
                                                   wu_row}),
              "matmul": (logreg_launches, logreg_kernels),
              "margin": (logreg_launches, logreg_kernels),
-             "flash_attention": (serve_launches, serve_rows)}
+             "flash_attention": (serve_launches, serve_rows),
+             "flash_attention_bf16": (serve16_launches, serve16_rows)}
     kernels = []
     for name_, (source, replaces) in SOURCES.items():
         launches, rows = paths.get(name_, (main_launches, main_rows))

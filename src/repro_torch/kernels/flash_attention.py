@@ -9,13 +9,17 @@ Port of ``repro/kernels/flash_attention.py::flash_attention_bhsd``:
   dtype; the reference test's oracle (``tests/test_flash_attention.py``).
   The CPU path, and the yardstick the kernel is held to;
 * ``flash_attention_cuda`` — launches ``csrc/flash_attention.cu`` on the
-  tensors' device and current stream: one block per (bh, 64-row q tile),
-  an online softmax over 64-key tiles with m, l and the output
-  accumulator in float32 registers, K tiles wholly above the diagonal
-  skipped under ``causal``. ``launches`` counts its launches.
+  tensors' device and current stream, on the tensor cores: in bfloat16
+  and float16 wgmma on TMA-loaded tiles (one block per (bh, 128-row q
+  tile), P rounded to the input type before P V), in float32 3xTF32
+  mma.sync (one block per (bh, 64-row q tile)); an online softmax with
+  m, l and the output accumulator in float32 registers, K tiles wholly
+  above the diagonal skipped under ``causal``. ``launches`` counts its
+  launches.
 
 q is (BH, S, hd) and k, v are (BH, T, hd), one dtype (float32, bfloat16
-or float16), contiguous; GQA heads are expanded by the caller. The
+or float16), contiguous and 16-byte aligned (TMA and cp.async copy
+16-byte units); GQA heads are expanded by the caller. The
 kernel takes head dims 128 and 256 (the model path pads hd to a multiple
 of 128, ``models.attention._sdpa_flash``) and any S and T; a key past T
 does not exist for it. ``scale`` defaults to 1/sqrt(hd).
@@ -110,6 +114,10 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_cuda: {name} must be "
                              f"contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda: {name} must start on "
+                             f"a 16-byte boundary (a view at an offset "
+                             f"does not)")
     BH, S, hd = q.shape
     T = k.shape[1]
     if hd not in HEAD_DIMS:
@@ -118,6 +126,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     out = torch.empty_like(q)
     if BH == 0 or S == 0:
         return out
+    if T == 0:                  # nothing to attend to: acc = 0, l = 0
+        return out.zero_()
     fn = _function()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -125,8 +135,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
                  BH, S, T, hd, _scale(hd, scale), int(bool(causal)),
                  DTYPES[q.dtype], dev.index, stream)
     if err == -2:
-        raise ValueError(f"flash_attention_cuda: (BH={BH}, S={S}) needs "
-                         f"more blocks than a grid holds")
+        raise ValueError(f"flash_attention_cuda: (BH={BH}, S={S}, T={T}) "
+                         f"needs more blocks than a grid holds")
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"cudaError {err}")

@@ -17,8 +17,12 @@ largest exact entry, where that is larger). Flash attention (B7) sums
 in another order than its plain version (the full softmax) and is held
 to float64 attention by the same rule. In bfloat16 both are held to the
 float64 result of the same (bf16) inputs, where the plain result's own
-error is its rounding to bf16.
+error is its rounding to bf16; B7 in 16 bits is also held row by row
+(each row's limit from that row's plain error, or the type's unit
+roundoff of the row's largest entry), as chip_smoke.py holds it.
 """
+import copy
+
 import pytest
 import torch
 
@@ -334,6 +338,21 @@ def test_margin_kernel_takes_16_bit_types(gen, shape, dtype):
     _agree(v.float(), logreg.margin_torch(s, y).float())
 
 
+def _within_f64_row_rule(out, plain, exact):
+    """B7's 16-bit rule, row by row (chip_smoke.py's f64_row_limits): a
+    row's max|out - exact| <= 8 * max(the plain result's in that row,
+    the type's unit roundoff * the row's max|exact|), over the entries
+    finite in float64."""
+    unit = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}[
+        plain.dtype]
+    fin = torch.isfinite(exact)
+    err, plain_err, scale = (torch.where(fin, t.abs(), 0.0).amax(-1) for t in
+                             (out.double() - exact, plain.double() - exact,
+                              exact))
+    limit = 8 * torch.maximum(plain_err, unit * scale)
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
 def _f64_attention(q, k, v, causal, scale):
     """Attention in float64, one head at a time."""
     out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
@@ -357,14 +376,19 @@ def _attention_case(gen, BH, S, T, hd, dtype, nan):
     return q, k, v
 
 
-# the reference test's shapes, ragged S and T, S != T
+# the reference test's shapes, ragged S and T, S != T, and S and T at the
+# tile edges of the two designs (128-row q tiles and 128- or 64-key tiles
+# in 16 bits, 64-row q tiles and 32-key tiles in float32)
 ATTN_SHAPES = [(2, 128, 128, 128), (4, 256, 256, 128), (1, 512, 512, 256),
                (3, 384, 384, 128), (2, 100, 100, 128), (1, 65, 200, 128),
-               (2, 300, 70, 256)]
+               (2, 300, 70, 256), (2, 127, 127, 128), (1, 129, 129, 128),
+               (2, 255, 257, 128), (1, 257, 255, 128), (1, 129, 127, 256),
+               (2, 255, 128, 256), (1, 127, 257, 256)]
 
 
 @pytest.mark.parametrize("nan", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("BH,S,T,hd", ATTN_SHAPES)
 def test_flash_attention_kernel_within_float64_bound(gen, BH, S, T, hd,
@@ -378,16 +402,19 @@ def test_flash_attention_kernel_within_float64_bound(gen, BH, S, T, hd,
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(out), torch.isnan(plain))
     assert torch.equal(torch.isinf(out), torch.isinf(plain))
-    _within_f64_rule(out, plain, _f64_attention(q, k, v, causal,
-                                                hd ** -0.5))
+    exact = _f64_attention(q, k, v, causal, hd ** -0.5)
+    _within_f64_rule(out, plain, exact)
+    if dtype != torch.float32:
+        _within_f64_row_rule(out, plain, exact)
     # no atomics: a second call repeats the first bit for bit
     torch.testing.assert_close(ops.flash_attention(q, k, v, causal), out,
                                rtol=0, atol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "chatglm3-6b"])
-def test_flash_prefill_on_the_card_launches_b7_per_layer(gen, arch):
-    cfg = get_smoke(arch)
+def test_flash_prefill_on_the_card_launches_b7_per_layer(gen, arch, dtype):
+    cfg = get_smoke(arch).with_(dtype=dtype, param_dtype=dtype)
     params = build_model(cfg).init(0)
     tok = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
                         device="cuda")
@@ -395,7 +422,18 @@ def test_flash_prefill_on_the_card_launches_b7_per_layer(gen, arch):
     ops.reset_launch_counts()
     out = build_model(cfg.with_(attn_impl="flash")).prefill(params, tok)
     assert ops.launch_counts()["flash_attention"] == cfg.num_layers
-    assert float((out - ref).abs().max()) < 2e-3
+    assert out.dtype == ref.dtype
+    if dtype == "float32":
+        assert float((out - ref).abs().max()) < 2e-3
+        return
+    # bf16: both paths against the f32 prefill of the same (bf16-rounded)
+    # weights; the flash path within twice the naive path's error plus
+    # one bf16 ulp of the largest logit (the ratio of the serve phase)
+    cfg32 = cfg.with_(dtype="float32", param_dtype="float32")
+    exact = build_model(cfg32).prefill(copy.deepcopy(params).float(), tok)
+    naive_err = float((ref.float() - exact).abs().max())
+    flash_err = float((out.float() - exact).abs().max())
+    assert flash_err <= 2 * naive_err + 2.0 ** -7 * float(exact.abs().max())
 
 
 def test_flash_kernel_refuses_bad_tensors(gen):
@@ -411,3 +449,12 @@ def test_flash_kernel_refuses_bad_tensors(gen):
         flash_attention.flash_attention_cuda(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="do not fit"):
         flash_attention.flash_attention_cuda(q, q[:1], q[:1])
+    # TMA and cp.async copy 16-byte units: a contiguous view that starts
+    # off a 16-byte boundary is refused, in every dtype
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        flat = torch.zeros(2 * 64 * 128 + 1, dtype=dtype, device="cuda")
+        shifted = flat[1:].view(2, 64, 128)
+        assert shifted.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention.flash_attention_cuda(shifted, q.to(dtype),
+                                                 q.to(dtype))

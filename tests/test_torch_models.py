@@ -210,3 +210,38 @@ def test_model_entry_points_default_to_the_card():
         model.init(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_cache(1, 4)
+
+
+@pytest.mark.parametrize("impl", ["naive", "flash"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "chatglm3-6b"])
+def test_bf16_prefill_within_twice_the_reference_error(arch, impl):
+    """The bf16 prefill that phase ``serve`` drives on the card, here on
+    the CPU (the flash path through B7's plain version): the port's and
+    the reference's bf16 prefills of the same bf16-rounded weights, each
+    held against the reference's f32 prefill of those weights. The
+    port's error must be at most twice the reference's, plus half a bf16
+    ulp of the largest logit (the logits' own rounding, which both pay).
+    Measured: 0.011-0.014 (qwen3) and 0.049-0.052 (chatglm3) against the
+    reference's 0.014 and 0.059."""
+    rcfg = ref_smoke(arch)
+    rmodel = ref_build(rcfg)
+    rparams16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16),
+                             rmodel.init(jax.random.PRNGKey(0)))
+    weights = jax.tree.map(lambda a: np.array(a.astype(jnp.float32)),
+                           rparams16)
+    tok = _tokens(rcfg)
+    exact = np.asarray(rmodel.prefill(jax.tree.map(jnp.asarray, weights),
+                                      jnp.asarray(tok)))
+    bf16 = dict(dtype="bfloat16", param_dtype="bfloat16")
+    ref16 = np.asarray(ref_build(rcfg.with_(**bf16)).prefill(
+        rparams16, jnp.asarray(tok)).astype(jnp.float32))
+    cfg = get_smoke(arch).with_(attn_impl=impl, **bf16)
+    params = params_from_numpy(cfg, weights, "cpu").to(torch.bfloat16)
+    ops.reset_launch_counts()
+    out = build_model(cfg).prefill(params, torch.as_tensor(tok))
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert out.dtype == torch.bfloat16
+    ref_err = float(np.abs(ref16 - exact).max())
+    err = float(np.abs(out.float().numpy() - exact).max())
+    assert err <= 2 * ref_err + 2.0 ** -8 * float(np.abs(exact).max()), (
+        err, ref_err)
