@@ -9,17 +9,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. build   — nvcc builds every kernel from ``src/repro_torch/csrc``;
 3. kernels — each kernel (B1-B7) against its plain torch version on the
    card, at small ragged shapes and the paper path's shape (NaN/Inf
-   cells among them; B5 and B6 in bf16 and f16 too, B7 at the reference
-   test's shapes in f32, bf16 and f16), B5 also at 4096^3 against
-   ``torch.matmul``; B1
-   at full width without x; and B4's path: ``ops.admm_worker_update``
-   on the kdda_like worker bundle (8, 64, 315,904), its launch counted
-   and its inputs held against the plain version, with times
-   (medians of CUDA-event windows of back-to-back calls) and bounds.
-   B5 and B7 are held against float64 (they sum in another order than
-   their plain versions): their error there at most MATMUL_RATIO times
-   the plain version's (B7 in 16 bits row by row too); the others
-   within KERNEL_TOL;
+   cells among them; B5 and B6 in bf16 and f16 too, B5's cells reaching
+   each of its five designs, B7 at the reference test's shapes in f32,
+   bf16 and f16); B1 at full width without x; and B4's path:
+   ``ops.admm_worker_update`` on the kdda_like worker bundle (8, 64,
+   315,904), its launch counted and its inputs held against the plain
+   version, with times (medians of CUDA-event windows of back-to-back
+   calls) and bounds. B5 and B7 are held against float64 (they sum in
+   another order than their plain versions): their error there at most
+   MATMUL_RATIO times the plain version's (B7 in 16 bits row by row
+   too); the others within KERNEL_TOL. Then the line ``matmul``:
+   ``ops.matmul``, the package's public op, at 4096^3 in f32 (3xTF32),
+   bf16 and f16 (wgmma), A stored either way, and at 4095^3 (the tiled
+   design), one call a cell with its launch and design counted; each
+   held to float64, its gate shown to refuse zeros, a sixteenth of K
+   dropped, one K step read twice and bf16- or TF32-rounded (f32) or
+   3-bit (16-bit) inputs, and timed beside ``torch.matmul``. In 16 bits
+   B5 is held entry by entry too (``f64_entry_ratio``);
 4. main    — ``ConsensusSession.flat`` at the paper's KDDa width
    (N=8 workers, M=64 blocks, 20,216,830 coordinates; the quadratic
    loss and config of ``benchmarks/kernels_bench.py``'s kdda_like case):
@@ -79,9 +85,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    each pass's gate must refuse four faulty results (zeros, a sixteenth
    of K dropped, bf16- and TF32-rounded inputs); each kernel, the
    gradient and autograd are timed. Runs last, with everything before
-   it freed;
-10. a ``kernels`` summary line, the card's nvidia-smi line, and the last
-   line ``{"ok": true, "device": {...}}``.
+   it freed; then (line ``logreg_bf16``), that X freed, the same
+   gradient on a bf16 X (34.36 GB): B5's gemv16 design twice and B6
+   once, each pass and the gradient held to float64 (the plain versions
+   in row chunks), each pass's gate refusing zeros, a sixteenth of K
+   dropped and 3-bit inputs; timed beside ``torch.matmul`` on the bf16
+   operands and bf16 autograd;
+10. a ``kernels`` summary line (B5's designs each on a line of their
+   own after B5's), the card's nvidia-smi line, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when there is no CUDA device.
 Imports only ``repro_torch`` (from ``src/``), never JAX or ``repro``.
@@ -232,18 +244,23 @@ def compare(kernel, plain) -> float:
     return err
 
 
-def f64_matmul(a, b, transpose_a: bool):
+def f64_matmul(a, b, transpose_a: bool, absolute: bool = False):
     """A B in float64 on the card, A converted in chunks of its stored
-    rows (never a float64 copy of all of A)."""
-    b64 = b.double()
+    rows (never a float64 copy of all of A); with ``absolute``, |A| |B|:
+    the size of the terms each entry sums."""
+    def wide(t):
+        t = t.double()
+        return t.abs() if absolute else t
+
+    b64 = wide(b)
     rows = max(1, F64_CHUNK // max(1, a.shape[1]))
     if transpose_a:                              # a stored (K, M)
         c = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float64,
                         device=a.device)
         for k0 in range(0, a.shape[0], rows):
-            c += a[k0:k0 + rows].double().T @ b64[k0:k0 + rows]
+            c += wide(a[k0:k0 + rows]).T @ b64[k0:k0 + rows]
         return c
-    return torch.cat([a[m0:m0 + rows].double() @ b64
+    return torch.cat([wide(a[m0:m0 + rows]) @ b64
                       for m0 in range(0, a.shape[0], rows)])
 
 
@@ -276,6 +293,21 @@ def held_to_f64(what: str, out, plain, exact) -> dict:
             "f64_limit": limit}
 
 
+def f64_entry_ratio(out, plain, exact, scale) -> float:
+    """B5's rule entry by entry (16-bit results): the largest |out - exact|
+    as a multiple of MATMUL_RATIO * max(|plain - exact|, MATMUL_FLOOR *
+    scale) at the same entry, ``scale`` = |A| |B| in float64 (what a
+    float32 sum of the entry's terms may be off by is below it), over
+    the entries finite in ``exact`` and in ``plain`` (NaN where ``out``
+    is not finite there)."""
+    fin = torch.isfinite(exact) & torch.isfinite(plain.double())
+    err = torch.where(fin, (out.double() - exact).abs(), 0.0)
+    limit = MATMUL_RATIO * torch.maximum(
+        torch.where(fin, (plain.double() - exact).abs(), 0.0),
+        MATMUL_FLOOR * scale)
+    return float(torch.where(err == 0, 0.0, err / limit).max())
+
+
 def f64_row_limits(plain, exact):
     """B7's 16-bit limit for each row (the last axis): MATMUL_RATIO times
     the plain result's error in the row, or times the type's unit
@@ -297,11 +329,19 @@ def f64_row_ratio(out, exact, limits) -> float:
 
 
 def f64_rule_errors(what: str, kernel, plain, exact,
-                    by_row: bool = False) -> dict:
+                    by_row: bool = False, scale=None) -> dict:
     """B5's check (B7's too): NaN/Inf where the plain version has them,
     and the kernel within its float64 limit; with max|kernel - plain|.
-    With ``by_row`` (B7), a 16-bit result is held row by row as well."""
+    With ``by_row`` (B7), a 16-bit result is held row by row as well;
+    with ``scale`` (B5, |A| |B| in float64), a 16-bit result is held
+    entry by entry (``f64_entry_ratio``)."""
     rows = {}
+    if scale is not None and plain.dtype in (torch.bfloat16, torch.float16):
+        ratio = f64_entry_ratio(kernel, plain, exact, scale)
+        if not ratio <= 1.0:
+            fail(f"{what}: an entry's |result - float64| is {ratio:.3g} of "
+                 f"its entry's limit")
+        rows = {"entry_ratio": ratio}
     if by_row and plain.dtype in (torch.bfloat16, torch.float16):
         ratio = f64_row_ratio(kernel, exact, f64_row_limits(plain, exact))
         if not ratio <= 1.0:
@@ -480,11 +520,11 @@ def attention_bytes_flops(case):
     return bytes_, 4 * BH * attention_pairs(S, k.shape[1], causal) * hd
 
 
-def attention_rate(case) -> float:
-    """The peak rate of B7's arithmetic on ``case``'s type: the 16-bit
-    tensor cores, or in float32 a third of TF32's (3xTF32 runs three
-    TF32 products for each float32 one)."""
-    return TF32_FLOPS / 3 if case[0].dtype == torch.float32 else TC16_FLOPS
+def tensor_core_rate(dtype) -> float:
+    """The peak rate of B5's and B7's tensor-core arithmetic in ``dtype``:
+    the 16-bit tensor cores, or in float32 a third of TF32's (3xTF32 runs
+    three TF32 products for each float32 one)."""
+    return TF32_FLOPS / 3 if dtype == torch.float32 else TC16_FLOPS
 
 
 def f64_attention(q, k, v, causal=True, scale=None):
@@ -583,7 +623,8 @@ def check(name: str, case, errs) -> dict:
     if name == "matmul":
         a, b, transpose_a = case
         out = f64_rule_errors("matmul kernel", ks, ps,
-                              f64_matmul(a, b, transpose_a))
+                              f64_matmul(a, b, transpose_a),
+                              scale=half_scale(case))
     elif name == "flash_attention":
         out = f64_rule_errors("flash attention kernel", ks, ps,
                               f64_attention(*case), by_row=True)
@@ -597,10 +638,24 @@ def check(name: str, case, errs) -> dict:
 
 PROXES = ((1e-3, 0.8), (0.0, 0.8), (1e-3, 0.0), (0.0, 0.0))   # (l1, clip)
 FLAT_SHAPES = ((1024,), (2048,), (8, 128), (2, 8, 128), (4, 2, 128))
-# the reference's four, the gradient passes' N = 1, the cross-check's
+# the reference's four, the gradient passes' N = 1, the cross-check's,
+# and for the tensor-core designs a tile multiple and a ragged shape
 MATMUL_SHAPES = ((128, 128, 128), (256, 384, 128), (100, 50, 30),
                  (129, 257, 65), (129, 257, 1), (1000, 3000, 1),
-                 (96, 1024, 1), (1024, 96, 1))
+                 (96, 1024, 1), (1024, 96, 1), (384, 512, 512),
+                 (200, 136, 264))
+# ops.matmul's line, (size, dtype, transpose_a, the design it takes): the
+# tensor-core designs at 4096^3 in the three types and both layouts of
+# A, and the tiled design at 4095^3, where no row is a multiple of 4
+# elements (TMA's and cp.async's 16-byte strides)
+MATMUL_CELLS = tuple(
+    (4096, dtype, t, "tf32x3" if dtype == torch.float32 else "wgmma")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16)
+    for t in (False, True)) + ((4095, torch.float32, False, "tiled"),
+                               (4095, torch.bfloat16, True, "tiled"))
+# each design's K step: its pipeline-stage fault reads one step's A and B
+# tiles twice and never the next step's
+DESIGN_K_STEP = {"wgmma": 64, "tf32x3": 32, "tiled": 16}
 MARGIN_SHAPES = ((1, 1), (129, 1), (96, 1), (256, 128), (1000, 3))
 HALF_TYPES = (torch.bfloat16, torch.float16)   # B5 and B6's 16-bit types
 HALF_X = (1 << 18, 1 << 14)    # X of B5's timed bf16 passes: 8.6 GB
@@ -642,6 +697,8 @@ def phase_kernels(bw: float, errs):
                     cells += 1
     matmul_f64 = {"err_vs_f64": 0.0, "plain_err_vs_f64": 0.0,
                   "share_of_limit": 0.0}
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()          # B5's designs reached by the cells
     for (m, k, n) in MATMUL_SHAPES:
         for transpose_a in (False, True):
             for nan in (False, True):
@@ -673,6 +730,10 @@ def phase_kernels(bw: float, errs):
             s_, y_ = margin_case(shape, gen, nan=True)
             check("margin", (s_.to(dtype), y_.to(dtype)), half_errs)
             cells += 1
+    matmul_designs = ops.matmul_design_counts()      # B5's five designs
+    if not all(matmul_designs.values()):
+        fail(f"kernels: B5's cells reached the designs {matmul_designs}, "
+             f"not each of them")
     # B7 at the reference test's shapes, causal and not, in its three
     # types (3xTF32 in f32, wgmma in bf16 and f16)
     flash_f64 = {"err_vs_f64": 0.0, "plain_err_vs_f64": 0.0,
@@ -690,7 +751,8 @@ def phase_kernels(bw: float, errs):
                         flash_f64[key] = max(flash_f64[key], out[key])
                     cells += 1
     emit("kernels_small", cells=cells, max_abs_err=errs,
-         max_abs_err_16_bit=half_errs, matmul_vs_float64=matmul_f64,
+         max_abs_err_16_bit=half_errs, matmul_designs=matmul_designs,
+         matmul_vs_float64=matmul_f64,
          flash_attention_vs_float64=flash_f64)
 
     # B5's two gradient passes and B6 timed in bf16 (B5 on an X of
@@ -713,9 +775,6 @@ def phase_kernels(bw: float, errs):
     del X, w, v, s_, y_
     torch.cuda.empty_cache()
 
-    # B5 square, timed against torch.matmul (the plain version) with TF32 off
-    case = matmul_case(4096, 4096, 4096, False, gen)
-    emit("kernels_square", **measure("matmul", case, bw, errs))
     # full width without x (the track_x=False option, which no path below
     # drives); the paths' own inputs are checked by check_on_path
     from repro_torch.core.blocks import make_flat_blocks
@@ -756,6 +815,82 @@ def phase_worker_update(bw: float, errs):
     return launches, row
 
 
+def half_scale(case):
+    """|A| |B| in float64 for a 16-bit B5 case (its entry-by-entry
+    limit), else None."""
+    a, b, transpose_a = case
+    if a.dtype == torch.float32:
+        return None
+    return f64_matmul(a, b, transpose_a, absolute=True)
+
+
+def gate_ratio(out, plain, exact, scale) -> dict:
+    """A faulty B5 result's error as a multiple of B5's limit over all
+    entries and, in 16 bits, entry by entry."""
+    limit, _ = f64_limit(plain, exact)
+    ratio = {"all_entries": f64_err(out, exact) / limit}
+    if scale is not None:
+        ratio["by_entry"] = f64_entry_ratio(out, plain, exact, scale)
+    return ratio
+
+
+def refused(ratio) -> bool:
+    return any(r > 1.0 for r in ratio.values())
+
+
+def phase_matmul(bw: float, errs):
+    """``ops.matmul``, the package's public op, on MATMUL_CELLS: one call
+    a cell on the path, its launches and designs counted; then each
+    result held to float64 by B5's rule, the gate shown to refuse
+    ``refused_by_gate``'s faulty results at full size, and the op timed
+    beside its plain version and ``torch.matmul`` on the same
+    operands."""
+    from repro_torch.kernels import ops
+
+    lg = kernel_module("matmul")
+    gen = torch.Generator(device="cuda").manual_seed(4096)
+    cases = [(torch.randn((n, n), generator=gen, device="cuda").to(dtype),
+              torch.randn((n, n), generator=gen, device="cuda").to(dtype), t)
+             for (n, dtype, t, _) in MATMUL_CELLS]
+    ops.reset_launch_counts()
+    outs = [ops.matmul(a, b, transpose_a=t) for (a, b, t) in cases]
+    torch.cuda.synchronize()
+    launches, designs = ops.launch_counts(), ops.matmul_design_counts()
+    expect_counts("matmul", launches, {"matmul": len(cases)})
+    want = {d: sum(c[3] == d for c in MATMUL_CELLS) for d in designs}
+    if designs != want:
+        fail(f"matmul: designs {designs}, expected {want}")
+    rows = []
+    for (n, dtype, t, design), case, out in zip(MATMUL_CELLS, cases, outs):
+        a, b, _ = case
+        what = f"matmul {n}^3 {str(dtype)[6:]} transpose_a={t}"
+        if not (out.shape == (n, n) and out.dtype == dtype):
+            fail(f"{what}: result {tuple(out.shape)} {out.dtype}")
+        plain = lg.matmul_torch(*case)
+        exact, scale = f64_matmul(*case), half_scale(case)
+        row = f64_rule_errors(what, out, plain, exact, scale=scale)
+        row["faulty_over_limit"] = refused_by_gate(
+            what, case, plain, exact, scale, DESIGN_K_STEP[design])
+        del plain, exact, scale
+        bytes_, flops = matmul_bytes_flops(case)
+        bound_ms, bound_by = bound(bytes_, flops, bw, tensor_core_rate(dtype))
+        rows.append(dict(
+            n=n, dtype=str(dtype)[6:], transpose_a=t, design=design,
+            ms=time_ms(lambda: ops.matmul(a, b, transpose_a=t)),
+            plain_ms=time_ms(lambda: lg.matmul_torch(*case)),
+            library_ms=time_ms(lambda: torch.matmul(a.T if t else a, b)),
+            bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            ffma_bound_ms=bound(bytes_, flops, bw)[0], **row))
+    for design in set(c[3] for c in MATMUL_CELLS):
+        errs[f"matmul_{design}"] = max(r["max_abs_err"] for r in rows
+                                       if r["design"] == design)
+    emit("matmul", launches=launches, designs=designs, cells=rows,
+         card=smi_line())
+    del cases, outs
+    torch.cuda.empty_cache()
+    return launches, designs, rows
+
+
 def measure(name: str, case, bw: float, errs, reps: int = REPS,
             windows: int = WINDOWS) -> dict:
     """``name``'s kernel against its plain version on ``case``: max|Δ|
@@ -774,7 +909,8 @@ def measure(name: str, case, bw: float, errs, reps: int = REPS,
         extra["library_max_abs_diff_vs_plain"] = float(
             (call(*case).float() - plain(*case).float()).abs().max())
     bytes_, flops = COUNTS[name](case)
-    rate = attention_rate(case) if name == "flash_attention" else FP32_FLOPS
+    rate = tensor_core_rate(case[0].dtype) if name == "flash_attention" \
+        else FP32_FLOPS
     bound_ms, bound_by = bound(bytes_, flops, bw, rate)
     if name == "flash_attention":
         extra["dtype"] = str(case[0].dtype).replace("torch.", "")
@@ -1665,39 +1801,62 @@ def drop_bits(t, bits: int):
 
 def rounded_product(a, b, transpose_a: bool, bits: int):
     """B5 on ``a`` and ``b`` rounded by ``drop_bits`` (``a`` a chunk of
-    stored rows at a time): what a kernel with low-precision inputs
-    would return."""
+    stored rows at a time, widened to float32 to round and narrowed back
+    to its type, exactly): what a kernel with low-precision inputs would
+    return. The chunks of A^T B are added in float32."""
     lg = kernel_module("matmul")
-    rb = drop_bits(b, bits)
+    rb = drop_bits(b.float(), bits).to(b.dtype)
     rows = F64_CHUNK // a.shape[1]
-    parts = [lg.matmul_cuda(drop_bits(a[r:r + rows], bits),
+    parts = [lg.matmul_cuda(drop_bits(a[r:r + rows].float(), bits)
+                            .to(a.dtype),
                             rb[r:r + rows] if transpose_a else rb,
                             transpose_a)
              for r in range(0, a.shape[0], rows)]
-    return sum(parts) if transpose_a else torch.cat(parts)
+    if transpose_a:
+        return sum(p.float() for p in parts).to(a.dtype)
+    return torch.cat(parts)
 
 
-def refused_by_gate(what: str, case, plain, exact) -> dict:
-    """Four results a faulty B5 could return for ``case``: zeros, the
-    product with the first sixteenth of K dropped, and the product of
-    inputs rounded to bfloat16 or to TF32. B5's float64 gate must refuse
-    each; returns each one's error as a multiple of the limit."""
+def refused_by_gate(what: str, case, plain, exact, scale=None,
+                    k_step=None) -> dict:
+    """Results a faulty B5 could return for ``case``: zeros, the product
+    with the first sixteenth of K dropped, with ``k_step``, the product
+    with one K step read twice and the next never (a pipeline stage that
+    holds the wrong tiles), and the product of inputs rounded to
+    bfloat16 or to TF32 (float32), or cut to 3 mantissa bits (16 bits).
+    B5's float64 gate must refuse each (in 16 bits over all entries or
+    entry by entry); returns each one's error as a multiple of the
+    limit."""
     lg = kernel_module("matmul")
     a, b, transpose_a = case
-    limit, _ = f64_limit(plain, exact)
+    K = b.shape[0]
     dropped = b.clone()
-    dropped[:b.shape[0] // 16] = 0
+    dropped[:K // 16] = 0
     faulty = {"zeros": lambda: torch.zeros_like(plain),
               "sixteenth_of_K_dropped": lambda: lg.matmul_cuda(
-                  a, dropped, transpose_a),
-              "bf16_inputs": lambda: rounded_product(a, b, transpose_a, 16),
-              "tf32_inputs": lambda: rounded_product(a, b, transpose_a, 13)}
+                  a, dropped, transpose_a)}
+    if k_step is not None:
+        j = (K // 2) // k_step * k_step        # a step in the middle of K
+        a2, b2 = a.clone(), b.clone()
+        if transpose_a:
+            a2[j + k_step:j + 2 * k_step] = a[j:j + k_step]
+        else:
+            a2[:, j + k_step:j + 2 * k_step] = a[:, j:j + k_step]
+        b2[j + k_step:j + 2 * k_step] = b[j:j + k_step]
+        faulty["k_step_read_twice"] = lambda: lg.matmul_cuda(a2, b2,
+                                                             transpose_a)
+    if a.dtype == torch.float32:
+        faulty["bf16_inputs"] = lambda: rounded_product(a, b, transpose_a, 16)
+        faulty["tf32_inputs"] = lambda: rounded_product(a, b, transpose_a, 13)
+    else:
+        faulty["3_bit_inputs"] = lambda: rounded_product(a, b, transpose_a,
+                                                         20)
     ratios = {}
     for name, make in faulty.items():
-        ratios[name] = f64_err(make(), exact) / limit
-        if not ratios[name] > 1.0:
+        ratios[name] = gate_ratio(make(), plain, exact, scale)
+        if not refused(ratios[name]):
             fail(f"{what}: B5's float64 gate let a faulty result through "
-                 f"({name}: {ratios[name]:.3g} of its limit)")
+                 f"({name}: {ratios[name]} of its limit)")
     return ratios
 
 
@@ -1808,6 +1967,147 @@ def phase_logreg(bw: float, errs):
     return launches, timed
 
 
+def plain_pass(a, b, transpose_a: bool):
+    """A gradient pass's plain version in row chunks of ``a`` (an X too
+    large to widen to float32 at once): float32 products, the chunks of
+    A^T B added in float32, rounded once to ``a``'s dtype."""
+    rows = F64_CHUNK // a.shape[1]
+    if transpose_a:
+        c = torch.zeros((a.shape[1], b.shape[1]), device=a.device)
+        for r in range(0, a.shape[0], rows):
+            c += a[r:r + rows].float().T @ b[r:r + rows].float()
+        return c.to(a.dtype)
+    return torch.cat([a[r:r + rows].float() @ b.float()
+                      for r in range(0, a.shape[0], rows)]).to(a.dtype)
+
+
+def plain_logreg_grad_chunked(X, y, w):
+    """``plain_logreg_grad`` with its passes in row chunks of X."""
+    lg = kernel_module("matmul")
+    m, d = X.shape
+    s = plain_pass(X, w.reshape(d, 1), False)
+    v = lg.margin_torch(s, y.reshape(m, 1))
+    return plain_pass(X, v, True).reshape(d) / m
+
+
+def phase_logreg_bf16(bw: float, errs):
+    """``ops.logreg_grad`` on X of the same size in bfloat16 (34.36 GB),
+    filled in row chunks on the card, after phase ``logreg`` (its X
+    freed): B5's gemv16 design twice and B6 once; each pass and the
+    gradient held to float64 by B5's rule (the plain versions in row
+    chunks: a float32 X would not fit beside it) and each pass's gate
+    shown to refuse three faulty results; the kernels, the gradient,
+    ``torch.matmul`` on the same bf16 operands and bf16 autograd
+    timed."""
+    from repro_torch.kernels import ops
+
+    lg = kernel_module("matmul")
+    m, d, dtype = LOGREG_M, LOGREG_D, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    reset_peak()
+    free, total = torch.cuda.mem_get_info()
+    if free < 2 * m * d + LOGREG_WORKSPACE:
+        fail(f"logreg_bf16: X ({m} x {d} bf16) needs {2 * m * d} B and the "
+             f"checks {LOGREG_WORKSPACE} B more; the card has {free} B "
+             f"free of {total}")
+    t0 = time.perf_counter()
+    X = torch.empty((m, d), dtype=dtype, device="cuda")
+    rows = F64_CHUNK // d
+    chunk = torch.empty((rows, d), device="cuda")
+    for r0 in range(0, m, rows):         # make_sparse_logreg's density 0.1
+        chunk.normal_(generator=gen)
+        chunk.mul_(torch.rand(chunk.shape, generator=gen, device="cuda") < 0.1)
+        X[r0:r0 + rows] = chunk
+    del chunk
+    y = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.5,
+                    -1.0, 1.0).to(dtype)
+    w = (0.01 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    with capture_inputs(copy=False, names=("matmul", "margin")) as inputs:
+        g = ops.logreg_grad(X, y, w)
+    torch.cuda.synchronize()
+    launches, designs = ops.launch_counts(), ops.matmul_design_counts()
+    expect_counts("logreg_bf16", launches, {"matmul": 2, "margin": 1})
+    if designs["gemv16"] != 2:
+        fail(f"logreg_bf16: B5's designs {designs}, expected gemv16 twice")
+    if g.shape != (d,) or g.dtype != dtype or not bool(
+            torch.isfinite(g).all()):
+        fail("logreg_bf16: the gradient is not a finite bf16 vector of "
+             "length d")
+    (pass1, pass2), (marg,) = inputs["matmul"], inputs["margin"]
+    s_k, v_k = marg[0], pass2[1]       # pass 1's output, B6's output
+    g_raw = lg.matmul_cuda(*pass2)     # pass 2's output, recomputed
+    plain1, plain2 = plain_pass(*pass1), plain_pass(*pass2)
+
+    s64 = f64_matmul(X, w[:, None], False)
+    y64 = y.double()[:, None]
+    c64 = f64_matmul(X, torch.cat([v_k.double(),
+                                   -y64 * torch.sigmoid(-y64 * s64)], dim=1),
+                     True)
+    exact2, g64 = c64[:, :1], c64[:, 1] / m
+    scale1, scale2 = half_scale(pass1), half_scale(pass2)
+    pass1_err = f64_rule_errors("matmul kernel (bf16)", s_k, plain1, s64,
+                                scale=scale1)
+    pass1_err["faulty_over_limit"] = refused_by_gate(
+        "logreg_bf16 pass 1", pass1, plain1, s64, scale1)
+    pass2_err = f64_rule_errors("matmul kernel (bf16)", g_raw, plain2, exact2,
+                                scale=scale2)
+    pass2_err["faulty_over_limit"] = refused_by_gate(
+        "logreg_bf16 pass 2", pass2, plain2, exact2, scale2)
+    grad_err = held_to_f64("logreg_grad (bf16)", g,
+                           plain_logreg_grad_chunked(X, y, w), g64)
+    g_auto = autograd_logreg_grad(X, y, w)
+    auto_vs_f64 = f64_err(g_auto, g64)
+    margin_err = check("margin", marg, errs)["max_abs_err"]
+    errs["matmul_gemv16"] = max(pass1_err["max_abs_err"],
+                                pass2_err["max_abs_err"])
+    del s64, y64, c64, exact2, g64, g_raw, plain1, plain2, scale1, scale2
+
+    reps, windows = LOGREG_REPS, LOGREG_WINDOWS
+    timed = {}
+    for key, case in (("pass1", pass1), ("pass2", pass2)):
+        a, b, t = case
+        bytes_, flops = matmul_bytes_flops(case)
+        bound_ms, bound_by = bound(bytes_, flops, bw)
+        timed[key] = dict(
+            shapes=[list(a.shape), list(b.shape)], transpose_a=t,
+            design="gemv16",
+            ms=time_ms(lambda: lg.matmul_cuda(*case), reps, windows, 1),
+            plain_ms=time_ms(lambda: plain_pass(*case), reps, windows, 1),
+            library_ms=time_ms(lambda: torch.matmul(a.T if t else a, b),
+                               reps, windows, 1),
+            bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    timed["pass1"].update(pass1_err)
+    timed["pass2"].update(pass2_err)
+    bytes_, flops = margin_bytes_flops(marg)
+    bound_ms, bound_by = bound(bytes_, flops, bw)
+    timed["margin"] = dict(
+        shapes=[list(marg[0].shape)] * 2, max_abs_err=margin_err,
+        ms=time_ms(lambda: lg.margin_cuda(*marg)),
+        plain_ms=time_ms(lambda: lg.margin_torch(*marg)),
+        bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    grad = dict(
+        ms=time_ms(lambda: ops.logreg_grad(X, y, w), reps, windows, 1),
+        plain_ms=time_ms(lambda: plain_logreg_grad_chunked(X, y, w), reps,
+                         windows, 1),
+        autograd_ms=time_ms(lambda: autograd_logreg_grad(X, y, w), reps,
+                            windows, 1),
+        bound_ms=sum(timed[k]["bound_ms"] for k in timed),
+        **grad_err, autograd_err_vs_f64=auto_vs_f64,
+        max_abs_diff_vs_autograd=float((g.float() - g_auto.float())
+                                       .abs().max()))
+    peak = torch.cuda.max_memory_allocated()
+    emit("logreg_bf16", m=m, d=d, x_bytes=X.numel() * 2, fill_s=fill_s,
+         free_bytes_before=free, peak_bytes=peak, launches=launches,
+         designs=designs, grad=grad, **timed, card=smi_line())
+    del X, y, w, g, g_auto, s_k, v_k, pass1, pass2, marg, inputs
+    torch.cuda.empty_cache()
+    return launches, timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1831,6 +2131,7 @@ def main() -> int:
     errs = {name: 0.0 for name in PLAIN}
     phase_kernels(bw, errs)
     wu_launches, wu_row = phase_worker_update(bw, errs)
+    mm_launches, mm_designs, mm_rows = phase_matmul(bw, errs)
     main_launches, main_rows, z_main = phase_main(bw, errs)
     phase_paper(bw, errs)
     spmd_launches, spmd_rows = phase_spmd(bw, errs, z_main)
@@ -1840,20 +2141,35 @@ def main() -> int:
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)
+    logreg16_launches, logreg16_rows = phase_logreg_bf16(bw, errs)
 
     # each kernel's numbers from the path it serves: B1 and B2 from main,
     # B3 from spmd (B1 runs on both; main is its full-width single device),
-    # B4 from its op on the kdda_like bundle, B5 (its two passes of one
-    # gradient, summed) and B6 from logreg, B7 from serve's flash prefill
-    passes = [logreg_rows["pass1"], logreg_rows["pass2"]]
-    logreg_kernels = {
-        "matmul": {key: sum(r[key] for r in passes)
-                   for key in ("ms", "plain_ms", "bound_ms")},
-        "margin": logreg_rows["margin"]}
-    logreg_kernels["matmul"]["bound_by"] = "bytes" if all(
-        r["bound_by"] == "bytes" for r in passes) else "operations"
-    logreg_kernels["matmul"]["library_ms"] = logreg_kernels["matmul"][
-        "plain_ms"]                     # the plain version is torch.matmul
+    # B4 from its op on the kdda_like bundle, B5's gemv (its two passes of
+    # one gradient, summed) and B6 from logreg, B5's gemv16 from the bf16
+    # gradient, its tensor-core and tiled designs from the matmul line
+    # (the first cell of each: f32 and bf16 with A stored (M, K), and
+    # f32 at 4095^3), B7 from serve's flash prefill
+    def passes_summed(rows, library_key):
+        passes = [rows["pass1"], rows["pass2"]]
+        out = {key: sum(r[key] for r in passes)
+               for key in ("ms", "plain_ms", "bound_ms")}
+        out["bound_by"] = "bytes" if all(
+            r["bound_by"] == "bytes" for r in passes) else "operations"
+        out["library_ms"] = sum(r[library_key] for r in passes)
+        return out
+
+    def first_cell(design):
+        return next(r for r in mm_rows if r["design"] == design)
+
+    # the f32 plain version is torch.matmul, also the library call
+    logreg_kernels = {"matmul": passes_summed(logreg_rows, "plain_ms"),
+                      "margin": logreg_rows["margin"]}
+    matmul_designs = {
+        "matmul_gemv16": (logreg16_launches["matmul"],
+                          passes_summed(logreg16_rows, "library_ms")),
+        **{f"matmul_{d}": (mm_designs[d], first_cell(d))
+           for d in ("wgmma", "tf32x3", "tiled")}}
     paths = {"prox_consensus": (spmd_launches, spmd_rows),
              "admm_worker_update": (wu_launches, {"admm_worker_update":
                                                   wu_row}),
@@ -1870,6 +2186,16 @@ def main() -> int:
             launches=launches[name_], max_abs_err=errs[name_], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms")))
+        if name_ == "matmul":           # B5's designs under B5
+            kernels[-1]["design"] = "gemv"
+            source, replaces = SOURCES["matmul"]
+            for design_name, (n, r) in matmul_designs.items():
+                kernels.append(dict(
+                    name=design_name, route="cuda", source=source,
+                    replaces=replaces, design=design_name[len("matmul_"):],
+                    launches=n, max_abs_err=errs[design_name], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,12 @@
 Ports of ``repro/kernels/logreg_grad.py``:
 
 * ``matmul`` — C = A B, or A^T B without building A^T, fp32 accumulator:
-  ``matmul_torch`` / ``matmul_cuda``;
+  ``matmul_torch`` / ``matmul_cuda``. The CUDA entry point picks one of
+  five designs by shape, type and alignment (see the note at the top of
+  ``csrc/logreg_grad.cu``): ``gemv`` and ``gemv16`` for N = 1 (16-byte
+  loads in 16 bits), ``wgmma`` (bf16/f16) and ``tf32x3`` (float32) on the
+  tensor cores for N > 1, and ``tiled`` where TMA's or cp.async's
+  alignment fails;
 * ``margin`` — v = -y * sigmoid(-y * s) elementwise: ``margin_torch`` /
   ``margin_cuda``.
 
@@ -19,7 +24,10 @@ bits. ``margin_torch`` computes as its
 kernel does (``torch.sigmoid`` is 1 / (1 + exp(-t)) on the card). Each
 ``*_cuda`` launches its kernel from ``csrc/logreg_grad.cu`` on the
 tensors' device and current stream; ``launches`` counts the launches of
-each, by op name.
+each, by op name (one a call, though gemv16's X^T v runs two kernels,
+its split sums and their fixed-order total, and tf32x3 a scan for Inf
+and NaN before its products), and ``designs`` counts the matmul's calls
+by design.
 
 Both kernels take float32, bfloat16 or float16, one dtype for all
 operands, as the reference's kernels take their input's dtype: they
@@ -36,10 +44,15 @@ import torch
 from . import _build
 
 launches = {"matmul": 0, "margin": 0}
+# the matmul's designs, by their code in csrc/logreg_grad.cu
+DESIGNS = ("tiled", "gemv", "gemv16", "wgmma", "tf32x3")
+designs = {name: 0 for name in DESIGNS}
 _fns = {}
 
 _ARGTYPES = {
-    "logreg_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
+    "logreg_matmul_plan": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3 + [
+        ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int64)],
+    "logreg_matmul": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p],
     "logreg_margin": [ctypes.c_void_p] * 3 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
@@ -113,17 +126,28 @@ def matmul_cuda(a, b, transpose_a: bool = False):
     out = torch.empty((M, N), dtype=a.dtype, device=dev)
     if M == 0 or N == 0:
         return out
-    fn = _function("logreg_matmul")
+    trans, code = int(bool(transpose_a)), DTYPES[a.dtype]
+    scratch_bytes = ctypes.c_int64(0)
+    route = _function("logreg_matmul_plan")(
+        a.data_ptr(), b.data_ptr(), M, N, K, trans, code,
+        ctypes.byref(scratch_bytes))
+    if route < 0:
+        raise RuntimeError(f"matmul kernel plan failed: error {route}")
+    scratch = torch.empty(scratch_bytes.value, dtype=torch.uint8,
+                          device=dev) if scratch_bytes.value else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-                 int(bool(transpose_a)), DTYPES[a.dtype], dev.index, stream)
+        err = _function("logreg_matmul")(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), M, N, K, trans,
+            code, dev.index, stream)
     if err == -2:
         raise ValueError(f"matmul_cuda: ({M}, {N}) needs more tiles than "
                          f"a grid holds")
     if err != 0:
-        raise RuntimeError(f"matmul kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"matmul kernel launch failed: error {err}")
     launches["matmul"] += 1
+    designs[DESIGNS[route]] += 1
     return out
 
 

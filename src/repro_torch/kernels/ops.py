@@ -172,7 +172,13 @@ def launch_counts() -> Dict[str, int]:
     return {name: n for counter in _COUNTERS for name, n in counter.items()}
 
 
+def matmul_design_counts() -> Dict[str, int]:
+    """``matmul``'s kernel calls since the last reset, by design
+    (``tiled``, ``gemv``, ``gemv16``, ``wgmma``, ``tf32x3``)."""
+    return dict(_lg.designs)
+
+
 def reset_launch_counts() -> None:
-    for counter in _COUNTERS:
+    for counter in (*_COUNTERS, _lg.designs):
         for name in counter:
             counter[name] = 0

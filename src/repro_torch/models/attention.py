@@ -143,17 +143,20 @@ def gqa_forward(params, x, cfg, positions, *, window=None):
 
 def gqa_decode(params, x, cfg, cache, pos: int):
     """x: (B,1,d); cache: {"k","v"} of shape (B, max_len, nkv, hd); pos —
-    the number of tokens already in the cache. The new K/V are written at
-    ``pos`` in place. Window masking is applied logically, as in the
-    reference."""
+    the number of tokens already in the cache. The new K/V are written in
+    place at ``pos``, or at the last slot once ``pos`` reaches max_len:
+    the reference's ``dynamic_update_slice`` clamps its start so. The
+    mask uses the true ``pos``. Window masking is applied logically, as
+    in the reference."""
     pos = int(pos)
     positions = torch.full(x.shape[:2], pos, dtype=torch.int64,
                            device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
     ck, cv = cache["k"], cache["v"]
-    ck[:, pos:pos + 1] = k
-    cv[:, pos:pos + 1] = v
     T = ck.shape[1]
+    at = min(pos, T - 1)
+    ck[:, at:at + 1] = k
+    cv[:, at:at + 1] = v
     kj = torch.arange(T, device=x.device)
     m = kj <= pos
     if cfg.sliding_window is not None:

@@ -79,5 +79,6 @@ class Engine:
             out.append(tok)
             logits, cache = self.model.decode_step(
                 self.params, tok[:, None], cache, pos + t)
-        return ServeResult(tokens=torch.stack(out, dim=1).cpu().numpy(),
-                           steps=max_new)
+        # int32, as the reference's argmax gives them
+        tokens = torch.stack(out, dim=1).to(torch.int32)
+        return ServeResult(tokens=tokens.cpu().numpy(), steps=max_new)

@@ -326,6 +326,124 @@ def test_matmul_kernel_takes_16_bit_types(gen, m, k, n, transpose_a, dtype):
     _within_f64_rule(c, plain, exact)
 
 
+def _within_f64_entry_rule(out, plain, exact, scale):
+    """B5's rule entry by entry, as chip_smoke.py holds 16-bit results:
+    |out - exact| <= 8 * max(|plain - exact|, 2^-22 * scale) at each
+    entry finite in float64 and in the plain result, scale = |A| |B| in
+    float64."""
+    fin = torch.isfinite(exact) & torch.isfinite(plain.double())
+    err = (out.double() - exact).abs()[fin]
+    limit = 8 * torch.maximum((plain.double() - exact).abs()[fin],
+                              2.0 ** -22 * scale[fin])
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+def _expected_design(m, k, n, transpose_a, dtype):
+    """The design of B5 that csrc/logreg_grad.cu's plan picks for
+    contiguous operands on 16-byte boundaries (as torch allocates them):
+    by N, the element type and whether A's rows and N allow TMA's or
+    cp.async's 16-byte strides."""
+    lead = m if transpose_a else k          # A's stored row, elements
+    if n == 1:
+        half = dtype != torch.float32
+        return "gemv16" if half and k > 0 and lead % 8 == 0 else "gemv"
+    if k == 0:
+        return "tiled"
+    if dtype == torch.float32:
+        return "tf32x3" if lead % 4 == 0 and n % 4 == 0 else "tiled"
+    return "wgmma" if lead % 8 == 0 and n % 8 == 0 else "tiled"
+
+
+# chip_smoke.py's MATMUL_SHAPES: the reference's four, the gradient
+# passes' N = 1, and for the tensor-core designs a tile multiple and a
+# ragged shape
+DESIGN_SHAPES = [(128, 128, 128), (256, 384, 128), (100, 50, 30),
+                 (129, 257, 65), (129, 257, 1), (1000, 3000, 1),
+                 (96, 1024, 1), (1024, 96, 1), (384, 512, 512),
+                 (200, 136, 264)]
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("transpose_a", [False, True])
+@pytest.mark.parametrize("m,k,n", DESIGN_SHAPES)
+def test_matmul_designs_within_float64_bound(gen, m, k, n, transpose_a,
+                                             dtype, nan):
+    """Each of B5's designs: the one the shape and type call for runs
+    (one launch), NaN and Inf fall where the plain version has them, the
+    result is within B5's rule of float64 and a second call repeats it
+    bit for bit."""
+    a = torch.randn((k, m) if transpose_a else (m, k), generator=gen,
+                    device="cuda").to(dtype)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+    if nan and k > 1 and n > 2:
+        a[0, 0] = float("nan")
+        b[1, 2] = float("inf")
+    ops.reset_launch_counts()
+    c = ops.matmul(a, b, transpose_a=transpose_a)
+    assert ops.launch_counts()["matmul"] == 1
+    ran = {d: v for d, v in ops.matmul_design_counts().items() if v}
+    assert ran == {_expected_design(m, k, n, transpose_a, dtype): 1}
+    assert c.shape == (m, n) and c.dtype == dtype
+    plain = logreg.matmul_torch(a, b, transpose_a)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(c), torch.isnan(plain))
+    assert torch.equal(torch.isinf(c), torch.isinf(plain))
+    a64 = a.double().T if transpose_a else a.double()
+    exact = a64 @ b.double()
+    _within_f64_rule(c, plain, exact)
+    if dtype != torch.float32:
+        _within_f64_entry_rule(c, plain, exact, a64.abs() @ b.double().abs())
+    torch.testing.assert_close(ops.matmul(a, b, transpose_a=transpose_a), c,
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_misaligned_operands_take_designs_without_tma(gen, dtype):
+    """A contiguous A one element past a 16-byte boundary: N > 1 takes
+    the tiled kernel and N = 1 the one-element-a-load gemv."""
+    m = k = 128
+    flat = torch.randn(m * k + 1, generator=gen, device="cuda").to(dtype)
+    a = flat[1:].view(m, k)
+    for n, design in ((128, "tiled"), (1, "gemv")):
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+        ops.reset_launch_counts()
+        c = ops.matmul(a, b)
+        ran = {d: v for d, v in ops.matmul_design_counts().items() if v}
+        assert ran == {design: 1}
+        _within_f64_rule(c, logreg.matmul_torch(a, b),
+                         a.double() @ b.double())
+
+
+def test_logreg_grad_bf16_on_the_card_takes_gemv16(gen):
+    """``ops.logreg_grad`` in bf16 (d a multiple of 8): B5's gemv16
+    design for both passes and B6 once; the gradient within B5's rule of
+    the float64 gradient of the same bf16 inputs."""
+    m, d = 3000, 704
+    X = torch.randn((m, d), generator=gen, device="cuda")
+    X *= torch.rand((m, d), generator=gen, device="cuda") < 0.1
+    X = X.bfloat16()
+    y = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.5,
+                    -1.0, 1.0).bfloat16()
+    w = (0.05 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    ops.reset_launch_counts()
+    g = ops.logreg_grad(X, y, w)
+    counts = ops.launch_counts()
+    assert (counts["matmul"], counts["margin"]) == (2, 1)
+    assert ops.matmul_design_counts()["gemv16"] == 2
+    assert g.dtype == torch.bfloat16 and g.shape == (d,)
+    s = logreg.matmul_torch(X, w[:, None])
+    plain = logreg.matmul_torch(
+        X, logreg.margin_torch(s, y[:, None]), True)[:, 0] / m
+    X64, y64 = X.double(), y.double()
+    s64 = X64 @ w.double()
+    v64 = -y64 * torch.sigmoid(-y64 * s64)
+    exact = X64.T @ v64 / m
+    _within_f64_rule(g, plain, exact)
+    _within_f64_entry_rule(g, plain, exact, X64.abs().T @ v64.abs() / m)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", [(129, 1), (1000, 3), (1 << 20, 1)])
 def test_margin_kernel_takes_16_bit_types(gen, shape, dtype):

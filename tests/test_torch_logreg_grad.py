@@ -230,3 +230,190 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
         logreg.matmul_cuda(X, w[:, None])
     with pytest.raises(ValueError, match="CUDA"):
         logreg.margin_cuda(s, y[:, None])
+
+
+# ---------------------------------------------------------------------------
+# The CUDA designs' arithmetic, emulated in numpy (the kernels run only on
+# the card). B5's rule, as chip_smoke.py and the card tests hold the
+# kernels: max|out - f64| <= 8 * max(max|plain - f64|, 2^-22 max|f64|),
+# where plain is the float32 product (in 16 bits, rounded once to the
+# type).
+
+def _b5_ratio(out, plain, exact):
+    """max|out - exact| as a share of B5's limit (<= 1 passes)."""
+    err = np.abs(out.astype(np.float64) - exact).max()
+    plain_err = np.abs(plain.astype(np.float64) - exact).max()
+    return err / (8 * max(plain_err, 2.0 ** -22 * np.abs(exact).max()))
+
+
+def _tf32(x):
+    """cvt.rna.tf32 of finite float32 values: round the 13 low bits of
+    the magnitude away (to nearest, ties away from zero)."""
+    i = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((i + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _split(x):
+    """The kernel's split of finite values: x = hi + lo, both TF32."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _trunc32(x):
+    """float64 to float32, rounded toward zero (the tensor core's
+    accumulation); non-finite values pass through."""
+    f = x.astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        over = np.isfinite(x) & (np.abs(f.astype(np.float64)) > np.abs(x))
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tf32x3_emulated(A, B, terms=3):
+    """matmul_tf32x3_kernel's arithmetic on A (M, K) and B (K, N) float32.
+    The products that involve an Inf or a NaN are formed in float32 and
+    added apart; the tensor cores see those entries as 0. Each k8 step's
+    products go through three mma.sync steps into a fresh accumulator
+    (exact TF32 products, the sum rounded toward zero at each step),
+    lo(a) hi(b), then hi(a) lo(b), then hi(a) hi(b); the fresh
+    accumulator is added to the float32 sum, rounded to nearest. With
+    ``terms=1``, only hi(a) hi(b): one pass of TF32."""
+    fa, fb = np.isfinite(A), np.isfinite(B)
+    (ah, al), (bh, bl) = _split(np.where(fa, A, 0)), _split(np.where(fb, B, 0))
+    steps = [(al, bh), (ah, bl), (ah, bh)][3 - terms:]
+    acc = np.zeros((A.shape[0], B.shape[1]), np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for k in np.flatnonzero(~fa.all(0) | ~fb.all(1)):
+            odd = ~(fa[:, k, None] & fb[None, k, :])
+            acc[odd] += (A[:, k, None] * B[None, k, :])[odd]
+        for k0 in range(0, A.shape[1], 8):
+            t = np.zeros_like(acc)
+            for x, y in steps:
+                t = _trunc32(t + x[:, k0:k0 + 8].astype(np.float64)
+                             @ y[k0:k0 + 8].astype(np.float64))
+            acc = acc + t
+    return acc
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 512, 48), (40, 1000, 24)])
+def test_tf32x3_arithmetic_meets_b5_rule_and_one_pass_does_not(m, k, n):
+    rng = np.random.RandomState(8)
+    A = rng.randn(m, k).astype(np.float32)
+    B = rng.randn(k, n).astype(np.float32)
+    exact = A.astype(np.float64) @ B.astype(np.float64)
+    plain = ops.matmul(torch.as_tensor(A), torch.as_tensor(B)).numpy()
+    assert _b5_ratio(_tf32x3_emulated(A, B), plain, exact) <= 0.5
+    assert _b5_ratio(_tf32x3_emulated(A, B, terms=1), plain, exact) > 4.0
+
+
+def test_tf32x3_nonfinite_products_fall_where_plain_has_them():
+    """An Inf in A or B: split, x - hi is NaN there, and a cross term
+    0 * Inf (a TF32-exact partner has lo = 0) would turn the plain
+    version's Inf into NaN. The kernel forms the products that involve
+    an Inf or a NaN in float32 and gives the tensor cores 0 in their
+    place: NaN and Inf fall where the float32 product has them."""
+    A = np.array([[1.0, 2.0], [np.inf, 1.0], [1.5, np.nan]], np.float32)
+    B = np.array([[1.0, -np.inf, 0.0], [3.0, 1.0, 2.0]], np.float32)
+    A, B = np.pad(A, ((0, 0), (0, 6))), np.pad(B, ((0, 6), (0, 0)))
+    plain = ops.matmul(torch.as_tensor(A), torch.as_tensor(B)).numpy()
+    out = _tf32x3_emulated(A, B)
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(plain))
+    np.testing.assert_array_equal(np.isinf(out), np.isinf(plain))
+    np.testing.assert_array_equal(np.sign(out[np.isinf(out)]),
+                                  np.sign(plain[np.isinf(plain)]))
+    fin = np.isfinite(plain)
+    np.testing.assert_array_equal(out[fin], plain[fin])
+    assert np.isinf(plain[1, 0]) and np.isinf(plain[0, 1])
+    # the split of the raw values gives NaN there
+    with np.errstate(invalid="ignore"):
+        ah, al = _split(A)
+        bh, bl = _split(B)
+        raw = al.astype(np.float64) @ bh + ah.astype(np.float64) @ bl
+    assert np.isnan(raw[1, 0]) and np.isnan(raw[0, 1])
+
+
+# csrc/logreg_grad.cu's split of gemv16_cols_kernel (X^T v in 16 bits)
+COL16_WIDTH, COL16_WARPS, COL16_BLOCKS, COL16_MIN_ROWS = 256, 8, 4096, 256
+
+
+def _col16_split(M, K):
+    """(splits, rows a split) as the kernel's plan computes them."""
+    groups = -(-M // COL16_WIDTH)
+    want = max(1, min(-(-COL16_BLOCKS // groups), -(-K // COL16_MIN_ROWS)))
+    seg = -(-K // want)
+    return -(-K // seg), seg
+
+
+def _gemv16_cols_emulated(A, v):
+    """gemv16_cols_kernel + gemv16_sum_kernel on A stored (K, M) and v
+    (K,), both bf16-valued float32: per split, 8 warps each sum a
+    contiguous eighth of the split's rows in k order (fmaf: the product of
+    two bf16 values is exact in float32, so each step is one float32
+    add), the block adds the 8 in warp order into the split's row, and
+    the splits' rows are added in split order and rounded to bf16 once."""
+    K, M = A.shape
+    splits, seg = _col16_split(M, K)
+    total = np.zeros(M, np.float32)
+    for s in range(splits):
+        lo, hi = s * seg, min((s + 1) * seg, K)
+        sub = -(-(hi - lo) // COL16_WARPS)
+        part = np.zeros(M, np.float32)
+        for w in range(COL16_WARPS):
+            acc = np.zeros(M, np.float32)
+            for k in range(min(lo + w * sub, hi), min(lo + (w + 1) * sub, hi)):
+                acc = acc + A[k] * v[k]
+            part = acc if w == 0 else part + acc
+        total = part if s == 0 else total + part
+    return torch.as_tensor(total).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("K,M", [(4096, 64), (1000, 2048), (777, 520)])
+def test_gemv16_split_column_sum_meets_b5_rule(K, M):
+    """The 16-bit X^T v's fixed-order two-pass column sum, split over K
+    into (splits, rows) = ``_col16_split``, within B5's rule of float64."""
+    rng = np.random.RandomState(9)
+    A = torch.as_tensor(rng.randn(K, M).astype(np.float32)).bfloat16()
+    v = torch.as_tensor(rng.randn(K, 1).astype(np.float32)).bfloat16()
+    assert _col16_split(M, K)[0] > 1                # a real split of K
+    exact = A.double().T.numpy() @ v.double().numpy()
+    plain = ops.matmul(A, v, transpose_a=True).float().numpy()
+    out = _gemv16_cols_emulated(A.float().numpy(), v.float().numpy()[:, 0])
+    assert _b5_ratio(out[:, None], plain, exact) <= 1.0
+    # the emulation sums in another order than the plain product; both
+    # are float32 sums rounded once to bf16
+    np.testing.assert_allclose(out[:, None], plain, rtol=2.0 ** -7,
+                               atol=1e-2)
+
+
+# shapes the tensor-core designs take: a tile multiple (3 x 2 tiles of
+# 128 x 256, 8 steps of 64) and a ragged one (no edge on a tile)
+TENSOR_CORE_SHAPES = [(384, 512, 512), (200, 136, 264)]
+
+
+@pytest.mark.parametrize("m,k,n", TENSOR_CORE_SHAPES)
+@pytest.mark.parametrize("transpose_a", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_matches_reference_at_design_shapes(m, k, n, transpose_a,
+                                                   dtype):
+    rng = np.random.RandomState(10)
+    A = rng.randn(*((k, m) if transpose_a else (m, k))).astype(np.float32)
+    B = rng.randn(k, n).astype(np.float32)
+    if dtype == "float32":
+        ta, ja = torch.as_tensor(A), jnp.asarray(A)
+        tb, jb = torch.as_tensor(B), jnp.asarray(B)
+        tol = dict(rtol=1e-4, atol=1e-3)
+    else:
+        (ta, ja), (tb, jb) = _bf16(A), _bf16(B)
+        tol = BF16_TOL
+    C = ops.matmul(ta, tb, transpose_a=transpose_a)
+    assert C.shape == (m, n) and str(C.dtype) == f"torch.{dtype}"
+    Cr = rops.matmul(ja, jb, transpose_a=transpose_a, interpret=True)
+    np.testing.assert_allclose(C.float().numpy(), np.asarray(Cr, np.float32),
+                               **tol)
+
+
+def test_cpu_matmul_counts_no_design():
+    ops.reset_launch_counts()
+    ops.matmul(torch.ones((16, 8)), torch.ones((8, 16)))
+    assert ops.matmul_design_counts() == {
+        "tiled": 0, "gemv": 0, "gemv16": 0, "wgmma": 0, "tf32x3": 0}

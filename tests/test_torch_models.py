@@ -142,6 +142,27 @@ def test_decode_steps_match_reference(arch):
         _close(cache["layers"][name].numpy(), rcache["layers"][name])
 
 
+def test_decode_past_the_cache_length_matches_reference():
+    """Decode steps at and past the cache length against the reference's:
+    its ``dynamic_update_slice`` clamps the write of the new K/V to the
+    last slot while the mask keeps the true position. qwen3-1.7b, B = 2,
+    a cache of 4 and 7 steps: steps 4-6 write past the end."""
+    rmodel, rparams, model, params = _pair("qwen3-1.7b")
+    B, T, steps = 2, 4, 7
+    tok = _tokens(model.cfg, B, steps)
+    rcache = rmodel.init_cache(B, T)
+    cache = model.init_cache(B, T, "cpu")
+    rdecode = jax.jit(rmodel.decode_step)
+    for t in range(steps):
+        rlg, rcache = rdecode(rparams, jnp.asarray(tok[:, t:t + 1]), rcache,
+                              jnp.int32(t))
+        lg, cache = model.decode_step(params, torch.as_tensor(
+            tok[:, t:t + 1]), cache, t)
+        _close(lg.numpy(), rlg)
+    for name in ("k", "v"):
+        _close(cache["layers"][name].numpy(), rcache["layers"][name])
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_own_prefill(arch):
     """The port's decode path against its own prefill, token by token,

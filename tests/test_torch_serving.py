@@ -48,6 +48,7 @@ def test_greedy_tokens_match_reference_engine(arch, seed, shape, max_len,
     assert res.tokens.shape == (shape[0], max_new) and res.steps == max_new
     ref = ref_engine.generate(prompts, max_new=max_new)
     np.testing.assert_array_equal(res.tokens, ref.tokens)
+    assert res.tokens.dtype == ref.tokens.dtype == np.int32
 
 
 @pytest.mark.parametrize("arch", ARCHS)
