@@ -55,6 +55,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    gradient violation within 1e-5 (relative) of it; one more epoch on
    every rank holds B1 and B3 against their plain versions on that
    rank's tile inputs;
+   ps      — ``ConsensusSession.run_ps``, the event-driven Parameter
+   Server runtime, at phase 4's width and config: 6 rounds under each of
+   lockfree and locked (lognormal service times), B1 launched once per
+   worker compute and B2 once per block commit, both counts read from
+   the run's metrics; each run's trace replayed through the vectorized
+   epoch on the kernels with z bitwise equal at every round; B1 and B2
+   held against their plain versions on the run's first worker compute
+   (8, 64, 315,904) and first block commit (8, 1, 315,904) and timed
+   there; telemetry shown inert (3 rounds, z, delays and makespan
+   bitwise equal); then ``measure_costs`` on the card and Table 1 from
+   those costs (p in 1, 4, 8, 16, 32, k = 320, both disciplines), the
+   locked/lockfree gate at 8 workers and the skew, heavy_tail, churn
+   and lossy scenarios with their gates (``ps_baseline.json``);
 8. serve   — the dense model stack at qwen3-1.7b's full width (28
    layers, d_model 2048, 16 / 8 heads of 128, vocab 151,936, fp32,
    random weights from a seed): ``Model.prefill`` of 4 x 4096 tokens on
@@ -84,7 +97,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    row chunks) by B5's rule, the gradient against autograd too, and
    each pass's gate must refuse four faulty results (zeros, a sixteenth
    of K dropped, bf16- and TF32-rounded inputs); each kernel, the
-   gradient and autograd are timed. Runs last, with everything before
+   gradient and autograd are timed, B6 also by the profiler (its device
+   time per call). Runs last, with everything before
    it freed; then (line ``logreg_bf16``), that X freed, the same
    gradient on a bf16 X (34.36 GB): B5's gemv16 design twice and B6
    once, each pass and the gradient held to float64 (the plain versions
@@ -1422,6 +1436,156 @@ def phase_spmd_ranks(errs):
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the event-driven Parameter Server runtime at KDDa width
+# ---------------------------------------------------------------------------
+
+PS_ROUNDS = 6
+PS_TELEMETRY_ROUNDS = 3
+PS_DISCIPLINES = ("lockfree", "locked")
+PS_SCENARIOS = ("skew", "heavy_tail", "churn", "lossy")
+
+
+def ps_timing():
+    from repro_torch.ps import CostProfile, LognormalService
+    return CostProfile(t_worker=LognormalService(1.0, 0.3),
+                       t_server_block=LognormalService(0.25, 0.15))
+
+
+def ps_block_commits(res) -> int:
+    """Block commits of a run, from its metrics: domain commits times
+    the blocks a domain holds (every discipline here splits the blocks
+    evenly over its domains)."""
+    domains = len(res.metrics["server_busy_time"])
+    return res.metrics["commits"] * KDDA_BLOCKS // domains
+
+
+def ps_replay(sess_cfg, res) -> list:
+    """Replay ``res``'s trace through the vectorized epoch on the
+    kernels; every round's z must equal the runtime's bitwise. Returns
+    the epochs' ms."""
+    from repro_torch.api import ConsensusSession
+    cfg, centers = sess_cfg
+    rs = ConsensusSession.flat(quad_loss, centers, dim=KDDA_DIM, cfg=cfg,
+                               delay_model=res.to_delay_model())
+    state = rs.init()
+    times = []
+    for t in range(res.num_rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = rs.step(state)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        z = rs.z(state)
+        if not torch.equal(z, res.z_versions[t + 1]):
+            diff = float((z - res.z_versions[t + 1]).abs().max())
+            fail(f"ps {res.discipline}: the replayed z differs from the "
+                 f"runtime's at round {t} by {diff:.3e} (bitwise gate)")
+    return times
+
+
+def phase_ps(bw: float, errs):
+    """``ConsensusSession.run_ps`` at the kdda_like width and config, 6
+    rounds under each of lockfree and locked with lognormal service
+    times: B1 once per worker compute and B2 once per block commit, both
+    counts read from the run's own metrics; each run's trace replayed
+    through the vectorized epoch on the kernels, z bitwise equal at every
+    round; B1 and B2 held against their plain versions on the inputs of
+    the run's first worker compute and first commit, and timed there;
+    telemetry shown inert (z, delays and makespan bitwise equal over 3
+    rounds); then Table 1 from the card's measured costs, the
+    locked/lockfree gate at 8 workers and the four scenarios' gates."""
+    from repro_torch.api import ConsensusSession
+    from repro_torch.benchmarks import speedup
+    from repro_torch.kernels import ops
+    from repro_torch.ps import measure_costs
+
+    N, M = KDDA_WORKERS, KDDA_BLOCKS
+    problem = kdda_problem()
+    cfg, centers = problem
+    sess = ConsensusSession.flat(quad_loss, centers, dim=KDDA_DIM, cfg=cfg)
+    sess.run_ps(1, timing=ps_timing())          # warm-up, not counted
+    rows = None
+    for disc in PS_DISCIPLINES:
+        reset_peak()
+        ops.reset_launch_counts()
+        # the first run's first worker compute and commit are kept
+        capture = (capture_inputs(names=MAIN_KERNELS, keep=1)
+                   if rows is None else contextlib.nullcontext({}))
+        with capture as inputs:
+            t0 = time.perf_counter()
+            res = sess.run_ps(PS_ROUNDS, discipline=disc,
+                              timing=ps_timing(), record_z=True)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        computes = res.metrics["worker_iterations"]
+        commits = ps_block_commits(res)
+        expect_counts(f"ps {disc}", launches,
+                      {"admm_worker_select_update": computes,
+                       "server_prox_update": commits})
+        if computes != N * PS_ROUNDS or commits != M * PS_ROUNDS:
+            fail(f"ps {disc}: {computes} worker computes and {commits} "
+                 f"block commits in {PS_ROUNDS} rounds")
+        z = res.z_final
+        if tuple(z.shape) != (KDDA_DIM,) or not bool(torch.isfinite(z).all()):
+            fail(f"ps {disc}: z is not a finite vector of the problem's dim")
+        replay_ms = ps_replay(problem, res)
+        emit("ps", discipline=disc, N=N, M=M, dim=KDDA_DIM,
+             rounds=res.num_rounds, wall_s=wall_s,
+             wall_ms_per_round=1e3 * wall_s / res.num_rounds,
+             replay_epoch_ms=replay_ms,
+             replay_epoch_ms_median=statistics.median(replay_ms[1:]),
+             makespan=res.makespan, stall_count=res.metrics["stall_count"],
+             stall_time=res.metrics["stall_time"],
+             max_served_tau=res.metrics["max_served_tau"],
+             worker_computes=computes, block_commits=commits,
+             launches=launches, peak_bytes=peak, replay_bitwise=True,
+             losses=res.losses, card=smi_line())
+        del res, z
+        if rows is None:
+            rows = check_on_path("ps", inputs, MAIN_KERNELS, bw, errs)
+        del inputs
+
+    # telemetry is inert: the same 3 rounds with and without it
+    off = sess.run_ps(PS_TELEMETRY_ROUNDS, timing=ps_timing())
+    on = sess.run_ps(PS_TELEMETRY_ROUNDS, timing=ps_timing(), telemetry=True)
+    if on.makespan != off.makespan or \
+            on.trace.delays.tolist() != off.trace.delays.tolist() or \
+            not all(torch.equal(a, b) for a, b in zip(on.z_versions,
+                                                        off.z_versions)):
+        fail("ps: telemetry changed the run (z, delays or makespan)")
+    spans = len(on.telemetry.spans) if on.telemetry.spans is not None else 0
+    emit("ps_telemetry", rounds=PS_TELEMETRY_ROUNDS, makespan=on.makespan,
+         z_bitwise=True, span_events=spans)
+    del on, off
+
+    # Table 1 from this card's costs, and the scenarios' gates
+    costs = measure_costs(sess.spec, sess.data)
+    del sess, centers, problem
+    torch.cuda.empty_cache()
+    lines = []
+
+    def collect(line):
+        lines.append(line)
+
+    table = speedup.table1(collect, costs, device="cuda")
+    gates = {"speedup_x8": speedup.smoke_gate(collect, costs, "cuda")}
+    for name in PS_SCENARIOS:
+        gates[name] = speedup.SCENARIOS[name](collect, smoke=True,
+                                              device="cuda")
+    emit("ps_table1", t_worker_us=1e6 * costs["t_worker"],
+         t_server_block_us=1e6 * costs["t_server_block"],
+         k=speedup.K_ITERS, rows=table, gates=gates,
+         lines=[ln for ln in lines if "_hist," not in ln])
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        fail(f"ps: gates failed: {failed}: {lines}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the model stack at qwen3-1.7b's full width, and its serving path
 # ---------------------------------------------------------------------------
 
@@ -1949,6 +2113,8 @@ def phase_logreg(bw: float, errs):
         ms=time_ms(lambda: lg.margin_cuda(*marg)),
         plain_ms=time_ms(lambda: lg.margin_torch(*marg)),
         bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    timed["margin"].update(margin_device_ms("logreg", marg,
+                                            timed["margin"]["ms"]))
     grad = dict(
         ms=time_ms(lambda: ops.logreg_grad(X, y, w), reps, windows, 1),
         plain_ms=time_ms(lambda: plain_logreg_grad(X, y, w), reps, windows,
@@ -1965,6 +2131,29 @@ def phase_logreg(bw: float, errs):
     del X, y, w, g, g_auto, s_k, v_k, pass1, pass2, marg, inputs
     torch.cuda.empty_cache()
     return launches, timed
+
+
+L2_FLUSH_BYTES = 128 << 20     # over twice the H100's 50 MB L2
+
+
+def margin_device_ms(path: str, case, window_ms: float) -> dict:
+    """B6's own device time per call, from the profiler's kernel time
+    over REPS calls (the CUDA-event window's time is set by the
+    wrapper's host work between back-to-back launches): with the
+    inputs left in L2 by the call before (``device_ms``), and with L2
+    overwritten between calls (``device_ms_cold``), as a caller whose
+    inputs come from device memory finds it."""
+    lg = kernel_module("margin")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    for key, run in (("device_ms", lambda: lg.margin_cuda(*case)),
+                     ("device_ms_cold",
+                      lambda: (flush.zero_(), lg.margin_cuda(*case)))):
+        prof = profile_calls(f"{path}_margin_{key}", run, window_ms, REPS,
+                             unit="call")
+        rows = [r for r in prof["top"] if "margin" in r["name"]]
+        out[key] = rows[0]["device_ms"] if rows else None
+    return out
 
 
 def plain_pass(a, b, transpose_a: bool):
@@ -2089,6 +2278,8 @@ def phase_logreg_bf16(bw: float, errs):
         ms=time_ms(lambda: lg.margin_cuda(*marg)),
         plain_ms=time_ms(lambda: lg.margin_torch(*marg)),
         bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+    timed["margin"].update(margin_device_ms("logreg_bf16", marg,
+                                            timed["margin"]["ms"]))
     grad = dict(
         ms=time_ms(lambda: ops.logreg_grad(X, y, w), reps, windows, 1),
         plain_ms=time_ms(lambda: plain_logreg_grad_chunked(X, y, w), reps,
@@ -2138,6 +2329,7 @@ def main() -> int:
     del z_main
     torch.cuda.empty_cache()
     phase_spmd_ranks(errs)
+    phase_ps(bw, errs)
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)

@@ -15,6 +15,9 @@ passes ``device="cpu"``:
     # or, one call:
     z, history = solve(loss_fn, (X, y), dim=512, num_epochs=600, cfg=cfg)
 
+    # or under the event-driven Parameter Server runtime:
+    res = sess.run_ps(20, discipline="lockfree")
+
 ``loss_fn(z, worker_data)`` is written in torch; per-worker gradients
 come from ``torch.func.vmap(grad_and_value(loss_fn))``.
 
@@ -114,6 +117,78 @@ class ConsensusSession:
         port runs eagerly."""
         spec = self.spec
         return lambda s, b: asybadmm_epoch(spec, s, b)
+
+    def run_ps(self, num_rounds: int, z0: Any = None, *,
+               discipline: str = "lockfree",
+               timing: Any = None,
+               batches: Optional[Callable[[int], Any]] = None,
+               compute: str = "real",
+               seed: Optional[int] = None,
+               record_z: bool = True,
+               faults: Any = None,
+               transport: Any = None,
+               check_finite: bool = False,
+               checkpoint_every: Optional[int] = None,
+               checkpoint_dir: Optional[str] = None,
+               resume_from: Optional[str] = None,
+               telemetry: Any = None,
+               metrics_every: Optional[int] = None):
+        """Drive ``num_rounds`` rounds under the event-driven Parameter
+        Server runtime (``repro_torch.ps``) instead of the vectorized
+        epoch: per-block ``lockfree`` servers (or the ``locked``
+        full-vector baseline), workers running the real space ops on the
+        session's device (on the card: B1 per worker compute, B2 per
+        block commit), bounded staleness enforced by stalling
+        (Assumption 3's T comes from the session's delay model), and
+        every pull recorded into a :class:`~repro_torch.ps.trace.DelayTrace`.
+
+        ``timing`` is a :class:`~repro_torch.ps.timing.CostProfile`
+        (service times; defaults to unit worker cost). ``compute="timing"``
+        skips the numerics for pure coordination studies;
+        ``record_z=False`` keeps only the live staleness window of
+        committed versions (``z_final`` still returned, ``z_versions``
+        not). Returns a :class:`~repro_torch.ps.runtime.PSRunResult`
+        (``z_final`` / ``z_versions`` flat vectors on the session's
+        device) — replay its trace through the epoch with
+        ``delay_model=result.to_delay_model()``.
+
+        ``faults`` is a :class:`~repro_torch.ps.chaos.FaultPlan` (or a
+        path to its JSON) injecting worker crash/rejoin, joins/leaves,
+        slowdowns, server commit spikes and link loss; ``transport`` a
+        :class:`~repro_torch.ps.timing.Transport` (drop/dup/reorder with
+        ack/retry), a shortcut for ``timing.net``;
+        ``check_finite=True`` halts the run with a ``FloatingPointError``
+        the moment a committed z goes NaN/Inf. ``telemetry=`` (True, a
+        ``.jsonl`` path, ``"stdout"``, a callable, or a
+        :class:`~repro_torch.obs.Telemetry`) turns the deterministic
+        telemetry layer on; it never perturbs the run (z bitwise equal,
+        same makespan). ``metrics_every=k`` streams every k-th round.
+
+        ``checkpoint_every``, ``checkpoint_dir``, ``resume_from`` and
+        ``server_crash`` fault events keep the reference's signature and
+        raise ``NotImplementedError``: the durability layer is ROADMAP
+        Queue A item 1."""
+        from .ps import PSRuntime
+        from .ps.chaos import FaultPlan
+        from .ps.timing import CostProfile
+        if isinstance(faults, (str, bytes)) or hasattr(faults, "__fspath__"):
+            faults = FaultPlan.load(faults)
+        if transport is not None:
+            if timing is not None and timing.net is not None:
+                raise ValueError(
+                    "pass the Transport either as transport= or as "
+                    "timing.net, not both")
+            timing = dataclasses.replace(
+                timing if timing is not None else CostProfile(),
+                net=transport)
+        rt = PSRuntime(self.spec, data=self.data, batches=batches,
+                       discipline=discipline, timing=timing,
+                       compute=compute, seed=seed, record_z=record_z,
+                       faults=faults, check_finite=check_finite,
+                       telemetry=telemetry, metrics_every=metrics_every)
+        return rt.run(num_rounds, z0=z0, checkpoint_every=checkpoint_every,
+                      checkpoint_dir=checkpoint_dir,
+                      resume_from=resume_from)
 
     def run(self, num_epochs: int, z0: Any = None, *,
             batches: Optional[Callable[[int], Any]] = None,

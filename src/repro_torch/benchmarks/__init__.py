@@ -1,3 +1,4 @@
 """The paper's benchmark scripts, ported: ``convergence`` (the Fig. 2
-analogue). Runs as ``python -m repro_torch.benchmarks.convergence``, on
-the card unless ``--device cpu`` is given."""
+analogue) and ``speedup`` (the Table 1 analogue, on the PS runtime).
+Each runs as ``python -m repro_torch.benchmarks.<name>``, on the card
+unless ``--device cpu`` is given."""

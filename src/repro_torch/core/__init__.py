@@ -3,7 +3,7 @@ from .blocks import (LANE, FlatBlocks, edge_set_from_support,
                      make_flat_blocks, round_up_to_lane)
 from .consensus import (ConsensusProblem, init_state, make_problem,
                         make_step_fn, run)
-from .metrics import kkt_violations, stationarity
+from .metrics import block_residuals, kkt_violations, stationarity
 from .prox import Regularizer, make_prox, prox_box, prox_l1, soft_threshold
 from .space import (BLOCK_SELECTORS, ConsensusSpec, ConsensusState,
                     ConstantDelay, DelayModel, FlatSpace, ParetoDelay,

@@ -112,6 +112,45 @@ def stationarity(problem: ConsensusProblem, state: ConsensusState,
     }
 
 
+def block_residuals(z, y, x, edge, rho, reg=None, grads=None) -> dict:
+    """Per-block decomposition of P over the packed representation —
+    the telemetry quantities the PS runtime streams per round.
+
+    Inputs are the packed tensors (block j = row j): ``z`` (M, dblk),
+    ``y``/``x`` (N, M, dblk), ``edge`` (N, M) bool, ``rho`` scalar or
+    per-worker (N,). ``reg`` enables the prox-residual term (the
+    ``make_prox`` family is elementwise, so it applies to the packed
+    table directly; zero pads are fixed points of l1/box/l2, so pads
+    contribute nothing); ``grads`` (N, M, dblk) — grad f_i at x_i in
+    packed form — enables the gradient term. Returns per-block (M,)
+    tensors ``primal``/``prox``/``grad`` (residual norms; prox/grad are
+    None when their input is absent) and ``P`` (the per-block sum of
+    squares of whatever terms were computable; summed over blocks it is
+    ``stationarity``'s P up to fp reassociation when all terms are
+    present)."""
+    rho = _rho_b(rho)
+    edge_m = edge[..., None]                               # (N, M, 1)
+    cons = torch.where(edge_m, x - z[None], 0.0)           # (N, M, dblk)
+    primal_sq = torch.sum(torch.square(cons), dim=(0, 2))  # (M,)
+    P_blocks = primal_sq
+    prox_b = None
+    if reg is not None:
+        gradL_z = torch.sum(torch.where(edge_m, -y - rho * (x - z[None]),
+                                        0.0), dim=0)       # (M, dblk)
+        z_hat = reg.prox(z - gradL_z, 1.0)                 # eq. 15, mu = 1
+        prox_sq = torch.sum(torch.square(z - z_hat), dim=1)  # (M,)
+        prox_b = torch.sqrt(prox_sq)
+        P_blocks = P_blocks + prox_sq
+    grad_b = None
+    if grads is not None:
+        gradL_x = torch.where(edge_m, grads + y + rho * (x - z[None]), 0.0)
+        grad_sq = torch.sum(torch.square(gradL_x), dim=(0, 2))
+        grad_b = torch.sqrt(grad_sq)
+        P_blocks = P_blocks + grad_sq
+    return {"primal": torch.sqrt(primal_sq), "prox": prox_b,
+            "grad": grad_b, "P": P_blocks}
+
+
 def kkt_violations(problem: ConsensusProblem, state: ConsensusState,
                    rho, spec: ConsensusSpec = None) -> dict:
     """Theorem 1.2 KKT conditions at the limit point:

@@ -223,6 +223,13 @@ class TraceDelay:
     def depth(self) -> int:
         return self.max_delay + 1
 
+    @classmethod
+    def load(cls, path) -> "TraceDelay":
+        """The delay model of a trace file written by ``DelayTrace.save``
+        (this package's or the reference's: one ``.npz`` format)."""
+        from ..ps.trace import DelayTrace      # lazy: ps imports core.space
+        return DelayTrace.load(path).to_delay_model()
+
     def _round(self, t) -> int:
         return min(max(int(t), 0), self.num_rounds - 1)
 
@@ -329,6 +336,8 @@ def make_zipf_selector(a: float = 1.1) -> BlockSelector:
         thresh = torch.topk(scored, k, dim=1).values[:, -1:]
         return (scored >= thresh) & ctx.edge
 
+    # draws only from (seed, t): the PS runtime may run it timing-only
+    zipf_selector.gradient_free = True
     return zipf_selector
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` (its kernels, examples,
-benchmarks, models, serving engine and launchers too), ``chip_smoke.py`` and the rank side of the sharded
+benchmarks, models, serving engine, launchers, observability layer and
+PS runtime too), ``chip_smoke.py`` and the rank side of the sharded
 tests import neither JAX nor the reference package, and the kernels
 build without fast math (their plain versions are their yardstick)."""
 import ast
@@ -25,6 +26,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "import repro_torch.models, repro_torch.serving.engine\n"
             "import repro_torch.launch.serve\n"
             "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.obs, repro_torch.ps\n"
+            "import repro_torch.ps.runtime, repro_torch.ps.engine\n"
+            "import repro_torch.benchmarks.speedup\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
