@@ -25,13 +25,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    held to float64, its gate shown to refuse zeros, a sixteenth of K
    dropped, one K step read twice and bf16- or TF32-rounded (f32) or
    3-bit (16-bit) inputs, and timed beside ``torch.matmul``. In 16 bits
-   B5 is held entry by entry too (``f64_entry_ratio``);
+   B5 is held entry by entry too (``f64_entry_ratio``). Line
+   ``kernels_shapes``: B2 on one block column (N, 1, 315,904) for N in
+   1, 8, 17, 70 with the edge column all true, all false and mixed, NaN
+   rows on and off it; B6 at lengths 1, 7, 8, 9 and 2^20 + 3 at every
+   element offset of a 16-byte word (y also at another offset) in f32,
+   bf16 and f16, bit for bit its plain version; each cell's bitwise
+   agreement counted; and the device time of a one-element PyTorch
+   kernel, the least the profiler reads for a launch. B6 at the
+   gradient's (2^20, 1) in bf16 and f16 is timed with its device time
+   per launch (``kernel_device_ms``);
 4. main    — ``ConsensusSession.flat`` at the paper's KDDa width
    (N=8 workers, M=64 blocks, 20,216,830 coordinates; the quadratic
    loss and config of ``benchmarks/kernels_bench.py``'s kdda_like case):
    10 epochs on the kernels ("auto"), then 10 on the plain "torch"
    backend with the same seed and so the same draws; z must agree and
-   each kernel must have launched once per epoch;
+   each kernel must have launched once per epoch; B2 on the epoch's
+   inputs also by its device time per launch (line
+   ``main_server_prox``);
 5. paper   — the paper's entry points on the card: the
    "AsyBADMM (D=2, 50% blocks)" variant of
    ``repro_torch.examples.sparse_logreg_admm`` for 600 epochs on both
@@ -63,7 +74,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    epoch on the kernels with z bitwise equal at every round; B1 and B2
    held against their plain versions on the run's first worker compute
    (8, 64, 315,904) and first block commit (8, 1, 315,904) and timed
-   there; telemetry shown inert (3 rounds, z, delays and makespan
+   there, B2 there also bitwise or not, by its device time per launch
+   (hot, L2 cold, L2 refilled by a read, the column just rewritten) and
+   with its gate shown to refuse a result that drops the last row
+   reaching the sum (line ``ps_commit``); telemetry shown inert (3
+   rounds, z, delays and makespan
    bitwise equal); then ``measure_costs`` on the card and Table 1 from
    those costs (p in 1, 4, 8, 16, 32, k = 320, both disciplines), the
    locked/lockfree gate at 8 workers and the skew, heavy_tail, churn
@@ -97,17 +112,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    row chunks) by B5's rule, the gradient against autograd too, and
    each pass's gate must refuse four faulty results (zeros, a sixteenth
    of K dropped, bf16- and TF32-rounded inputs); each kernel, the
-   gradient and autograd are timed, B6 also by the profiler (its device
-   time per call). Runs last, with everything before
+   gradient and autograd are timed, B6 also by its device time per
+   launch (``kernel_device_ms``), bitwise or not, its gate refusing a
+   faulty tail. Runs last, with everything before
    it freed; then (line ``logreg_bf16``), that X freed, the same
    gradient on a bf16 X (34.36 GB): B5's gemv16 design twice and B6
    once, each pass and the gradient held to float64 (the plain versions
    in row chunks), each pass's gate refusing zeros, a sixteenth of K
    dropped and 3-bit inputs; timed beside ``torch.matmul`` on the bf16
-   operands and bf16 autograd;
+   operands and bf16 autograd; B6 as in ``logreg``;
 10. a ``kernels`` summary line (B5's designs each on a line of their
-   own after B5's), the card's nvidia-smi line, and the last line
+   own after B5's; B2 on the PS runtime's commit and B6 in bf16 on
+   lines of their own, with device times per launch where measured),
+   the card's nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
+
+Device times come from torch.profiler (``profile_calls``): each
+kernel's device time over the launches the profiler recorded; where the
+launches per call are known, a phase fails unless every launch was
+recorded.
 
 Exits non-zero without printing a result when there is no CUDA device.
 Imports only ``repro_torch`` (from ``src/``), never JAX or ``repro``.
@@ -603,6 +626,14 @@ SOURCES = {
     "flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:65"),
+    # B2 on the PS runtime's block commit, one column (N, 1, dblk)
+    "server_prox_update_commit": (
+        "src/repro_torch/csrc/prox_update.cu",
+        "src/repro/kernels/prox_update.py:117"),
+    # B6 in bf16, on the bf16 gradient
+    "margin_bf16": (
+        "src/repro_torch/csrc/logreg_grad.cu",
+        "src/repro/kernels/logreg_grad.py:87"),
     # B7's 16-bit design (wgmma), on the serve path's bf16 prefill
     "flash_attention_bf16": (
         "src/repro_torch/csrc/flash_attention.cu",
@@ -671,11 +702,112 @@ MATMUL_CELLS = tuple(
 # tiles twice and never the next step's
 DESIGN_K_STEP = {"wgmma": 64, "tf32x3": 32, "tiled": 16}
 MARGIN_SHAPES = ((1, 1), (129, 1), (96, 1), (256, 128), (1000, 3))
+# B2 on one block column (the PS runtime's commit): one row, a ragged and
+# a whole group of 8 rows loaded together, groups past the first, and a
+# second 64-bit edge mask; B6 at lengths shorter than a 16-byte word, one
+# word, a word and one, and the gradient's 2^20 and 3, at every element
+# offset of a 16-byte word
+COLUMN_WORKERS = (1, 8, 17, 70)
+COLUMN_EDGES = ("all", "none", "mixed")
+MARGIN_LENGTHS = (1, 7, 8, 9, (1 << 20) + 3)
+MARGIN_OFFSETS = tuple(range(8))
 HALF_TYPES = (torch.bfloat16, torch.float16)   # B5 and B6's 16-bit types
 HALF_X = (1 << 18, 1 << 14)    # X of B5's timed bf16 passes: 8.6 GB
 # the reference test's (BH, S, hd) (tests/test_flash_attention.py:21-22)
 ATTENTION_SHAPES = ((2, 128, 128), (4, 256, 128), (1, 512, 256),
                     (3, 384, 128))
+
+
+def column_case(N, d, gen, edges, l1, clip, nan=False):
+    """B2 on one block column (N, 1, d), the PS runtime's commit: its
+    edge column all true, all false or mixed (the last worker on it, the
+    first off it), with NaN in rows on and off it."""
+    z = torch.randn((1, d), generator=gen, device="cuda")
+    w = torch.randn((N, 1, d), generator=gen, device="cuda")
+    if edges == "mixed":
+        edge = torch.rand((N, 1), generator=gen, device="cuda") < 0.5
+        edge[N - 1] = True
+        edge[0] = N == 1
+    else:
+        edge = torch.full((N, 1), edges == "all", dtype=torch.bool,
+                          device="cuda")
+    if nan:
+        w[N - 1, 0, :5] = float("nan")             # on the edge set
+        w[0, 0, 5] = float("nan")                  # off it where mixed
+        z[0, 9] = float("inf")
+    rho = 0.5 + 2.0 * torch.rand((N,), generator=gen, device="cuda")
+    rho_sum = torch.sum(torch.where(edge, rho[:, None], 0.0), dim=0)
+    return (z, w, edge, rho_sum, 0.1, l1, clip)
+
+
+def margin_view(n, offset, dtype, gen, y_offset=None):
+    """B6's s and y as views of n elements at ``offset`` elements into
+    their buffers (y at ``y_offset`` where given: another 16-byte
+    phase than s)."""
+    s, y = margin_case((n + 8,), gen, nan=True)
+    y_offset = offset if y_offset is None else y_offset
+    return (s.to(dtype)[offset:offset + n], y.to(dtype)[y_offset:y_offset + n])
+
+
+def check_cell(name: str, case, errs, tally) -> None:
+    """``check`` for an elementwise kernel, and the cell counted in
+    ``tally`` (``cells``, and ``bitwise`` where the kernel is the plain
+    version bit for bit)."""
+    mod = kernel_module(name)
+    out = getattr(mod, f"{name}_cuda")(*case)
+    plain = getattr(mod, PLAIN[name])(*case)
+    torch.cuda.synchronize()
+    errs[name] = max(errs[name], compare(out, plain))
+    tally["cells"] += 1
+    tally["bitwise"] += bitwise(out, plain)
+
+
+def phase_kernels_shapes(errs) -> None:
+    """B2 on one block column and B6 at ragged lengths and offsets (the
+    shapes their designs single out), each cell against its plain
+    version: bitwise where the plain version rounds as the kernel does,
+    else within KERNEL_TOL (B2's plain soft threshold takes l1 / mu as
+    l1 * (1 / mu), an ulp off the kernel's IEEE division)."""
+    from repro_torch.core.blocks import make_flat_blocks
+
+    gen = torch.Generator(device="cuda").manual_seed(1818)
+    dblk = make_flat_blocks(KDDA_DIM, KDDA_BLOCKS).block_dim
+    column = {(l1, clip): {"cells": 0, "bitwise": 0}
+              for (l1, clip) in (PROXES[0], PROXES[3])}
+    for N in COLUMN_WORKERS:
+        for edges in COLUMN_EDGES:
+            for (l1, clip), tally in column.items():
+                for nan in (False, True):
+                    check_cell("server_prox_update", column_case(
+                        N, dblk, gen, edges, l1, clip, nan), errs, tally)
+    margin = {}
+    for dtype in (torch.float32,) + HALF_TYPES:
+        tally = margin[str(dtype)[6:]] = {"cells": 0, "bitwise": 0}
+        for n in MARGIN_LENGTHS:
+            for offset in MARGIN_OFFSETS:
+                check_cell("margin", margin_view(n, offset, dtype, gen),
+                           errs, tally)
+                if offset:                 # y at another phase than s
+                    check_cell("margin", margin_view(n, offset, dtype, gen,
+                                                     y_offset=0),
+                               errs, tally)
+    for tally in margin.values():
+        if tally["bitwise"] != tally["cells"]:
+            fail(f"kernels: B6 is not its plain version bit for bit in "
+                 f"every cell: {margin}")
+    # the least device time the profiler reads for a launch on this card:
+    # one PyTorch elementwise kernel on one element
+    one = torch.zeros(1, device="cuda")
+    floor = profile_calls("launch_floor", lambda: one.add_(1.0),
+                          time_ms(lambda: one.add_(1.0)), REPS, unit="call",
+                          expect={"elementwise": 1})
+    emit("kernels_shapes", column_dblk=dblk, column_workers=COLUMN_WORKERS,
+         launch_floor_ms=floor["kernels"]["elementwise"][
+             "device_ms_per_launch"],
+         server_prox_column={f"l1={k[0]},clip={k[1]}": v
+                             for k, v in column.items()},
+         margin_lengths=MARGIN_LENGTHS, margin=margin,
+         max_abs_err={k: errs[k] for k in ("server_prox_update", "margin")})
 
 
 def phase_kernels(bw: float, errs):
@@ -779,13 +911,18 @@ def phase_kernels(bw: float, errs):
     w, v = (torch.randn((n, 1), generator=gen, device="cuda").bfloat16()
             for n in (d, m))
     s_, y_ = margin_case((LOGREG_M, 1), gen)
+    margins = {}
+    for dtype in HALF_TYPES:            # B6 at the gradient's (2^20, 1)
+        case = (s_.to(dtype), y_.to(dtype))
+        row = measure("margin", case, bw, half_errs)
+        row.update(margin_on_path(f"kernels_{str(dtype)[6:]}", case, row))
+        margins[str(dtype)[6:]] = row
     emit("kernels_16_bit", dtype="bfloat16",
          matmul_Xw=measure("matmul", (X, w, False), bw, half_errs,
                            LOGREG_REPS, LOGREG_WINDOWS),
          matmul_XTv=measure("matmul", (X, v, True), bw, half_errs,
                             LOGREG_REPS, LOGREG_WINDOWS),
-         margin=measure("margin", (s_.bfloat16(), y_.bfloat16()), bw,
-                        half_errs))
+         margin=margins["bfloat16"], margin_f16=margins["float16"])
     del X, w, v, s_, y_
     torch.cuda.empty_cache()
 
@@ -1079,45 +1216,128 @@ def phase_main(bw: float, errs):
     emit("main", **result)
     del state, sess, plain, centers, z_plain
     torch.cuda.empty_cache()
-    return (launches, check_on_path("main", inputs, MAIN_KERNELS, bw, errs),
-            z_kernel)
+    lg = kernel_module("server_prox_update")
+    epoch_case = inputs["server_prox_update"][0]
+    rows = check_on_path("main", inputs, MAIN_KERNELS, bw, errs)
+    rows["server_prox_update"].update(
+        bitwise=bitwise(lg.server_prox_update_cuda(*epoch_case),
+                        lg.server_prox_update_torch(*epoch_case)),
+        **kernel_device_ms("main_server_prox", "server_prox_kernel",
+                           lambda: lg.server_prox_update_cuda(*epoch_case),
+                           rows["server_prox_update"]["ms"]))
+    emit("main_server_prox", **rows["server_prox_update"])
+    del epoch_case
+    torch.cuda.empty_cache()
+    return launches, rows, z_kernel
+
+
+# The profiler drops the device records of the first few launches in a
+# window late in a long process (3-6 of 20 on the card, whatever the
+# window's padding), so a window runs warm-up calls before the measured
+# ones, more on each attempt, and counts only the measured ones
+PROFILE_WARMUPS = (8, 32, 128)
+PROFILE_PAD_S = 0.005          # host idle between the warm-up and the rest
+MEASURED = "chip_smoke.measured"
+
+
+def profile_window(run, calls: int, warmup: int = 0):
+    """The profiler over ``warmup`` calls of ``run`` and then ``calls``
+    measured ones, in one window; returns (device us, launches, name) of
+    every kernel that started after the measured calls began (the
+    warm-up's kernels ended before: a synchronize and PROFILE_PAD_S lie
+    between), and the profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(warmup):
+            run()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        with record_function(MEASURED):
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events if e.name == MEASURED)
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.time_range.start >= t0:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    return sorted(((t, c, k) for k, (t, c) in by_name.items()),
+                  reverse=True), prof
+
+
+def missed_launches(prof, frag: str) -> dict:
+    """Where a window lost launches of ``frag``: the start times (us from
+    the window's first kernel launch call) of the host's launch calls
+    and of the device kernels it recorded."""
+    from torch.autograd import DeviceType
+    evs = prof.events()
+    host = sorted(e.time_range.start for e in evs
+                  if e.device_type == DeviceType.CPU
+                  and "LaunchKernel" in e.name)
+    kern = sorted(e.time_range.start for e in evs
+                  if e.device_type == DeviceType.CUDA and frag in e.name)
+    t0 = host[0] if host else 0.0
+    return {"host_launch_calls_us": [t - t0 for t in host],
+            "kernels_us": [t - t0 for t in kern]}
 
 
 def profile_calls(path: str, run, wall_ms: float, calls: int,
-                  unit: str = "epoch"):
+                  unit: str = "epoch", expect=None):
     """Device time by kernel over ``calls`` calls of ``run`` (one epoch,
     one prefill, one decode step: a ``unit``) with torch.profiler, and
     the device's idle share of an unprofiled call (``wall_ms``): the
     profiler's own start-up lands in its window, so that window's wall
-    time is not the call's. The table by kernel goes to
-    ``<path>_profile.json`` in the output directory."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        # kernel events only: an operator's entry repeats its kernels' time
-        if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0:
-            rows.append((ev.device_time_total, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3 / calls
+    time is not the call's. Each kernel's time per launch is its device
+    time over the launches the profiler recorded. ``expect`` maps a
+    fragment of a kernel's name to its launches per call: the phase
+    fails unless the profiler recorded exactly ``calls`` times that many
+    in one of the windows PROFILE_WARMUPS warms up ever longer, and
+    their times per launch are returned under ``kernels``. The table by kernel goes to
+    ``<path>_profile.json`` in the output directory, with the windows
+    that lost launches (and how: ``missed_launches``) where there were
+    any."""
+    expect = expect or {}
     out = HERE / "chiprun_out"
     out.mkdir(exist_ok=True)
+    misses = []
+    for warmup in (PROFILE_WARMUPS if expect else (0,)):
+        rows, prof = profile_window(run, calls, warmup)
+        recorded = {frag: sum(c for _, c, k in rows if frag in k)
+                    for frag in expect}
+        if all(recorded[f] == n * calls for f, n in expect.items()):
+            break
+        misses.append({"warmup_calls": warmup, "recorded": recorded,
+                       **{f: missed_launches(prof, f) for f in expect}})
+    else:
+        (out / f"{path}_profile_missed.json").write_text(json.dumps(
+            misses, indent=1))
+        fail(f"{path}: the profiler recorded launches "
+             f"{[m['recorded'] for m in misses]} over {calls} calls in "
+             f"{len(PROFILE_WARMUPS)} windows, expected "
+             f"{({f: n * calls for f, n in expect.items()})}")
+    busy_ms = sum(r[0] for r in rows) / 1e3 / calls
     (out / f"{path}_profile.json").write_text(json.dumps(
-        {f"{unit}s": calls, f"{unit}_ms": wall_ms,
-         "by_kernel": [{"name": k, f"device_ms_per_{unit}": t / 1e3 / calls,
-                        f"count_per_{unit}": c / calls}
-                       for t, k, c in rows]}, indent=1))
+        {f"{unit}s": calls, f"{unit}_ms": wall_ms, "missed": misses,
+         "by_kernel": [{"name": k, "device_ms_per_launch": t / 1e3 / c,
+                        f"launches_per_{unit}": c / calls,
+                        f"device_ms_per_{unit}": t / 1e3 / calls}
+                       for t, c, k in rows]}, indent=1))
+    kernels = {}
+    for frag in expect:
+        t = sum(t for t, _, k in rows if frag in k)
+        kernels[frag] = {"device_ms_per_launch": t / 1e3 / recorded[frag],
+                         "launches": recorded[frag]}
     return {f"{unit}s": calls, f"device_busy_ms_per_{unit}": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "top": [{"name": k[:80], "device_ms": t / 1e3 / calls,
-                     "count": c / calls} for t, k, c in rows[:8]]}
+            "top": [{"name": k[:80], "device_ms_per_launch": t / 1e3 / c,
+                     f"launches_per_{unit}": c / calls}
+                    for t, c, k in rows[:8]],
+            **({"kernels": kernels} if expect else {})}
 
 
 def profile_epochs(path: str, sess, state, epoch_ms: float, epochs: int = 3):
@@ -1544,7 +1764,12 @@ def phase_ps(bw: float, errs):
              losses=res.losses, card=smi_line())
         del res, z
         if rows is None:
+            first_launches = launches
+            commit = inputs["server_prox_update"][0]
             rows = check_on_path("ps", inputs, MAIN_KERNELS, bw, errs)
+            rows["server_prox_update"].update(commit_on_path(commit, rows))
+            emit("ps_commit", **rows["server_prox_update"])
+            del commit
         del inputs
 
     # telemetry is inert: the same 3 rounds with and without it
@@ -1582,7 +1807,40 @@ def phase_ps(bw: float, errs):
     if failed:
         fail(f"ps: gates failed: {failed}: {lines}")
     torch.cuda.empty_cache()
-    return rows
+    return first_launches, rows
+
+
+def commit_on_path(case, rows) -> dict:
+    """B2 on the inputs of the PS runtime's first block commit, (N, 1,
+    dblk), beside its CUDA-event window (``rows``): whether it is the
+    plain version bit for bit, its device time per launch
+    (``kernel_device_ms``, also with the column just rewritten, as the
+    push before a commit leaves it), and how far past the gate a result
+    that drops the last row reaching the column's sum reads."""
+    lg = kernel_module("server_prox_update")
+    z, w, edge, rho_sum, gamma, l1, clip = case
+    out = lg.server_prox_update_cuda(*case)
+    plain = lg.server_prox_update_torch(*case)
+    # the workers whose rows reach the sum: on the edge set, and pushed
+    # (a row the cache still holds as zeros adds nothing)
+    edged = torch.nonzero(edge[:, 0] & (w[:, 0] != 0).any(dim=1)).flatten()
+    if edged.numel() == 0:
+        fail("ps: no row of the first commit's column reaches its sum")
+    dropped = edge.clone()
+    dropped[int(edged[-1]), 0] = False
+    ratio = over_limit(lg.server_prox_update_torch(
+        z, w, dropped, rho_sum, gamma, l1, clip), plain)
+    if not ratio > 1.0:
+        fail(f"ps: B2 without worker {int(edged[-1])}'s row reads "
+             f"{ratio:.3g} of the gate's limit, not past it")
+    source = w.clone()
+    return dict(bitwise=bitwise(out, plain),
+                faulty_dropped_worker_over_limit=ratio,
+                **kernel_device_ms(
+                    "ps_commit", "server_prox_kernel",
+                    lambda: lg.server_prox_update_cuda(*case),
+                    rows["server_prox_update"]["ms"],
+                    written=lambda: w.copy_(source)))
 
 
 # ---------------------------------------------------------------------------
@@ -2113,8 +2371,7 @@ def phase_logreg(bw: float, errs):
         ms=time_ms(lambda: lg.margin_cuda(*marg)),
         plain_ms=time_ms(lambda: lg.margin_torch(*marg)),
         bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
-    timed["margin"].update(margin_device_ms("logreg", marg,
-                                            timed["margin"]["ms"]))
+    timed["margin"].update(margin_on_path("logreg", marg, timed["margin"]))
     grad = dict(
         ms=time_ms(lambda: ops.logreg_grad(X, y, w), reps, windows, 1),
         plain_ms=time_ms(lambda: plain_logreg_grad(X, y, w), reps, windows,
@@ -2136,24 +2393,85 @@ def phase_logreg(bw: float, errs):
 L2_FLUSH_BYTES = 128 << 20     # over twice the H100's 50 MB L2
 
 
-def margin_device_ms(path: str, case, window_ms: float) -> dict:
-    """B6's own device time per call, from the profiler's kernel time
-    over REPS calls (the CUDA-event window's time is set by the
-    wrapper's host work between back-to-back launches): with the
-    inputs left in L2 by the call before (``device_ms``), and with L2
-    overwritten between calls (``device_ms_cold``), as a caller whose
-    inputs come from device memory finds it."""
-    lg = kernel_module("margin")
+def kernel_device_ms(path: str, kernel: str, call, window_ms: float,
+                     written=None) -> dict:
+    """The device time per launch of ``kernel`` (a fragment of its name
+    in the profiler), which each ``call`` launches once, over REPS calls
+    (the CUDA-event window, ``window_ms``, is set by the wrapper's host
+    work between back-to-back launches at these sizes): ``device_ms``
+    with the inputs left in L2 by the call before; ``device_ms_cold``
+    with L2 overwritten between calls by a 128 MB fill, as a caller
+    whose inputs come from device memory finds it (the fill leaves L2
+    dirty, so the call's reads also write that back); ``device_ms_clean``
+    with L2 refilled by a 128 MB read instead (nothing to write back);
+    and, given ``written``, ``device_ms_written`` with ``written`` run
+    before each call (inputs just written, as the PS runtime's push
+    leaves a block's column). Fails unless the profiler recorded every
+    launch."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    runs = {"device_ms": call,
+            "device_ms_cold": lambda: (flush.zero_(), call()),
+            "device_ms_clean": lambda: (flush.sum(), call())}
+    if written is not None:
+        runs["device_ms_written"] = lambda: (written(), call())
     out = {}
-    for key, run in (("device_ms", lambda: lg.margin_cuda(*case)),
-                     ("device_ms_cold",
-                      lambda: (flush.zero_(), lg.margin_cuda(*case)))):
-        prof = profile_calls(f"{path}_margin_{key}", run, window_ms, REPS,
-                             unit="call")
-        rows = [r for r in prof["top"] if "margin" in r["name"]]
-        out[key] = rows[0]["device_ms"] if rows else None
+    for key, run in runs.items():
+        prof = profile_calls(f"{path}_{key}", run, window_ms, REPS,
+                             unit="call", expect={kernel: 1})
+        out[key] = prof["kernels"][kernel]["device_ms_per_launch"]
     return out
+
+
+def bitwise(kernel, plain) -> bool:
+    """The same values bit for bit, NaN where the other has NaN."""
+    nan = torch.isnan(plain)
+    if kernel.dtype != plain.dtype or not torch.equal(torch.isnan(kernel),
+                                                       nan):
+        return False
+    bits = {2: torch.int16, 4: torch.int32}[plain.element_size()]
+    return torch.equal(kernel[~nan].view(bits), plain[~nan].view(bits))
+
+
+def over_limit(out, plain) -> float:
+    """A result's error as a multiple of the elementwise kernels' limit,
+    KERNEL_TOL * (1 + max|plain|) over the finite entries (inf where NaN
+    or Inf differ): above 1 the gate refuses it."""
+    out, plain = out.float(), plain.float()
+    fin = torch.isfinite(plain)
+    if not (torch.equal(torch.isfinite(out), fin)
+            and torch.equal(torch.isnan(out), torch.isnan(plain))):
+        return float("inf")
+    err = float((out[fin] - plain[fin]).abs().max())
+    return err / (KERNEL_TOL * (1.0 + float(plain[fin].abs().max())))
+
+
+def refused_margin_tail(case, out, plain) -> float:
+    """B6's result with its last word's elements after the first (the
+    tail a design that mishandles it would get wrong) written as v at
+    s = 0, -y / 2: how far past the gate it reads."""
+    s, y = case
+    lanes = 16 // s.element_size()
+    faulty = out.clone().view(-1)
+    faulty[1 - lanes:] = (-0.5 * y.view(-1)[1 - lanes:].float()).to(s.dtype)
+    ratio = over_limit(faulty, plain.view(-1))
+    if not ratio > 1.0:
+        fail(f"margin: a result with its tail written as v(s=0) reads "
+             f"{ratio:.3g} of the gate's limit, not past it")
+    return ratio
+
+
+def margin_on_path(path: str, case, row) -> dict:
+    """B6 on a path's inputs, beside its CUDA-event window (``row``):
+    whether it is the plain version bit for bit, its device time per
+    launch (``kernel_device_ms``), and how far past the gate a result
+    with a faulty tail reads."""
+    lg = kernel_module("margin")
+    out, plain = lg.margin_cuda(*case), lg.margin_torch(*case)
+    torch.cuda.synchronize()
+    return dict(bitwise=bitwise(out, plain),
+                faulty_tail_over_limit=refused_margin_tail(case, out, plain),
+                **kernel_device_ms(path + "_margin", "margin_kernel",
+                                   lambda: lg.margin_cuda(*case), row["ms"]))
 
 
 def plain_pass(a, b, transpose_a: bool):
@@ -2278,8 +2596,8 @@ def phase_logreg_bf16(bw: float, errs):
         ms=time_ms(lambda: lg.margin_cuda(*marg)),
         plain_ms=time_ms(lambda: lg.margin_torch(*marg)),
         bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
-    timed["margin"].update(margin_device_ms("logreg_bf16", marg,
-                                            timed["margin"]["ms"]))
+    timed["margin"].update(margin_on_path("logreg_bf16", marg,
+                                          timed["margin"]))
     grad = dict(
         ms=time_ms(lambda: ops.logreg_grad(X, y, w), reps, windows, 1),
         plain_ms=time_ms(lambda: plain_logreg_grad_chunked(X, y, w), reps,
@@ -2321,6 +2639,7 @@ def main() -> int:
 
     errs = {name: 0.0 for name in PLAIN}
     phase_kernels(bw, errs)
+    phase_kernels_shapes(errs)
     wu_launches, wu_row = phase_worker_update(bw, errs)
     mm_launches, mm_designs, mm_rows = phase_matmul(bw, errs)
     main_launches, main_rows, z_main = phase_main(bw, errs)
@@ -2329,7 +2648,7 @@ def main() -> int:
     del z_main
     torch.cuda.empty_cache()
     phase_spmd_ranks(errs)
-    phase_ps(bw, errs)
+    ps_launches, ps_rows = phase_ps(bw, errs)
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)
@@ -2362,7 +2681,17 @@ def main() -> int:
                           passes_summed(logreg16_rows, "library_ms")),
         **{f"matmul_{d}": (mm_designs[d], first_cell(d))
            for d in ("wgmma", "tf32x3", "tiled")}}
-    paths = {"prox_consensus": (spmd_launches, spmd_rows),
+    # B2 from the PS runtime's first commit, B6 in bf16 from logreg_bf16
+    errs["server_prox_update_commit"] = \
+        ps_rows["server_prox_update"]["max_abs_err"]
+    errs["margin_bf16"] = logreg16_rows["margin"]["max_abs_err"]
+    paths = {"server_prox_update_commit": (
+                 {"server_prox_update_commit":
+                  ps_launches["server_prox_update"]},
+                 {"server_prox_update_commit": ps_rows["server_prox_update"]}),
+             "margin_bf16": ({"margin_bf16": logreg16_launches["margin"]},
+                             {"margin_bf16": logreg16_rows["margin"]}),
+             "prox_consensus": (spmd_launches, spmd_rows),
              "admm_worker_update": (wu_launches, {"admm_worker_update":
                                                   wu_row}),
              "matmul": (logreg_launches, logreg_kernels),
@@ -2377,7 +2706,9 @@ def main() -> int:
             name=name_, route="cuda", source=source, replaces=replaces,
             launches=launches[name_], max_abs_err=errs[name_], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r.get("library_ms")))
+            bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+            device_ms=r.get("device_ms"),
+            device_ms_cold=r.get("device_ms_cold")))
         if name_ == "matmul":           # B5's designs under B5
             kernels[-1]["design"] = "gemv"
             source, replaces = SOURCES["matmul"]

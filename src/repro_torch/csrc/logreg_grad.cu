@@ -116,12 +116,22 @@
 // width has 2^34 elements); TMA's coordinates are 32-bit, so the wgmma
 // design takes M, N, K below 2^31.
 //
-// margin_kernel reads s and y and writes v: 12 bytes an element, memory-
-// bound. Grid-stride loop, 64-bit indices. sigmoid(t) = 1 / (1 + expf(-t))
-// with expf (not __expf) and IEEE division, as torch.sigmoid computes it
-// on the card, and every product rounded on its own, so the result is the
-// plain version's bit for bit. For -y*s << 0, expf overflows to inf and
-// v = -y * 0; a NaN in s or y stays NaN.
+// margin_kernel reads s and y and writes v: 3 elements' bytes an element
+// (12 in float32, 6 in 16 bits: 6.3 MB and 1.88 us at 3.35 TB/s for the
+// gradient's 2^20 in bf16), memory-bound, at a size where a launch's own
+// time and one device-memory latency are most of it. So each thread takes
+// one 16-byte word of s, of y and of v (8 elements in 16 bits, 4 in
+// float32), its loads sent together, with enough threads for every
+// word at once (64-bit indices, grid-stride past what the card holds):
+// the loop it replaces loaded one 2-byte element of each a thread at a
+// time. v shares s's address modulo 16 bytes (the wrapper allocates it
+// so): the elements before their first 16-byte boundary and after their
+// last whole word are taken one a thread by block 0; y is loaded by words
+// where it shares that phase, else element by element. sigmoid(t) =
+// 1 / (1 + expf(-t)) with expf (not __expf) and IEEE division, as
+// torch.sigmoid computes it on the card, and every product rounded on its
+// own, so the result is the plain version's bit for bit. For -y*s << 0,
+// expf overflows to inf and v = -y * 0; a NaN in s or y stays NaN.
 //
 // Element types. Values are widened to float on load, every sum and
 // product is taken in float (or as the tensor cores' f32 accumulation),
@@ -466,17 +476,100 @@ __global__ void gemv16_sum_kernel(const float* __restrict__ part,
 // margin (B6)
 // ===========================================================================
 
+// v = -y * sigmoid(-y * s) for one element, in float
+__device__ __forceinline__ float margin_of(float s, float y) {
+  const float ny = -y;
+  const float t = __fmul_rn(ny, s);
+  const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-t)));
+  return __fmul_rn(ny, sig);
+}
+
+// One 16-byte word of T, widened to kLanes floats and back (each element
+// rounded to T once, to nearest even, as stf rounds).
+template <typename T> struct Lanes;
+template <> struct Lanes<float> {
+  static constexpr int kLanes = 4;
+  __device__ static void widen(uint4 u, float (&f)[4]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ static uint4 narrow(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+// 16-bit lanes; Bits converts one element's bits to float and back
+template <typename Bits> struct Lanes16 {
+  static constexpr int kLanes = 8;
+  __device__ static void widen(uint4 u, float (&f)[8]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      f[k] = Bits::to_float(
+          static_cast<unsigned short>(w[k / 2] >> (16 * (k % 2))));
+  }
+  __device__ static uint4 narrow(const float (&f)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = static_cast<uint32_t>(Bits::from_float(f[2 * k])) |
+             (static_cast<uint32_t>(Bits::from_float(f[2 * k + 1])) << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+struct Bf16Bits {
+  __device__ static float to_float(unsigned short b) {
+    return __bfloat162float(__ushort_as_bfloat16(b));
+  }
+  __device__ static unsigned short from_float(float f) {
+    return __bfloat16_as_ushort(__float2bfloat16(f));
+  }
+};
+struct F16Bits {
+  __device__ static float to_float(unsigned short b) {
+    return __half2float(__ushort_as_half(b));
+  }
+  __device__ static unsigned short from_float(float f) {
+    return __half_as_ushort(__float2half(f));
+  }
+};
+template <> struct Lanes<__nv_bfloat16> : Lanes16<Bf16Bits> {};
+template <> struct Lanes<__half> : Lanes16<F16Bits> {};
+
+// v[i] for i < total: the `head` elements before v's (and s's) first
+// 16-byte boundary and those after the last of `words` whole words one
+// a thread in block 0, every word by one thread; y by words where
+// y_words (y at s's phase), else element by element.
 template <typename T>
 __global__ void margin_kernel(const T* __restrict__ s,
-                              const T* __restrict__ y,
-                              T* __restrict__ v, int64_t total) {
+                              const T* __restrict__ y, T* __restrict__ v,
+                              int64_t total, int64_t head, int64_t words,
+                              bool y_words) {
+  constexpr int L = Lanes<T>::kLanes;
+  const int64_t tid =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (blockIdx.x == 0) {                    // fewer than L each
+    const int64_t tail = head + words * L;
+    if (tid < head) stf(v + tid, margin_of(ldf(s + tid), ldf(y + tid)));
+    const int64_t i = tail + tid;
+    if (i < total) stf(v + i, margin_of(ldf(s + i), ldf(y + i)));
+  }
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const float ny = -ldf(y + i);
-    const float t = __fmul_rn(ny, ldf(s + i));
-    const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-t)));
-    stf(v + i, __fmul_rn(ny, sig));
+  for (int64_t j = tid; j < words; j += stride) {
+    const int64_t i = head + j * L;
+    float sf[L], yf[L];
+    Lanes<T>::widen(__ldg(reinterpret_cast<const uint4*>(s + i)), sf);
+    if (y_words) {
+      Lanes<T>::widen(__ldg(reinterpret_cast<const uint4*>(y + i)), yf);
+    } else {
+#pragma unroll
+      for (int k = 0; k < L; ++k) yf[k] = ldf(y + i + k);
+    }
+#pragma unroll
+    for (int k = 0; k < L; ++k) sf[k] = margin_of(sf[k], yf[k]);
+    *reinterpret_cast<uint4*>(v + i) = Lanes<T>::narrow(sf);
   }
 }
 
@@ -1329,12 +1422,21 @@ int matmul_typed(const Plan& p, const void* a, const void* b, void* c,
 template <typename T>
 int margin_typed(const void* s, const void* y, void* v, int64_t n, int device,
                  cudaStream_t stream) {
+  constexpr int L = Lanes<T>::kLanes;
+  const auto phase = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16;
+  };
+  if (phase(v) != phase(s)) return -2;
+  const int64_t to_word = static_cast<int64_t>((16 - phase(s)) % 16 /
+                                               sizeof(T));
+  const int64_t head = to_word < n ? to_word : n;
+  const int64_t words = (n - head) / L;
   const int threads = 256;
-  margin_kernel<T><<<fill_blocks(device, (n + threads - 1) / threads,
-                                 threads),
-                     threads, 0, stream>>>(static_cast<const T*>(s),
-                                           static_cast<const T*>(y),
-                                           static_cast<T*>(v), n);
+  const int64_t need = words > 0 ? (words + threads - 1) / threads : 1;
+  margin_kernel<T><<<fill_blocks(device, need, threads), threads, 0,
+                     stream>>>(static_cast<const T*>(s),
+                               static_cast<const T*>(y), static_cast<T*>(v),
+                               n, head, words, phase(y) == phase(s));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1383,8 +1485,9 @@ extern "C" int logreg_matmul(const void* a, const void* b, void* c,
 }
 
 // v = -y * sigmoid(-y * s) over n elements of one element type (`dtype`
-// as for logreg_matmul). Returns cudaGetLastError() after the launch (0:
-// launched), -3 for an unknown dtype.
+// as for logreg_matmul), v at s's address modulo 16 bytes. Returns
+// cudaGetLastError() after the launch (0: launched), -2 when v's 16-byte
+// phase is not s's, -3 for an unknown dtype.
 extern "C" int logreg_margin(const void* s, const void* y, void* v,
                              int64_t n, int dtype, int device, void* stream) {
   if (n == 0) return 0;

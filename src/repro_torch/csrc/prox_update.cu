@@ -21,17 +21,28 @@
 //
 // Bound: memory bytes, for both. server_prox_kernel reads w_cache (N
 // bundles of M*d) and z and writes z': (N + 2) * M * d * 4 bytes, 0.81 GB
-// at N=8, M=64, d=315,904. prox_consensus_kernel reads z and w_sum and
-// writes z': 3 * M * d * 4 bytes, 0.24 GB at M=64, d=315,904. Both do a
-// handful of flops per element.
+// at N=8, M=64, d=315,904 (the epoch), 12.6 MB on one column (N=8, M=1:
+// the PS runtime's block commit, 3.77 us at 3.35 TB/s). prox_consensus_
+// kernel reads z and w_sum and writes z': 3 * M * d * 4 bytes, 0.24 GB at
+// M=64, d=315,904. Both do a handful of flops per element.
 //
 // Design for that bound: one thread per float4 of the output (grid-stride,
 // 64-bit indices) and 16-byte accesses. In server_prox_kernel the sum over
 // workers is kept in registers, so the (M, d) w_sum never reaches device
-// memory — the point of the TPU kernel's in-grid accumulation. The worker
-// loop runs in a fixed order with no atomics and no split over N, so the
-// result does not depend on the launch shape. Rows off the edge set are
-// never read.
+// memory — the point of the TPU kernel's in-grid accumulation. On one
+// column (78,976 float4s: fewer threads than the card holds, one float4
+// each) the time is a launch plus the chain of memory latencies a thread
+// waits through, so the kernel shortens the chain: a thread first sends
+// its z and rho_sum loads and reads its block's edge column once, as a
+// bit mask (64 workers at a time); then the predicated 16-byte loads of
+// kGroup workers' rows ahead of their adds, where the loop it replaces
+// loaded z after the sum and branched on each worker's edge before that
+// worker's load. The adds run in the order n = 0..N-1, each behind its
+// own edge bit, so the sum and every rounding are the same for any N,
+// any grid and any M: no atomics, no split over N. Rows off the edge set
+// are never read. The grid is what the card holds at once (the occupancy
+// API at kServerThreads a block, launch-bounded to 8 such blocks an SM),
+// or fewer blocks when the output needs fewer threads.
 //
 // Numerics: no fast math; IEEE divisions, gamma*z rounded before the add
 // (no FMA contraction), and the soft threshold and clip written with
@@ -43,6 +54,10 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// workers whose rows a thread loads before it adds them
+constexpr int kGroup = 8;
+constexpr int kServerThreads = 128;
 
 __device__ __forceinline__ float prox_tail(float z, float s, float gamma,
                                            float mu, float l1, float clip) {
@@ -60,30 +75,52 @@ __device__ __forceinline__ float prox_tail(float z, float s, float gamma,
   return v;
 }
 
-__global__ void server_prox_kernel(const float4* __restrict__ z,
-                                   const float4* __restrict__ w_cache,
-                                   const uint8_t* __restrict__ edge,
-                                   const float* __restrict__ rho_sum,
-                                   float4* __restrict__ z_out, int64_t N,
-                                   int64_t M, int64_t d4, float gamma,
-                                   float l1, float clip) {
+// bit k set where edge[k * M] (k < count <= 64)
+__device__ __forceinline__ uint64_t edge_bits(const uint8_t* __restrict__ e,
+                                              int64_t M, int count) {
+  uint64_t bits = 0;
+  for (int k = 0; k < count; ++k)
+    bits |= static_cast<uint64_t>(__ldg(e + k * M) != 0) << k;
+  return bits;
+}
+
+__global__ void __launch_bounds__(kServerThreads, 8)
+server_prox_kernel(const float4* __restrict__ z,
+                   const float4* __restrict__ w_cache,
+                   const uint8_t* __restrict__ edge,
+                   const float* __restrict__ rho_sum,
+                   float4* __restrict__ z_out, int64_t N, int64_t M,
+                   int64_t d4, float gamma, float l1, float clip) {
   const int64_t total = M * d4;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < total; i += stride) {
     const int64_t m = i / d4;
+    const float mu = gamma + __ldg(rho_sum + m);
+    const float4 zv = __ldg(z + i);
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int64_t n = 0; n < N; ++n) {
-      if (edge[n * M + m]) {
-        const float4 w = w_cache[n * total + i];
-        s.x += w.x;
-        s.y += w.y;
-        s.z += w.z;
-        s.w += w.w;
+    for (int64_t n0 = 0; n0 < N; n0 += 64) {
+      const int count = static_cast<int>(N - n0 < 64 ? N - n0 : 64);
+      const uint64_t mask = edge_bits(edge + n0 * M + m, M, count);
+      const float4* w = w_cache + n0 * total + i;
+      for (int g = 0; g < count; g += kGroup) {
+        const unsigned bits = static_cast<unsigned>(mask >> g) & 0xffu;
+        float4 v[kGroup];
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k)              // all loads first
+          v[k] = (bits >> k & 1u) ? __ldg(w + (g + k) * total)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {            // then n in order
+          if (bits >> k & 1u) {
+            s.x += v[k].x;
+            s.y += v[k].y;
+            s.z += v[k].z;
+            s.w += v[k].w;
+          }
+        }
       }
     }
-    const float mu = gamma + rho_sum[m];
-    const float4 zv = z[i];
     float4 out;
     out.x = prox_tail(zv.x, s.x, gamma, mu, l1, clip);
     out.y = prox_tail(zv.y, s.y, gamma, mu, l1, clip);
@@ -115,14 +152,17 @@ __global__ void prox_consensus_kernel(const float4* __restrict__ z,
   }
 }
 
-// Enough blocks to fill every SM at full occupancy; the grid-stride loop
-// covers the rest.
-int grid_blocks(int device, int64_t total, int threads) {
+int sm_count(int device) {
   int sms = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (sms <= 0) sms = 1;
+  return sms > 0 ? sms : 1;
+}
+
+// `per_sm` blocks on every SM, or fewer when `total` needs fewer; the
+// grid-stride loop covers the rest.
+int grid_blocks(int device, int64_t total, int threads, int per_sm) {
   const int64_t need = (total + threads - 1) / threads;
-  const int64_t full = static_cast<int64_t>(sms) * (2048 / threads);
+  const int64_t full = static_cast<int64_t>(sm_count(device)) * per_sm;
   return static_cast<int>(need < full ? need : full);
 }
 
@@ -140,8 +180,12 @@ extern "C" int server_prox_update(const void* z, const void* w_cache,
   int current = -1;
   cudaGetDevice(&current);
   if (current != device) cudaSetDevice(device);
-  const int threads = 256;
-  server_prox_kernel<<<grid_blocks(device, total, threads), threads, 0,
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, server_prox_kernel,
+                                                kServerThreads, 0);
+  server_prox_kernel<<<grid_blocks(device, total, kServerThreads,
+                                   per_sm > 0 ? per_sm : 1),
+                       kServerThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(z), static_cast<const float4*>(w_cache),
       static_cast<const uint8_t*>(edge), static_cast<const float*>(rho_sum),
@@ -161,8 +205,9 @@ extern "C" int prox_consensus(const void* z, const void* w_sum,
   cudaGetDevice(&current);
   if (current != device) cudaSetDevice(device);
   const int threads = 256;
-  prox_consensus_kernel<<<grid_blocks(device, total, threads), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  prox_consensus_kernel<<<grid_blocks(device, total, threads,
+                                      2048 / threads),
+                          threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(z), static_cast<const float4*>(w_sum),
       static_cast<const float*>(rho_sum), static_cast<float4*>(z_out), M, d4,
       gamma, l1, clip);

@@ -151,10 +151,23 @@ def matmul_cuda(a, b, transpose_a: bool = False):
     return out
 
 
+def out_like(s):
+    """An uninitialised tensor of s's shape and dtype, contiguous, at s's
+    address modulo 16 bytes: the margin kernel takes s and its output in
+    16-byte words, so a view of s that starts off a 16-byte boundary
+    gets an output that starts as far off one."""
+    lead = s.data_ptr() % 16 // s.element_size()
+    if lead == 0:
+        return torch.empty_like(s, memory_format=torch.contiguous_format)
+    buf = torch.empty(s.numel() + 16 // s.element_size(), dtype=s.dtype,
+                      device=s.device)
+    return buf[lead:lead + s.numel()].view(s.shape)
+
+
 def margin_cuda(s, y):
     """The CUDA kernel. Same arguments and result as the plain version;
     s and y of one float dtype, contiguous, one shape, on one CUDA
-    device."""
+    device. The result shares s's 16-byte phase (``out_like``)."""
     dev = s.device
     if dev.type != "cuda":
         raise ValueError(f"margin_cuda needs CUDA tensors, got {dev}")
@@ -162,7 +175,7 @@ def margin_cuda(s, y):
     if tuple(s.shape) != tuple(y.shape):
         raise ValueError(f"margin_cuda: s {tuple(s.shape)} and y "
                          f"{tuple(y.shape)} differ in shape")
-    out = torch.empty_like(s)
+    out = out_like(s)
     if s.numel() == 0:
         return out
     fn = _function("logreg_margin")
@@ -171,6 +184,6 @@ def margin_cuda(s, y):
         err = fn(s.data_ptr(), y.data_ptr(), out.data_ptr(), s.numel(),
                  DTYPES[s.dtype], dev.index, stream)
     if err != 0:
-        raise RuntimeError(f"margin kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"margin kernel launch failed: error {err}")
     launches["margin"] += 1
     return out

@@ -126,6 +126,52 @@ def test_prox_consensus_kernel_matches_plain(gen, shape, l1, clip, nan):
                                             clip))
 
 
+def _bitwise(kernel, plain):
+    """The same values bit for bit, NaN where the other has NaN."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(plain)
+    assert kernel.dtype == plain.dtype
+    assert torch.equal(torch.isnan(kernel), nan)
+    bits = {2: torch.int16, 4: torch.int32}[plain.element_size()]
+    assert torch.equal(kernel[~nan].view(bits), plain[~nan].view(bits))
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("edges", ["all", "none", "mixed"])
+@pytest.mark.parametrize("N", [1, 8, 17, 70])
+def test_server_kernel_on_one_column(gen, N, edges, nan):
+    """B2 at the PS runtime's commit shape (N, 1, 315,904): groups of 8
+    rows loaded together, ragged and whole, and a second 64-bit edge mask
+    at N = 70. Without l1 the kernel is the plain version bit for bit;
+    with it, within 1e-6 (the plain soft threshold takes l1 / mu as
+    l1 * (1 / mu), an ulp off the kernel's IEEE division)."""
+    d = 315_904
+    z = torch.randn((1, d), generator=gen, device="cuda")
+    w = torch.randn((N, 1, d), generator=gen, device="cuda")
+    if edges == "mixed":
+        edge = torch.rand((N, 1), generator=gen, device="cuda") < 0.5
+        edge[N - 1] = True
+        edge[0] = N == 1
+    else:
+        edge = torch.full((N, 1), edges == "all", dtype=torch.bool,
+                          device="cuda")
+    if nan:
+        w[N - 1, 0, :3] = float("nan")
+        w[0, 0, 5] = float("nan")
+        z[0, 7] = float("inf")
+    rho_sum = 0.5 + torch.rand((1,), generator=gen, device="cuda") * N
+    for l1, clip in ((0.0, 0.0), (0.0, 0.8), (1e-3, 0.8)):
+        ops.reset_launch_counts()
+        k = ops.server_prox_update(z, w, edge, rho_sum, 0.1, l1, clip)
+        assert ops.launch_counts()["server_prox_update"] == 1
+        p = prox_update.server_prox_update_torch(z, w, edge, rho_sum, 0.1,
+                                                 l1, clip)
+        if l1 == 0.0:
+            _bitwise(k, p)
+        else:
+            _agree(k, p)
+
+
 def test_kernels_refuse_bad_tensors(gen):
     g = torch.randn((2, 3, 128), generator=gen, device="cuda")
     sel = torch.ones((2, 3), dtype=torch.bool, device="cuda")
@@ -454,6 +500,29 @@ def test_margin_kernel_takes_16_bit_types(gen, shape, dtype):
     v = ops._margin(s, y)
     assert v.dtype == dtype
     _agree(v.float(), logreg.margin_torch(s, y).float())
+
+
+@pytest.mark.parametrize("offset", range(8))
+@pytest.mark.parametrize("n", [1, 7, 8, 9, (1 << 20) + 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_margin_kernel_at_lengths_and_offsets(gen, dtype, n, offset):
+    """B6 on views that start ``offset`` elements into their buffers:
+    the elements before the first 16-byte word and after the last one
+    one at a time, the words between whole; y also at another 16-byte
+    phase than s. Bit for bit the plain version."""
+    s = (4.0 * torch.randn(n + 8, generator=gen, device="cuda")).to(dtype)
+    y = torch.where(torch.rand(n + 8, generator=gen, device="cuda") < 0.5,
+                    -1.0, 1.0).to(dtype)
+    s[offset] = float("nan")
+    s[offset + n - 1] = 100.0
+    sv = s[offset:offset + n]
+    for yv in (y[offset:offset + n], y[(offset + 1) % 8:][:n]):
+        ops.reset_launch_counts()
+        v = ops._margin(sv, yv)
+        assert ops.launch_counts()["margin"] == 1
+        assert v.shape == (n,) and v.data_ptr() % 16 == sv.data_ptr() % 16
+        _bitwise(v, logreg.margin_torch(sv, yv))
 
 
 def _within_f64_row_rule(out, plain, exact):
