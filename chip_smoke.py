@@ -81,8 +81,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    rounds, z, delays and makespan
    bitwise equal); then ``measure_costs`` on the card and Table 1 from
    those costs (p in 1, 4, 8, 16, 32, k = 320, both disciplines), the
-   locked/lockfree gate at 8 workers and the skew, heavy_tail, churn
-   and lossy scenarios with their gates (``ps_baseline.json``);
+   locked/lockfree gate at 8 workers and the skew, heavy_tail, churn,
+   lossy and server_crash scenarios with their gates
+   (``ps_baseline.json``);
+   ps_durable — the runtime's durability layer at the same width,
+   lockfree, 6 rounds, z recorded. Line ``ps_server_crash``: block
+   servers 2 and 9 crash at sim times 2.0 and 4.0 (each after a
+   committed version) and come back 1.5 later by replaying their
+   write-ahead logs; against the crash-free run: 2 recoveries, every
+   domain's per-round fold multiset the same, B1 once per worker
+   compute, B2 once per block commit plus once per replayed block
+   version, the trace replayed through the epoch on the kernels with z
+   bitwise equal at every round; each recovery's host wall time (timed
+   here around ``BlockServerProc.recover``), peak memory beside phase
+   ``ps``'s. Line ``ps_snapshot``: a run with ``checkpoint_every=3``
+   writes one snapshot (~2.9 GB) into a temporary directory; a new run
+   resumes from it and must equal the uninterrupted one (z, every
+   version, delays, fold logs, losses, makespan), launching B1 and B2
+   once per compute and commit of its own; the snapshot's bytes, write
+   and load + restore seconds; the directory is removed;
 8. serve   — the dense model stack at qwen3-1.7b's full width (28
    layers, d_model 2048, 16 / 8 heads of 128, vocab 151,936, fp32,
    random weights from a seed): ``Model.prefill`` of 4 x 4096 tokens on
@@ -141,11 +158,13 @@ import contextlib
 import copy
 import datetime
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -1662,7 +1681,7 @@ def phase_spmd_ranks(errs):
 PS_ROUNDS = 6
 PS_TELEMETRY_ROUNDS = 3
 PS_DISCIPLINES = ("lockfree", "locked")
-PS_SCENARIOS = ("skew", "heavy_tail", "churn", "lossy")
+PS_SCENARIOS = ("skew", "heavy_tail", "churn", "lossy", "server_crash")
 
 
 def ps_timing():
@@ -1725,6 +1744,7 @@ def phase_ps(bw: float, errs):
     sess = ConsensusSession.flat(quad_loss, centers, dim=KDDA_DIM, cfg=cfg)
     sess.run_ps(1, timing=ps_timing())          # warm-up, not counted
     rows = None
+    peaks = {}
     for disc in PS_DISCIPLINES:
         reset_peak()
         ops.reset_launch_counts()
@@ -1738,7 +1758,7 @@ def phase_ps(bw: float, errs):
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
         launches = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
+        peak = peaks[disc] = torch.cuda.max_memory_allocated()
         computes = res.metrics["worker_iterations"]
         commits = ps_block_commits(res)
         expect_counts(f"ps {disc}", launches,
@@ -1807,7 +1827,210 @@ def phase_ps(bw: float, errs):
     if failed:
         fail(f"ps: gates failed: {failed}: {lines}")
     torch.cuda.empty_cache()
-    return first_launches, rows
+    return first_launches, rows, peaks
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the PS runtime's durability layer at KDDa width
+# ---------------------------------------------------------------------------
+
+PS_CRASHES = ((2, 2.0), (9, 4.0))   # (block, sim time): each after version 1
+PS_CRASH_DOWN = 1.5
+PS_CHECKPOINT_EVERY = 3             # one snapshot in 6 rounds, at round 3
+
+
+@contextlib.contextmanager
+def timed_calls(module, names):
+    """Host wall ms of each call of ``module``'s functions ``names``,
+    with the card synchronized before and after; the wrappers live here,
+    not in the package, and come off when the block ends."""
+    times = {name: [] for name in names}
+    real = {name: getattr(module, name) for name in names}
+
+    def wrap(name):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    for name in names:
+        setattr(module, name, wrap(name))
+    try:
+        yield times
+    finally:
+        for name in names:
+            setattr(module, name, real[name])
+
+
+def ps_run(sess, faults=None, **run_kw):
+    """``PSRuntime`` over ``sess`` (lockfree, ``ps_timing()``, z
+    recorded) for ``PS_ROUNDS`` rounds, ``run_kw`` passed to ``run``,
+    with the launch counts reset before: (runtime, result, launches,
+    wall seconds)."""
+    from repro_torch.kernels import ops
+    from repro_torch.ps import PSRuntime
+    rt = PSRuntime(sess.spec, data=sess.data, timing=ps_timing(),
+                   record_z=True, faults=faults)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rt.run(PS_ROUNDS, **run_kw)
+    torch.cuda.synchronize()
+    return rt, res, ops.launch_counts(), time.perf_counter() - t0
+
+
+def phase_ps_durable(ps_peaks) -> None:
+    """The PS runtime's durability layer at the kdda_like width and
+    config, lockfree, 6 rounds, lognormal service times, z recorded.
+    ``ps_server_crash``: block servers 2 and 9 crash after a committed
+    version and come back by WAL replay; against the crash-free run:
+    2 recoveries, no fold lost or added, B1 once per worker compute and
+    B2 once per block commit plus once per replayed block version, the
+    trace replayed through the epoch on the kernels with z bitwise equal
+    at every round. ``ps_snapshot``: a run with a snapshot at round 3,
+    resumed in a new run, must equal the uninterrupted one (z, every
+    version, delays, fold logs, losses, makespan), the resumed run
+    launching B1 and B2 once per compute and commit of its own."""
+    from repro_torch.api import ConsensusSession
+    from repro_torch.benchmarks import speedup
+    from repro_torch.checkpoint import load_extra
+    from repro_torch.ps import FaultPlan, recovery, server
+
+    N, M = KDDA_WORKERS, KDDA_BLOCKS
+    problem = kdda_problem()
+    cfg, centers = problem
+    sess = ConsensusSession.flat(quad_loss, centers, dim=KDDA_DIM, cfg=cfg)
+    if sess.spec.space.backend != "cuda":
+        fail(f"ps_durable: 'auto' resolved to {sess.spec.space.backend!r}")
+    sess.run_ps(1, timing=ps_timing())          # warm-up, not counted
+
+    # --- server_crash: WAL replay through B2 ---
+    # the crash-free run first; only its fold logs stay for the gate
+    reset_peak()
+    rt_ff, ff, _, ff_s = ps_run(sess)
+    ff_peak = torch.cuda.max_memory_allocated()
+    ff_folds = types.SimpleNamespace(domains=[
+        types.SimpleNamespace(fold_log=d.fold_log) for d in rt_ff.domains])
+    ff_makespan = ff.makespan
+    del rt_ff, ff
+    plan = FaultPlan.of(*[FaultPlan.server_crash(j, at=at, down=PS_CRASH_DOWN)
+                          for j, at in PS_CRASHES])
+    reset_peak()
+    with timed_calls(server.BlockServerProc, ["recover"]) as timed:
+        rt_cr, cr, launches, wall_s = ps_run(sess, faults=plan)
+    peak = torch.cuda.max_memory_allocated()
+    crashes = [e for e in cr.trace.events if e["kind"] == "server_crash"]
+    recovers = [e for e in cr.trace.events if e["kind"] == "server_recover"]
+    replayed = sum(e["replayed"] for e in recovers)
+    computes = cr.metrics["worker_iterations"]
+    commits = ps_block_commits(cr)
+    wal = cr.metrics["wal"]
+    if cr.metrics["server_recoveries"] != 2 or wal["replays"] != 2 \
+            or len(recovers) != 2 or len(timed["recover"]) != 2:
+        fail(f"ps_server_crash: {cr.metrics['server_recoveries']} "
+             f"recoveries, {wal['replays']} WAL replays, expected 2")
+    if any(e["version"] < 1 for e in crashes):
+        fail(f"ps_server_crash: a crash landed before its domain's first "
+             f"committed version: {crashes}")
+    lost = speedup.lost_fold_rounds(ff_folds, rt_cr)
+    if lost:
+        fail(f"ps_server_crash: {lost} (domain, round) fold multisets "
+             f"differ from the crash-free run's")
+    if computes != N * PS_ROUNDS or commits != M * PS_ROUNDS:
+        fail(f"ps_server_crash: {computes} worker computes and {commits} "
+             f"block commits in {PS_ROUNDS} rounds")
+    expect_counts("ps_server_crash", launches,
+                  {"admm_worker_select_update": computes,
+                   "server_prox_update": commits + replayed})
+    z = cr.z_final
+    if tuple(z.shape) != (KDDA_DIM,) or not bool(torch.isfinite(z).all()):
+        fail("ps_server_crash: z is not a finite vector of the problem's dim")
+    del z
+    replay_ms = ps_replay(problem, cr)
+    emit("ps_server_crash", N=N, M=M, dim=KDDA_DIM, rounds=PS_ROUNDS,
+         crashes=[dict(block=e["block"], sid=e["sid"], at=e["time"],
+                       down=PS_CRASH_DOWN, committed_versions=e["version"])
+                  for e in crashes],
+         recoveries=[dict(sid=e["sid"], at=e["time"],
+                          versions_replayed=e["replayed"], wall_ms=ms)
+                     for e, ms in zip(recovers, timed["recover"])],
+         versions_replayed=replayed, wal=wal, lost_fold_rounds=lost,
+         transport={k: cr.metrics["transport"][k] for k in
+                    ("sent", "delivered", "retransmits", "dups_dropped")},
+         worker_computes=computes, block_commits=commits, launches=launches,
+         wall_s=wall_s, wall_ms_per_round=1e3 * wall_s / PS_ROUNDS,
+         crash_free_wall_ms_per_round=1e3 * ff_s / PS_ROUNDS,
+         makespan=cr.makespan, makespan_crash_free=ff_makespan,
+         replay_bitwise=True,
+         replay_epoch_ms_median=statistics.median(replay_ms[1:]),
+         peak_bytes=peak, peak_bytes_crash_free=ff_peak,
+         peak_bytes_ps_lockfree=ps_peaks["lockfree"],
+         card=smi_line())
+    del rt_cr, cr
+    torch.cuda.empty_cache()
+
+    # --- snapshot at round 3, resumed in a new run ---
+    snap_dir = tempfile.mkdtemp(prefix="ps_snapshot_")
+    try:
+        with timed_calls(recovery, ["write_snapshot"]) as wrote:
+            rt_full, full, full_launches, full_s = ps_run(
+                sess, checkpoint_every=PS_CHECKPOINT_EVERY,
+                checkpoint_dir=snap_dir)
+        snaps = full.metrics["snapshots"]
+        if [Path(p).name for p in snaps] != \
+                [f"snap-{PS_CHECKPOINT_EVERY:06d}"]:
+            fail(f"ps_snapshot: snapshots written {snaps}")
+        path = snaps[0]
+        files = {ext: Path(path + ext).stat().st_size
+                 for ext in (".npz", ".json")}
+        meta = load_extra(path)
+        done = sum(w["rounds_done"] for w in meta["workers"])
+        committed = sum(d["commits"] for d in meta["domains"])
+        with timed_calls(recovery, ["load_snapshot", "resume"]) as loaded:
+            rt_res, res, res_launches, res_s = ps_run(sess,
+                                                      resume_from=path)
+        same = dict(
+            z_final=torch.equal(res.z_final, full.z_final),
+            z_versions=len(res.z_versions) == len(full.z_versions)
+            and all(torch.equal(a, b)
+                    for a, b in zip(res.z_versions, full.z_versions)),
+            delays=res.trace.delays.tolist() == full.trace.delays.tolist(),
+            fold_logs=[d.fold_log for d in rt_res.domains]
+            == [d.fold_log for d in rt_full.domains],
+            losses=res.losses == full.losses,
+            makespan=res.makespan == full.makespan)
+        if not all(same.values()):
+            fail(f"ps_snapshot: the resumed run differs from the "
+                 f"uninterrupted one: {same}")
+        own = {"admm_worker_select_update":
+               res.metrics["worker_iterations"] - done,
+               "server_prox_update": ps_block_commits(res) - committed}
+        expect_counts("ps_snapshot resumed", res_launches, own)
+        expect_counts("ps_snapshot uninterrupted", full_launches,
+                      {"admm_worker_select_update": N * PS_ROUNDS,
+                       "server_prox_update": M * PS_ROUNDS})
+        emit("ps_snapshot", snapshot=Path(path).name, round=meta["round"],
+             bytes=sum(files.values()), files=files,
+             write_s=wrote["write_snapshot"][0] / 1e3,
+             load_s=loaded["load_snapshot"][0] / 1e3,
+             restore_s=loaded["resume"][0] / 1e3,
+             uninterrupted_wall_ms_per_round=1e3 * full_s / PS_ROUNDS,
+             uninterrupted_wall_ms_per_round_less_write=(
+                 1e3 * full_s - wrote["write_snapshot"][0]) / PS_ROUNDS,
+             resumed_rounds=PS_ROUNDS - meta["round"], resumed_wall_s=res_s,
+             resumed_wall_ms_per_round=(
+                 1e3 * res_s - loaded["load_snapshot"][0]
+                 - loaded["resume"][0]) / (PS_ROUNDS - meta["round"]),
+             resumed_launches=res_launches, uninterrupted_launches=full_launches,
+             identical=same, makespan=res.makespan, card=smi_line())
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    del rt_full, full, rt_res, res, sess, centers, problem
+    torch.cuda.empty_cache()
 
 
 def commit_on_path(case, rows) -> dict:
@@ -2648,7 +2871,8 @@ def main() -> int:
     del z_main
     torch.cuda.empty_cache()
     phase_spmd_ranks(errs)
-    ps_launches, ps_rows = phase_ps(bw, errs)
+    ps_launches, ps_rows, ps_peaks = phase_ps(bw, errs)
+    phase_ps_durable(ps_peaks)
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)

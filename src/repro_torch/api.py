@@ -164,10 +164,17 @@ class ConsensusSession:
         telemetry layer on; it never perturbs the run (z bitwise equal,
         same makespan). ``metrics_every=k`` streams every k-th round.
 
-        ``checkpoint_every``, ``checkpoint_dir``, ``resume_from`` and
-        ``server_crash`` fault events keep the reference's signature and
-        raise ``NotImplementedError``: the durability layer is ROADMAP
-        Queue A item 1."""
+        Durability (``ps/recovery.py``): ``server_crash`` fault events
+        arm a per-domain write-ahead commit log, so a crashed block
+        server is rebuilt by replaying it (zero committed folds lost; on
+        the card one B2 launch per replayed block version);
+        ``checkpoint_every=E`` with ``checkpoint_dir=`` writes an atomic,
+        crash-consistent snapshot of the whole runtime at rounds E, 2E,
+        ...; ``resume_from=`` (a snapshot prefix, file, or the directory
+        for its latest) restores one and finishes with exactly the
+        uninterrupted run's z, trace, fold logs, losses and makespan.
+        Snapshots are in the reference's format, so either package
+        resumes the other's."""
         from .ps import PSRuntime
         from .ps.chaos import FaultPlan
         from .ps.timing import CostProfile

@@ -39,9 +39,18 @@ then a reduced Table 1.
   ``min_skew_occupancy_ratio``);
 * ``heavy_tail`` — Pareto worker compute: stall-time concentration under
   lockfree vs per_push commits (gated vs ``min_heavy_tail_stall``);
-* ``server_crash`` — raises ``NotImplementedError``: the durability
-  layer is ROADMAP Queue A item 1, as is the SPMD replay of the churn
-  and lossy traces.
+* ``server_crash`` — 8 real-compute workers; a deterministic plan
+  crashes two block servers (blocks 2 and 9), each rebuilt by replaying
+  its write-ahead commit log (on the card: B2 once per replayed block
+  version). Gates: zero lost folds by per-round multiset against the
+  crash-free run, 2 recoveries, rounds-to-tolerance vs
+  ``max_server_crash_rounds_ratio`` and replay parity of the crash
+  trace.
+
+Each scenario replays its trace on one device. The reference also
+replays on an 8-device SPMD mesh when one process sees 8 devices; the
+port's SPMD epoch runs one process per rank, so its ``*_spmd`` lines
+say skipped (ROADMAP Queue A item 1).
 
 The gates are virtual-time figures of the simulation (the reference's
 values, ``benchmarks/kernels_baseline.json``), so they hold for the
@@ -63,7 +72,6 @@ from ..data import make_sparse_logreg
 from ..device import DeviceLike
 from ..ps import (ConstantService, CostProfile, FaultPlan, LognormalService,
                   ParetoService, PSRuntime, Transport, measure_costs)
-from ..ps.runtime import DURABILITY_TODO
 
 K_ITERS = 320
 WORKERS = [1, 4, 8, 16, 32]
@@ -72,6 +80,8 @@ GATE_WORKERS = 8
 GATE_ROUNDS = 12
 BASELINE = pathlib.Path(__file__).parent / "ps_baseline.json"
 CHURN_DIM = M_BLOCKS * 16
+SPMD_SKIPPED = ("skipped,need 8 devices (the port's SPMD epoch runs one "
+                "process per rank; this benchmark is one process)")
 
 Emit = Callable[[str], None]
 
@@ -241,6 +251,7 @@ def churn_scenario(emit: Emit, smoke: bool = False,
         GATE_WORKERS, dim=CHURN_DIM, samples=4,
         delay_model=ch.to_delay_model(), device=device))
     emit(f"churn_replay_err_1dev,{err:.2e},tol=1e-05")
+    emit(f"churn_replay_err_spmd,{SPMD_SKIPPED}")
     ok = err <= 1e-5
     if ratio > max_ratio:
         emit(f"churn_gate_FAILED,0,rounds ratio {ratio:.3f} > {max_ratio}")
@@ -280,6 +291,7 @@ def lossy_scenario(emit: Emit, smoke: bool = False,
         GATE_WORKERS, dim=CHURN_DIM, samples=4,
         delay_model=lo.to_delay_model(), device=device))
     emit(f"lossy_replay_err_1dev,{err:.2e},tol=1e-05")
+    emit(f"lossy_replay_err_spmd,{SPMD_SKIPPED}")
     ok = err <= 1e-5
     if ratio > max_ratio:
         emit(f"lossy_gate_FAILED,0,rounds ratio {ratio:.3f} > {max_ratio}")
@@ -288,10 +300,90 @@ def lossy_scenario(emit: Emit, smoke: bool = False,
     return ok and ratio <= max_ratio
 
 
+def _per_round_folds(rt) -> list:
+    """Per domain: {round: sorted [(worker, block)]} from its fold log
+    (in-round order may differ across a recovery)."""
+    out = []
+    for dom in rt.domains:
+        rounds: Dict[int, list] = {}
+        for (t, i, j) in dom.fold_log:
+            rounds.setdefault(t, []).append((i, j))
+        out.append({t: sorted(f) for t, f in rounds.items()})
+    return out
+
+
+def lost_fold_rounds(rt_ff, rt_cr) -> int:
+    """(domain, round) pairs whose fold multisets differ between the
+    crash-free and the crash run: a lost or duplicated commit."""
+    lost = 0
+    for ff, cr in zip(_per_round_folds(rt_ff), _per_round_folds(rt_cr)):
+        lost += sum(ff.get(t) != cr.get(t) for t in set(ff) | set(cr))
+    return lost
+
+
 def server_crash_scenario(emit: Emit, smoke: bool = False,
                           device: DeviceLike = None) -> bool:
-    """Block-server crash + WAL-replay recovery: not ported yet."""
-    raise NotImplementedError(DURABILITY_TODO)
+    """Block-server crash + WAL-replay recovery at 8 real-compute
+    workers: a deterministic ``server_crash`` plan drops two lock
+    domains' in-memory state mid-run; each rebuilds from its write-ahead
+    commit log. Gates (``ps_baseline.json``):
+
+    * **zero lost folds** — every domain's committed fold log matches
+      the crash-free run's per-round multiset exactly (hard-fail);
+    * **rounds-to-tolerance** — the crash run must reach the crash-free
+      tolerance within ``max_server_crash_rounds_ratio`` x its rounds
+      (recovery costs sim time, never committed progress);
+    * **replay parity** — the crash run's trace replays through the
+      vectorized epoch within 1e-5 on one device."""
+    R = 16 if smoke else 24
+    timing = CostProfile(t_worker=ConstantService(1.0),
+                         t_server_block=ConstantService(0.25))
+    plan = FaultPlan.of(FaultPlan.server_crash(2, at=3.0, down=2.5),
+                        FaultPlan.server_crash(9, at=6.0, down=3.0))
+    sess = build_session(GATE_WORKERS, dim=CHURN_DIM, samples=4,
+                         device=device)
+    rt_ff = PSRuntime(sess.spec, data=sess.data, timing=timing)
+    ff = rt_ff.run(R)
+    rt_cr = PSRuntime(sess.spec, data=sess.data, timing=timing,
+                      faults=plan)
+    cr = rt_cr.run(R)
+
+    lost = lost_fold_rounds(rt_ff, rt_cr)
+    # read the durability instruments straight off the run's metrics
+    # registry (the same instruments PSRunResult.metrics is built from)
+    m = rt_cr.registry.collect(["server_recoveries", "wal"])
+    emit(f"server_crash_folds,{sum(len(d.fold_log) for d in rt_cr.domains)},"
+         f"mismatched_rounds={lost}"
+         f"|recoveries={m['server_recoveries']}"
+         f"|wal_commits={m['wal']['commits']}"
+         f"|wal_replays={m['wal']['replays']}")
+    ok = lost == 0 and m["server_recoveries"] == 2 \
+        and ff.metrics.get("server_recoveries", 0) == 0
+
+    r_ff, r_cr, ratio, max_ratio = _rounds_gate(
+        ff, cr, "max_server_crash_rounds_ratio")
+    emit(f"server_crash_faultfree_makespan,{ff.makespan*1e6:.0f},"
+         f"rounds_to_tol={r_ff}")
+    emit(f"server_crash_chaos_makespan,{cr.makespan*1e6:.0f},"
+         f"rounds_to_tol={r_cr}")
+    emit(f"server_crash_rounds_ratio,{ratio:.3f},max={max_ratio}")
+
+    err = _replay_max_err(cr, build_session(
+        GATE_WORKERS, dim=CHURN_DIM, samples=4,
+        delay_model=cr.to_delay_model(), device=device))
+    emit(f"server_crash_replay_err_1dev,{err:.2e},tol=1e-05")
+    emit(f"server_crash_replay_err_spmd,{SPMD_SKIPPED}")
+    ok = ok and err <= 1e-5
+    if lost:
+        emit(f"server_crash_gate_FAILED,0,{lost} rounds lost/extra folds "
+             f"after WAL replay")
+    if ratio > max_ratio:
+        emit(f"server_crash_gate_FAILED,0,rounds ratio {ratio:.3f} > "
+             f"{max_ratio}")
+    if not ok:
+        emit("server_crash_gate_FAILED,0,replay parity or recovery "
+             "count off")
+    return ok and ratio <= max_ratio
 
 
 def skew_scenario(emit: Emit, smoke: bool = False,

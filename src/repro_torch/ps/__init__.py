@@ -20,21 +20,28 @@ into executable, measurable, replayable scenarios:
   fleet;
 * :class:`Transport` + :class:`TransportFabric` — unreliable
   worker<->server links (drop / duplicate / reorder, seeded per link)
-  with ack/retry/backoff reliability;
+  with ack/retry/backoff reliability, exactly-once commit folds, and
+  graceful pull-timeout degradation within Assumption 3's bound;
+* :class:`DomainWAL` + :class:`SnapshotCoordinator`
+  (``ps/recovery.py``) — durability: per-domain write-ahead commit
+  logs that rebuild a crashed block server exactly (``server_crash``
+  faults, zero committed folds lost; on the card one B2 launch per
+  replayed block version), and crash-consistent runtime snapshots with
+  deterministic mid-run resume (``run_ps(checkpoint_every=,
+  resume_from=)``), in the reference's snapshot format;
 * :class:`DelayTrace` — records what happened (staleness + partial
   participation + chaos events + transport delivery log); replays
   through ``asybadmm_epoch`` via ``core.space.TraceDelay`` exactly, in
   the reference's file format;
 * :class:`PSRuntime` / :class:`PSRunResult` — the front door, also
   reachable as ``ConsensusSession.run_ps(...)``.
-
-The reference's durability layer (``DomainWAL``, snapshots, the
-``server_crash`` fault) is not ported yet: ROADMAP Queue A item 1.
 """
 from .chaos import FaultEvent, FaultInjector, FaultPlan
 from .engine import SpaceEngine
 from .events import EventScheduler
 from .membership import MembershipManager
+from .recovery import (DomainWAL, SnapshotCoordinator, latest_snapshot,
+                       list_snapshots, load_snapshot)
 from .runtime import PSRunResult, PSRuntime
 from .server import (BlockServerProc, Discipline, DISCIPLINES,
                      register_discipline, resolve_discipline)
@@ -56,4 +63,6 @@ __all__ = [
     "as_service", "measure_costs", "DelayTrace", "LinkChannel",
     "TransportFabric", "WorkerProc",
     "FaultEvent", "FaultInjector", "FaultPlan", "MembershipManager",
+    "DomainWAL", "SnapshotCoordinator", "latest_snapshot",
+    "list_snapshots", "load_snapshot",
 ]

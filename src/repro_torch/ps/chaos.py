@@ -41,10 +41,8 @@ Event kinds
                  volatile state at ``at`` (in-memory z versions,
                  caches, pending declarations/pushes, queued pulls)
                  and comes back after ``duration`` by replaying its
-                 write-ahead commit log — zero committed folds lost.
-                 The durability layer is not ported yet (ROADMAP
-                 Queue A item 1): the runtime refuses a plan with
-                 server_crash events. ``duration`` is required: a
+                 write-ahead commit log (``ps/recovery.py``) — zero
+                 committed folds lost. ``duration`` is required: a
                  server that never recovers would deadlock its commit
                  gates. Messages sent to a down server are dropped, so
                  a plan with server_crash events engages the ack/retry
@@ -181,8 +179,8 @@ class FaultPlan:
     @property
     def has_server_crash(self) -> bool:
         """Whether any event crashes a block server — the runtime then
-        arms the per-domain write-ahead commit log (not ported yet:
-        ``PSRuntime`` refuses such plans) and engages the ack/retry transport layer (messages to a down
+        arms the per-domain write-ahead commit log (``ps/recovery.py``)
+        and engages the ack/retry transport layer (messages to a down
         server are dropped and must retransmit)."""
         return any(e.kind == "server_crash" for e in self.events)
 

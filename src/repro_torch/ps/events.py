@@ -16,8 +16,8 @@ not flake), and it comes from two rules:
 Simulated time is unitless; callers decide whether a unit is a second
 (measured kernel costs) or an abstract service slot.
 
-Two small extensions exist for the durability layer (not
-ported yet: ROADMAP Queue A item 1): events can carry a ``tag`` (the fault injector
+Two small extensions exist for the durability layer
+(``ps/recovery.py``): events can carry a ``tag`` (the fault injector
 tags its chaos timeline "fault", so a checkpoint barrier can tell
 pending chaos apart from in-flight work), and an optional
 ``after_event`` hook runs after every callback (the snapshot

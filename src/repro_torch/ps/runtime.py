@@ -27,21 +27,27 @@ the recorded trace carries the participation matrix + the chaos event
 timeline — replay parity holds for chaos runs exactly as for
 fault-free ones.
 
-Durability — the reference's ``server_crash`` faults (a block server
-rebuilt from its write-ahead commit log) and
-``run(checkpoint_every=, checkpoint_dir=, resume_from=)`` snapshots —
-is not ported yet: asking for any of it raises ``NotImplementedError``
-naming ROADMAP Queue A item 1.
+Durability (``ps/recovery.py``): ``server_crash`` fault events arm a
+per-domain write-ahead commit log so a block server can lose its
+volatile state and rebuild it exactly by replay (zero committed folds
+lost; on the card one B2 launch per replayed block version), and
+``run(checkpoint_every=, checkpoint_dir=, resume_from=)`` takes
+periodic crash-consistent snapshots of the whole runtime so a killed
+run resumes mid-stream with results identical to the uninterrupted
+one. Snapshots are in the reference's format: either package resumes
+the other's.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from ..core.space import ConsensusSpec
 from ..obs import MetricsRegistry, as_telemetry, hist
+from . import recovery as _recovery
 from .chaos import FaultInjector, FaultPlan
 from .engine import SpaceEngine
 from .events import EventScheduler
@@ -52,11 +58,6 @@ from .timing import CostProfile, Transport
 from .trace import DelayTrace
 from .transport import TransportFabric
 from .worker import WorkerProc
-
-DURABILITY_TODO = ("the PS runtime's durability layer (write-ahead commit "
-                   "logs, server_crash faults, checkpoint_every / "
-                   "checkpoint_dir / resume_from snapshots) is not ported "
-                   "yet: ROADMAP Queue A item 1")
 
 
 @dataclasses.dataclass
@@ -125,8 +126,6 @@ class PSRuntime:
                       else int(staleness_bound))
         self.faults = faults.validate(self.engine.N, self.engine.M) \
             if faults is not None else None
-        if self.faults is not None and self.faults.has_server_crash:
-            raise NotImplementedError(DURABILITY_TODO)
         # divergence watchdog: halt the run (FloatingPointError naming
         # the round/block) the moment a committed z goes NaN/Inf
         self.check_finite = bool(check_finite) and not self.timing_only
@@ -159,13 +158,15 @@ class PSRuntime:
             checkpoint_every: Optional[int] = None,
             checkpoint_dir: Optional[str] = None,
             resume_from: Optional[str] = None) -> PSRunResult:
-        """Drive ``num_rounds`` rounds. The durability knobs
-        (``checkpoint_every``, ``checkpoint_dir``, ``resume_from``) keep
-        the reference's signature and raise ``NotImplementedError``
-        until that layer is ported."""
-        if (checkpoint_every is not None or checkpoint_dir is not None
-                or resume_from is not None):
-            raise NotImplementedError(DURABILITY_TODO)
+        """Drive ``num_rounds`` rounds. Durability knobs
+        (``ps/recovery.py``): ``checkpoint_every=E`` writes an atomic,
+        crash-consistent snapshot of the whole runtime to
+        ``checkpoint_dir`` at rounds E, 2E, ... (a quiescent barrier —
+        part of the run's schedule); ``resume_from=`` (a snapshot
+        prefix, file, or the checkpoint directory for its latest)
+        restores one and continues mid-stream, producing results
+        identical to the uninterrupted run. ``checkpoint_every=None``
+        (default) is byte-identical to the pre-durability runtime."""
         if num_rounds < 1:
             raise ValueError("num_rounds must be >= 1")
         eng = self.engine
@@ -195,13 +196,15 @@ class PSRuntime:
         # loss on: reliable runs keep the exact pre-transport paths) ---
         raw_net = self.timing_profile.net
         base_tr = raw_net if isinstance(raw_net, Transport) else None
-        lossy_faults = self.faults is not None and self.faults.has_link_loss
+        lossy_faults = self.faults is not None and (
+            self.faults.has_link_loss or self.faults.has_server_crash)
         if base_tr is not None and (base_tr.unreliable or lossy_faults):
             self.transport = base_tr
         elif lossy_faults:
-            # link_loss bursts need the ack/retry layer even when the
-            # base network is reliable — synthesize a zero-knob
-            # Transport carrying the base latency model
+            # link_loss bursts / server_crash outages need the ack/retry
+            # layer even when the base network is reliable (messages to
+            # a down server drop and must retransmit) — synthesize a
+            # zero-knob Transport carrying the base latency model
             self.transport = Transport(
                 latency=self.net.latency if self.net else 0.0,
                 jitter=self.net.jitter if self.net else 0.0)
@@ -220,6 +223,52 @@ class PSRuntime:
                 burst_drop=self.injector.link_drop
                 if not self.injector.empty else None)
 
+        # --- durability: periodic snapshots + mid-run resume ---
+        self.ckpt = None
+        resume_state = None
+        if resume_from is not None:
+            resume_state = _recovery.load_snapshot(resume_from)
+            saved_every = resume_state.meta["fingerprint"].get(
+                "checkpoint_every")
+            if checkpoint_every is None:
+                # the barrier cadence is part of the run's schedule —
+                # resume inherits it so the continuation matches the
+                # uninterrupted run exactly
+                checkpoint_every = saved_every
+            elif saved_every is not None \
+                    and int(checkpoint_every) != int(saved_every):
+                raise ValueError(
+                    f"resume_from snapshot was written with "
+                    f"checkpoint_every={saved_every} but this run asks "
+                    f"for {checkpoint_every} — the barrier cadence is "
+                    f"part of the run's schedule and cannot change "
+                    f"mid-stream")
+            if checkpoint_dir is None:
+                checkpoint_dir = os.path.dirname(resume_state.path) or "."
+        if checkpoint_every is not None:
+            every = int(checkpoint_every)
+            if every < 1:
+                raise ValueError(f"checkpoint_every must be >= 1; "
+                                 f"got {checkpoint_every}")
+            if checkpoint_dir is None:
+                raise ValueError("checkpoint_every= needs checkpoint_dir= "
+                                 "(where the snapshots land)")
+            if self.transport is not None:
+                raise ValueError(
+                    "checkpoint_every is incompatible with an unreliable "
+                    "transport (in-flight retransmission timers are not "
+                    "snapshotable): drop the Transport knobs and any "
+                    "link_loss/server_crash fault events, or run without "
+                    "checkpointing — server_crash durability comes from "
+                    "the per-domain WAL instead")
+            if self.timing_only:
+                raise ValueError(
+                    "checkpoint_every needs compute='real' (timing-only "
+                    "runs hold no numeric state worth snapshotting)")
+            self.ckpt = _recovery.SnapshotCoordinator(
+                self, every, checkpoint_dir)
+            self.sched.after_event = self.ckpt.check
+
         # --- numeric state (Algorithm 1 lines 1-2) ---
         if self.timing_only:
             self.y = self.w = self.x = None
@@ -231,6 +280,10 @@ class PSRuntime:
             caches0 = {j: eng.block_cache(self.w, j) for j in range(eng.M)}
 
         # --- lock domains per the coordination discipline ---
+        # server_crash faults arm each domain's write-ahead commit log
+        # (recovery replays it through the same fold path — zero
+        # committed folds lost); without them the WAL does not exist
+        wal_armed = self.faults is not None and self.faults.has_server_crash
         commit_service = self.timing_profile.server_service()
         self.domains: List[BlockServerProc] = []
         for sid, block_ids in enumerate(self.groups):
@@ -250,7 +303,8 @@ class PSRuntime:
                 membership=self.membership if elastic else None,
                 fault_factor=self.injector.server_factor
                 if not self.injector.empty else None,
-                runtime=self))
+                runtime=self,
+                wal=_recovery.DomainWAL(sid) if wal_armed else None))
         self.domain_of_block = [None] * eng.M
         for dom in self.domains:
             for j in dom.block_ids:
@@ -267,14 +321,22 @@ class PSRuntime:
                           num_rounds=num_rounds,
                           record_fn=self._round_record)
         self._register_metrics()
-        self.injector.install()
-        for wk in workers:
-            if wk.alive:
-                self.sched.at(0.0, wk.start)
-        for dom in self.domains:
-            # blocks with an empty edge neighborhood still commit
-            # every round (prox-only decay, as the epoch does)
-            self.sched.at(0.0, dom._maybe_commit)
+        if resume_state is not None:
+            # restore the quiescent barrier state and arm it: clock,
+            # entity state + rngs, the not-yet-fired fault timeline,
+            # and the parked workers' releases. The t=0 launch below is
+            # skipped — at a quiescent barrier no commit gate is
+            # satisfiable until a released worker declares
+            _recovery.resume(self, resume_state)
+        else:
+            self.injector.install()
+            for wk in workers:
+                if wk.alive:
+                    self.sched.at(0.0, wk.start)
+            for dom in self.domains:
+                # blocks with an empty edge neighborhood still commit
+                # every round (prox-only decay, as the epoch does)
+                self.sched.at(0.0, dom._maybe_commit)
         makespan = self.sched.run()
 
         # --- invariants ---
@@ -371,6 +433,10 @@ class PSRuntime:
             "server_occupancy": hist(
                 [d.busy_time / self.sched.now if self.sched.now > 0
                  else 0.0 for d in self.domains])})
+        if any(d.wal is not None for d in self.domains):
+            _recovery.register_wal_metrics(reg, self.domains)
+        if self.ckpt is not None:
+            self.ckpt.register_metrics(reg)
         if self.fabric is not None:
             self.fabric.register_metrics(reg, self)
 
@@ -410,12 +476,14 @@ class PSRuntime:
         """Per-block stationarity/residuals at a committed version
         (``core.metrics.block_residuals`` over the packed state), or
         None when not computable without perturbing the run: timing
-        mode or ``track_x=False`` sessions. The
+        mode, ``track_x=False`` sessions, or a block server currently
+        down (its committed contents are dark until WAL recovery). The
         gradient term needs fixed full-batch data (``batches=`` streams
         and minibatch draws are round-scoped); without it the streamed
         P carries the primal + prox terms only. The residuals are
         reduced on the device and copied to the host once per record."""
-        if self.timing_only or getattr(self.x, "ndim", 0) != 3:
+        if self.timing_only or getattr(self.x, "ndim", 0) != 3 \
+                or any(d.down for d in self.domains):
             return None
         from ..core.metrics import block_residuals
         eng = self.engine
@@ -424,7 +492,7 @@ class PSRuntime:
                 self.domain_of_block[j].content_at(j, version)
                 for j in range(eng.M)])
         except KeyError:
-            return None                # version pruned
+            return None                # version pruned / lost to a crash
         grads = None
         if self._fixed_data is not None and self.spec.minibatch is None:
             _, grads, _ = eng.grads(self.x, self._fixed_data)
@@ -458,6 +526,10 @@ class PSRuntime:
             return                     # already down / already finished
         r = wk.t                       # the round it never declared
         wk.kill()
+        if self.ckpt is not None:
+            # a worker parked at a snapshot barrier no longer blocks
+            # (or rides) it — membership marks it absent below
+            self.ckpt.unpark(i)
         self.membership.deactivate(i, r)
         self.enforcer.drop_worker(i)
         if self.transport is not None:
@@ -507,6 +579,45 @@ class PSRuntime:
                                        round=r)
             self.obs.entity_up(track, self.sched.now)
         wk.revive(r)
+
+    def _crash_server(self, block: int) -> None:
+        """A ``server_crash`` fault fired: the lock domain holding
+        ``block`` loses its volatile state (version history, caches,
+        queue, pending declarations, parked pulls). Its WAL survives;
+        messages to it drop at the server until recovery."""
+        dom = self.domain_of_block[block]
+        if dom.down:
+            return                     # overlapping windows merge
+        self.trace.add_event("server_crash", block=block, sid=dom.sid,
+                             version=dom.version, time=self.sched.now)
+        if self.obs is not None:
+            track = self.obs.server_track(dom.sid)
+            if self.obs.spans is not None:
+                self.obs.spans.instant(track, "server_crash",
+                                       self.sched.now,
+                                       version=dom.version)
+            self.obs.entity_down(track, self.sched.now)
+        dom.crash()
+        self.enforcer.drop_server(dom.sid)
+
+    def _recover_server(self, block: int) -> None:
+        """The recovery delay elapsed: rebuild the domain exactly by
+        WAL replay (committed folds bitwise, pending declarations
+        re-queued) and resume its commit chain."""
+        dom = self.domain_of_block[block]
+        if not dom.down:
+            return
+        dom.recover()
+        self.trace.add_event("server_recover", block=block, sid=dom.sid,
+                             version=dom.version, time=self.sched.now,
+                             replayed=len(dom.wal.commits))
+        if self.obs is not None:
+            track = self.obs.server_track(dom.sid)
+            if self.obs.spans is not None:
+                self.obs.spans.instant(track, "server_recover",
+                                       self.sched.now,
+                                       version=dom.version)
+            self.obs.entity_up(track, self.sched.now)
 
     # ------------------------------------------------------------------
     # per-round data (minibatched through the epoch's key chain)

@@ -46,9 +46,11 @@ lock-domain grouping plus the commit mode); register custom groupings
 follow the packed block layout's contract: block j is row j of the
 canonical (M, dblk) table.
 
-The reference's durability layer (a per-domain write-ahead commit log
-that rebuilds a crashed server) is not ported yet (ROADMAP Queue A
-item 1); the runtime refuses ``server_crash`` faults until it is.
+Durability (``ps/recovery.py``): under ``server_crash`` faults each
+domain keeps a write-ahead commit log (``wal=``); ``crash()`` drops the
+volatile state and ``recover()`` rebuilds it by replaying the log
+through ``engine.apply_push`` / ``engine.commit_block`` — on the card
+the B2 kernel, once per replayed block version — bitwise.
 """
 from __future__ import annotations
 
@@ -132,7 +134,8 @@ class BlockServerProc:
                  rng: np.random.Generator, num_rounds: int,
                  edge_workers: frozenset, contents0: dict, caches0: dict,
                  timing_only: bool, per_push: bool = False,
-                 membership=None, fault_factor=None, runtime=None):
+                 membership=None, fault_factor=None, runtime=None,
+                 wal=None):
         self.sid = sid
         self.block_ids = tuple(block_ids)
         self.engine = engine
@@ -157,6 +160,18 @@ class BlockServerProc:
         # the exactly-once fold log ((version, worker, block) in fold
         # order) the transport/recovery property tests pin
         self.fold_log: list = []
+        # durability (ps/recovery.py): the write-ahead commit log this
+        # domain replays after a server_crash fault, the incarnation
+        # counter that strands a dead incarnation's queue/commit
+        # events, and the version-0 base state replay rebuilds from
+        self.wal = wal
+        self.down = False
+        self.gen = 0
+        self.recoveries = 0
+        self._contents0 = dict(contents0) \
+            if wal is not None and not timing_only else None
+        self._caches0 = dict(caches0) \
+            if wal is not None and not timing_only else None
 
         self.version = 0
         # contents[j][v] = block j's committed content at version v
@@ -214,6 +229,11 @@ class BlockServerProc:
         server now knows worker i's round-t intent — the runtime
         analogue of the bounded-delay assumption that lets a real
         lock-free server stop waiting on non-pushers."""
+        if self.wal is not None:
+            # write-ahead: the declaration (intent + push payloads) is
+            # durable BEFORE any queue/commit processing — a crash
+            # between here and the round's publish replays it
+            self.wal.record_declare(i, t, pushes)
         self._decl[t].add(i)
         for (j, value) in pushes:
             self.pushes += 1
@@ -225,8 +245,9 @@ class BlockServerProc:
             if self.per_push:
                 cost += self._commit_sample()
             done = self._occupy(cost, label="push_service")
-            self.sched.at(done, lambda t=t, i=i, j=j, v=value:
-                          self._push_processed(t, i, j, v))
+            self.sched.at(done, self._guard(
+                lambda t=t, i=i, j=j, v=value:
+                self._push_processed(t, i, j, v)))
         self._maybe_commit()
 
     def _push_processed(self, t: int, i: int, j: int, value) -> None:
@@ -245,6 +266,8 @@ class BlockServerProc:
         dropped (the pending resolution will answer both), and one
         whose response was already sent gets the SAME version resent
         (the response, not the request, must have been lost)."""
+        if self.down:
+            return                 # dark server: retransmission recovers
         key = (i, t)
         if key in self._pull_state:
             self.dups_dropped += 1
@@ -264,7 +287,8 @@ class BlockServerProc:
 
     def _send_pull_response(self, i: int, t: int, version: int) -> None:
         # the response carries the block payloads (as a real protocol
-        # does)
+        # does) — a server that crashes while this message is in flight
+        # must not take the read back with it
         wk = self.rt.worker_proc(i)
         payload = None if self.timing_only else \
             [self.content_at(j, version) for j in self.block_ids]
@@ -288,6 +312,8 @@ class BlockServerProc:
         this round folds ZERO more times — but is re-acked either way,
         because a duplicate here usually means the original ack was
         lost and the worker is still retransmitting."""
+        if self.down:
+            return                 # dark server: retransmission recovers
         if t < self.version or i in self._decl[t]:
             self.dups_dropped += 1
         else:
@@ -309,6 +335,8 @@ class BlockServerProc:
                          if self.membership.required(i, v))
 
     def _maybe_commit(self) -> None:
+        if self.down:
+            return                 # recovery restarts the commit chain
         v = self.version
         if self._committing or v >= self.num_rounds:
             return
@@ -325,7 +353,7 @@ class BlockServerProc:
         else:
             dur = sum(self._commit_sample() for _ in self.block_ids)
         self.sched.at(self._occupy(dur, label="commit_service"),
-                      self._finish_commit)
+                      self._guard(self._finish_commit))
 
     def _finish_commit(self) -> None:
         v = self.version
@@ -335,6 +363,9 @@ class BlockServerProc:
         # pays its commit latency eagerly but folds at the SAME point,
         # so the published version is bit-identical across disciplines)
         pushes = self._push_buf.pop(v, [])
+        if self.wal is not None:
+            # write-ahead: the fold order is durable before the publish
+            self.wal.record_commit(v, [(i, j) for (i, j, _) in pushes])
         self.fold_log.extend((v, i, j) for (i, j, _) in pushes)
         if not self.timing_only:
             for (i, j, value) in pushes:
@@ -370,6 +401,84 @@ class BlockServerProc:
         self.enforcer.notify(self, self.sched.now)
         self._maybe_commit()
 
+    # ---- durability: crash / WAL-replay recovery --------------------------
+    # (driven by the runtime's _crash_server/_recover_server transitions;
+    #  only reachable when a FaultPlan carries server_crash events, which
+    #  also arms self.wal and the ack/retry transport layer)
+
+    def _guard(self, fn):
+        """Bind ``fn`` to this server incarnation: a crash strands the
+        dead incarnation's queue/commit completions (the volatile queue
+        died with it) instead of letting them corrupt the rebuild."""
+        gen = self.gen
+
+        def run(*args):
+            if self.gen == gen:
+                fn(*args)
+        return run
+
+    def crash(self) -> None:
+        """Lose all volatile state: the in-memory version history and
+        caches, pending declarations/pushes, the service queue, pull
+        dedup state, any in-flight commit. The WAL (stable storage) and
+        the historical perf counters survive."""
+        self.down = True
+        self.gen += 1
+        self._decl = defaultdict(set)
+        self._push_buf = defaultdict(list)
+        self._unprocessed = defaultdict(int)
+        self._pull_state = {}
+        self._committing = False
+        self.busy_until = self.sched.now
+        self.version = 0
+        if not self.timing_only:
+            self.contents = {}
+            self.caches = {}
+
+    def recover(self) -> None:
+        """Rebuild from the WAL: replay every committed version's fold
+        order through the same ``apply_push``/``commit_block`` path the
+        live server uses (bitwise — zero committed folds lost; on the
+        card one B2 launch per replayed block version), then re-install
+        the logged-but-uncommitted declarations through the service
+        queue in arrival order. The queue work is re-paid (it was
+        volatile), so recovery shifts timing, never numerics."""
+        assert self.wal is not None and self.down
+        self.down = False
+        self.busy_until = self.sched.now
+        if not self.timing_only:
+            self.contents = {j: {0: self._contents0[j]}
+                             for j in self.block_ids}
+            self.caches = dict(self._caches0)
+        for v, folds in enumerate(self.wal.commits):
+            if not self.timing_only:
+                for (i, j) in folds:
+                    self.caches[j] = self.engine.apply_push(
+                        self.caches[j], i, self.wal.value(i, v, j))
+                for j in self.block_ids:
+                    self.contents[j][v + 1] = self.engine.commit_block(
+                        j, self.contents[j][v], self.caches[j])
+        self.version = len(self.wal.commits)
+        self.wal.replays += 1
+        self.recoveries += 1
+        obs = self.rt.obs if self.rt is not None else None
+        if obs is not None and obs.spans is not None:
+            obs.spans.instant(obs.server_track(self.sid), "wal_replay",
+                              self.sched.now,
+                              replayed=len(self.wal.commits))
+        for (i, t, pushes) in self.wal.pending(self.version):
+            self._decl[t].add(i)
+            for (j, value) in pushes:
+                self._unprocessed[t] += 1
+                cost = self.push_cost
+                if self.per_push:
+                    cost += self._commit_sample()
+                done = self._occupy(cost, label="push_service")
+                self.sched.at(done, self._guard(
+                    lambda t=t, i=i, j=j, v=value:
+                    self._push_processed(t, i, j, v)))
+        self._maybe_commit()
+
     # ---- reads ------------------------------------------------------------
     def content_at(self, j: int, version: int):
         return self.contents[j][version]
@@ -380,6 +489,8 @@ class BlockServerProc:
         newest version always stays. Keeps a real-compute run's memory
         at O(T) versions instead of O(num_rounds) when the caller does
         not want the full z trajectory."""
+        if self.down:
+            return                 # nothing in memory to prune
         for j in self.block_ids:
             store = self.contents[j]
             for v in [v for v in store if v < min_version

@@ -111,6 +111,9 @@ class WorkerProc:
         self.t = t                     # finished workers report t == R
         if t >= self.rt.num_rounds:
             return
+        ckpt = self.rt.ckpt
+        if ckpt is not None and ckpt.park(self, t):
+            return                     # snapshot barrier; resumes on release
         self._pulled = {}
         self._vals = {}
         self._issued = False
@@ -187,7 +190,10 @@ class WorkerProc:
             return
         tr = self.rt.transport
         cached = self._cache.get(dom.sid, 0)
-        if retry >= tr.max_retries and t - cached <= self.rt.enforcer.bound:
+        # a DOWN domain cannot serve the cached read's payload — keep
+        # retransmitting; its recovery delay is finite by plan contract
+        if retry >= tr.max_retries and not dom.down \
+                and t - cached <= self.rt.enforcer.bound:
             ch = self.rt.fabric.link(self.i, dom)
             ch.note_timeout("pull_req", t, cached)
             self.rt.enforcer.fallback(t, cached, worker=self.i)

@@ -226,6 +226,45 @@ def test_session_on_the_card_goes_through_the_kernels(gen):
     torch.testing.assert_close(zs["auto"], zs["torch"], rtol=1e-5, atol=1e-5)
 
 
+
+def test_server_crash_replay_on_the_kernels_is_bitwise(gen):
+    """A PS run whose block server 1 crashes and comes back by WAL
+    replay, on the kernels: B1 once per worker compute, B2 once per
+    block commit and once per replayed block version; its trace replays
+    through the epoch on the kernels with z bitwise equal at every
+    round."""
+    from repro_torch import ps
+    N, M, rounds = 3, 4, 8
+    centers = torch.randn((N, M * 128), generator=gen, device="cuda")
+    cfg = ADMMConfig(rho=2.0, gamma=0.1, max_delay=2, block_fraction=0.5,
+                     num_blocks=M, l1_coef=1e-3, clip=0.8, seed=0)
+
+    def loss(z, c):
+        return 0.5 * torch.sum(torch.square(z - c))
+
+    def session(delay_model=None):
+        return ConsensusSession.flat(loss, centers, dim=M * 128, cfg=cfg,
+                                     delay_model=delay_model)
+
+    timing = ps.CostProfile(t_worker=ps.ConstantService(1.0),
+                            t_server_block=ps.ConstantService(0.25))
+    plan = ps.FaultPlan.of(ps.FaultPlan.server_crash(1, at=2.0, down=3.0))
+    ops.reset_launch_counts()
+    res = session().run_ps(rounds, timing=timing, faults=plan)
+    launches = ops.launch_counts()
+    replayed = sum(e["replayed"] for e in res.trace.events
+                   if e["kind"] == "server_recover")
+    assert res.metrics["server_recoveries"] == 1 and replayed >= 1
+    assert launches["admm_worker_select_update"] \
+        == res.metrics["worker_iterations"]
+    assert launches["server_prox_update"] == M * rounds + replayed
+    replay = session(res.to_delay_model())
+    state = replay.init()
+    for t in range(rounds):
+        state, _ = replay.step(state)
+        assert torch.equal(replay.z(state), res.z_versions[t + 1]), t
+
+
 FLAT_SHAPES = [(1024,), (2048,), (8, 128), (2, 8, 128), (4, 2, 128),
                (8, 64, 4096)]
 

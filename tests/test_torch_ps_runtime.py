@@ -11,8 +11,8 @@
     through the other's ``TraceDelay.load`` and replays to the run's z;
 (e) a committed version never changes after later rounds (torch
     tensors are mutable where the reference's arrays were not);
-(f) the durability features not yet ported raise, naming the ROADMAP
-    item.
+(f) the durability knobs and ``server_crash`` faults work (the layer's
+    parity with the reference is in ``test_torch_ps_recovery.py``).
 
 Random selections and minibatches come from the reference's engine
 (``test_torch_ps_pairs.inject_*``); the rest of each run is numpy on both
@@ -213,25 +213,52 @@ def test_engine_ops_return_new_tensors():
 
 
 # ---------------------------------------------------------------------------
-# (f) what is not ported yet raises
+# (f) the durability knobs work
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(checkpoint_every=2),
-                                dict(checkpoint_dir="snaps"),
-                                dict(resume_from="snaps")])
-def test_durability_arguments_raise(kw):
+def _same_run(a, b):
+    assert torch.equal(a.z_final, b.z_final)
+    assert all(torch.equal(x, y) for x, y in zip(a.z_versions, b.z_versions))
+    np.testing.assert_array_equal(a.trace.delays, b.trace.delays)
+    assert a.losses == b.losses and a.makespan == b.makespan
+
+
+@pytest.mark.parametrize("knob", ["checkpoint_every", "checkpoint_dir",
+                                  "resume_from"])
+def test_durability_arguments_work(tmp_path, knob):
+    """``checkpoint_every`` (with its directory) writes snapshots,
+    ``checkpoint_dir`` alone changes nothing, and ``resume_from`` a
+    directory finishes the checkpointed run exactly."""
     _, port = pairs.sessions("cyclic", edge=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
-        port.run_ps(ROUNDS, **kw)
+    timing = pairs.timings("constant")[1]
+    snaps = str(tmp_path / "snaps")
+    if knob == "checkpoint_dir":
+        _same_run(port.run_ps(ROUNDS, timing=timing),
+                  port.run_ps(ROUNDS, timing=timing, checkpoint_dir=snaps))
+        return
+    full = port.run_ps(ROUNDS, timing=timing, checkpoint_every=2,
+                       checkpoint_dir=snaps)
+    assert [p.rsplit("/", 1)[1] for p in full.metrics["snapshots"]] == [
+        "snap-000002", "snap-000004"]
+    if knob == "resume_from":
+        _same_run(full, port.run_ps(ROUNDS, timing=timing,
+                                    resume_from=snaps))
 
 
-def test_server_crash_raises():
+def test_server_crash_works():
+    """A ``server_crash`` plan runs (one recovery, the crash-free run's
+    folds), and the benchmark's scenario passes its gates."""
     _, port = pairs.sessions("cyclic", edge=None)
     plan = tps.FaultPlan.of(tps.FaultPlan.server_crash(1, at=2.0, down=1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
-        port.run_ps(ROUNDS, faults=plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
-        speedup.SCENARIOS["server_crash"](print, smoke=True, device="cpu")
+    timing = pairs.timings("constant")[1]
+    res = port.run_ps(ROUNDS, timing=timing, faults=plan)
+    assert res.metrics["server_recoveries"] == 1
+    assert res.metrics["wal"]["replays"] == 1
+    assert [e["kind"] for e in res.trace.events] == ["server_crash",
+                                                     "server_recover"]
+    ff = port.run_ps(ROUNDS, timing=timing)
+    assert len(res.z_versions) == len(ff.z_versions) == ROUNDS + 1
+    assert speedup.SCENARIOS["server_crash"](print, smoke=True, device="cpu")
 
 
 def test_runtime_rejects_bad_config():
