@@ -58,7 +58,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    after phases 4, 5 and 6, one more epoch of the path records the
    inputs each kernel was given (``kernels_on_path``): every kernel the
    path runs is held against its plain version on exactly those inputs
-   and timed there;
+   and timed there; then line ``spmd_tree``: the pytree session of phase
+   ``ps_tree``'s smoke tree with ``mesh=`` on the same mesh, 10 epochs,
+   B1 and B3 once an epoch and B2 never, z within 1e-5 of the
+   single-device tree epoch;
 7. spmd_ranks — 4 spawned ranks on the one card in a gloo group
    (data=2 x model=2, N=8, M=64, dim 2,097,152: split gradients on),
    5 epochs: every rank's z within 1e-5 of a single-device run, each
@@ -100,6 +103,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    version, delays, fold logs, losses, makespan), launching B1 and B2
    once per compute and commit of its own; the snapshot's bytes, write
    and load + restore seconds; the directory is removed;
+   pytree  — ``ConsensusSession.pytree`` on qwen3-1.7b's stacked
+   parameter tree (the reference's ``layers`` stacked on a leading axis;
+   widths in full, 6 of 28 layers: 613,182,976 f32 parameters, seed 0),
+   M = 2 blocks by LPT (311,164,928 / 302,018,048: dblk 311,164,928),
+   N = 2 workers, the loss 1/2 sum over leaves |p - a_i c|^2 (c the
+   seed-1 tree, a = (0.5, 1.5) the batch), the kdda_like config: 5
+   epochs on the kernels, then 5 on the plain backend from the same
+   state; B1 (no x) and B2 once an epoch; each epoch's z, and epoch 1's
+   y and w_cache, held between the backends within KERNEL_TOL; the pad
+   lanes of z, y and w_cache exactly 0 after every epoch; z moved. The
+   epoch ms of both, both peaks beside the reckoned 4 B x (2T + 6NT +
+   NP + P), a profile of the kernel epoch split into B1, B2, the gather
+   and push, the pack and unpack copies, the loss's passes and host
+   gaps, and B1's and B2's device ms per launch beside their bounds;
+   ps_tree — ``run_ps`` (lockfree, 6 rounds) on a pytree session of the
+   qwen3-1.7b smoke config's stacked tree: B1 once per worker compute
+   and B2 once per block commit, z trees at every version, the trace
+   replayed through the tree epoch on the kernels with z bitwise equal;
 8. serve   — the dense model stack at qwen3-1.7b's full width (28
    layers, d_model 2048, 16 / 8 heads of 128, vocab 151,936, fp32,
    random weights from a seed): ``Model.prefill`` of 4 x 4096 tokens on
@@ -157,6 +178,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import datetime
+import gc
 import json
 import shutil
 import statistics
@@ -293,8 +315,11 @@ def compare(kernel, plain) -> float:
     fin = torch.isfinite(plain)
     if not bool(fin.any()):
         return 0.0
-    err = float((kernel[fin] - plain[fin]).abs().max())
-    scale = float(plain[fin].abs().max())
+    # masked rather than indexed: a boolean index builds an int64 index of
+    # every finite entry, 6x the tensor (28 GiB on the pytree bundles)
+    out = ~fin
+    err = float((kernel - plain).abs_().masked_fill_(out, 0.0).max())
+    scale = float(plain.abs().masked_fill_(out, 0.0).max())
     if err > KERNEL_TOL * (1.0 + scale):
         fail(f"max|kernel - plain| = {err:.3e} > {KERNEL_TOL} * (1 + {scale:.3e})")
     return err
@@ -1282,7 +1307,10 @@ def profile_window(run, calls: int, warmup: int = 0):
     t0 = min(e.time_range.start for e in events if e.name == MEASURED)
     by_name = {}
     for e in events:
-        if e.device_type == DeviceType.CUDA and e.time_range.start >= t0:
+        # the profiler also lays the MEASURED range on the device's
+        # timeline; it spans the kernels, it is not one of them
+        if e.device_type == DeviceType.CUDA and e.time_range.start >= t0 \
+                and e.name != MEASURED:
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     return sorted(((t, c, k) for k, (t, c) in by_name.items()),
@@ -1538,8 +1566,9 @@ def phase_spmd(bw: float, errs, z_main):
                  card=smi_line())
             del state, sess, centers, z
             torch.cuda.empty_cache()
-            return launches, check_on_path("spmd", inputs, SPMD_KERNELS, bw,
-                                           errs)
+            rows = check_on_path("spmd", inputs, SPMD_KERNELS, bw, errs)
+            spmd_tree()
+            return launches, rows
         finally:
             dist.destroy_process_group()
 
@@ -1690,12 +1719,12 @@ def ps_timing():
                        t_server_block=LognormalService(0.25, 0.15))
 
 
-def ps_block_commits(res) -> int:
+def ps_block_commits(res, blocks: int = KDDA_BLOCKS) -> int:
     """Block commits of a run, from its metrics: domain commits times
     the blocks a domain holds (every discipline here splits the blocks
     evenly over its domains)."""
     domains = len(res.metrics["server_busy_time"])
-    return res.metrics["commits"] * KDDA_BLOCKS // domains
+    return res.metrics["commits"] * blocks // domains
 
 
 def ps_replay(sess_cfg, res) -> list:
@@ -2031,6 +2060,351 @@ def phase_ps_durable(ps_peaks) -> None:
         shutil.rmtree(snap_dir, ignore_errors=True)
     del rt_full, full, rt_res, res, sess, centers, problem
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase pytree: ConsensusSession.pytree at Qwen3-1.7B's parameter widths
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7b's stacked parameter tree, 28 layers cut to 6 with M = 2: an
+# epoch holds two history tables, y and w_cache, z~ and g, B1's two
+# outputs and the per-worker gradient tree, and the plain backend x, y
+# and w before its selects, three N-bundles more; at 12 layers with M = 3
+# that epoch needs ~82 GB of the card's 80 (measured 54.7 GB at 6)
+TREE_LAYERS = 6
+TREE_WORKERS, TREE_BLOCKS = 2, 2
+TREE_EPOCHS = 5
+TREE_SCALES = (0.5, 1.5)       # the batch: worker i's minimiser is a_i * c
+TREE_BLOCK_SIZES = (311_164_928, 302_018_048)   # LPT at 6 layers, M = 2
+TREE_PROFILE_EPOCHS = 2
+B1_NAME, B2_NAME = "worker_select_update_kernel", "server_prox_kernel"
+# the profiler's kernels by what they do in a tree epoch, first match wins
+TREE_SPLIT = (("B1", (B1_NAME,)), ("B2", (B2_NAME,)),
+              ("gather_and_push", ("index", "CatArray")),
+              ("pack_and_unpack", ("copy", "fill")))
+
+
+def tree_config():
+    """The kdda_like settings at M = TREE_BLOCKS."""
+    from repro_torch.configs.base import ADMMConfig
+    return ADMMConfig(rho=2.0, gamma=0.1, max_delay=1, block_fraction=0.5,
+                      num_blocks=TREE_BLOCKS, l1_coef=1e-3, clip=1.0, seed=0)
+
+
+def tree_problem(model_cfg):
+    """The stacked parameter tree of ``model_cfg`` (seed 0), the loss
+    f_i(p) = 1/2 sum over leaves |p - a_i c|^2 around the seed-1 tree c
+    (one shared copy: the data cost P, not N P), and the batch a, all on
+    the card."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.weights import stacked_params
+
+    params = stacked_params(model_cfg, 0, "cuda")
+    c = tree_leaves(stacked_params(model_cfg, 1, "cuda"))
+
+    def loss(p, a):
+        return 0.5 * sum(torch.sum(torch.square(x - a * cx))
+                         for x, cx in zip(tree_leaves(p), c))
+
+    return params, loss, torch.tensor(TREE_SCALES, device="cuda")
+
+
+def tree_session(model_cfg):
+    """A pytree session of the tree problem, and its batch."""
+    params, loss, a = tree_problem(model_cfg)
+    return tree_like(loss, params), a
+
+
+def tree_like(loss, params, **kw):
+    """A pytree session of ``loss`` from ``params`` (``kw`` to
+    ``pytree``): another backend, delay model or mesh on the same tree
+    and the same data, with no second copy of either."""
+    from repro_torch.api import ConsensusSession
+    return ConsensusSession.pytree(loss, params, tree_config(),
+                                   num_workers=TREE_WORKERS, **kw)
+
+
+def pads_zero(layout, *tables) -> bool:
+    """Every pad lane of every table (leading axes, then (M, dblk))
+    exactly 0."""
+    for t in tables:
+        for j, used in enumerate(layout.block_sizes):
+            if used < layout.block_dim and bool(
+                    t[..., j, used:].count_nonzero()):
+                return False
+    return True
+
+
+def tree_max_diff(a, b) -> float:
+    from repro_torch.core.tree import tree_leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_split(path: str, epoch_ms: float) -> dict:
+    """Device ms per epoch by TREE_SPLIT's groups (the rest: the loss's
+    forward and backward passes and the selection), from
+    ``profile_calls``' table, and the host's share of the epoch."""
+    table = json.loads((HERE / "chiprun_out" / f"{path}_profile.json"
+                        ).read_text())
+    split = {name: 0.0 for name, _ in TREE_SPLIT}
+    split["loss_passes_and_rest"] = 0.0
+    for row in table["by_kernel"]:
+        group = next((name for name, frags in TREE_SPLIT
+                      if any(f in row["name"] for f in frags)),
+                     "loss_passes_and_rest")
+        split[group] += row["device_ms_per_epoch"]
+    split["host_gaps"] = max(0.0, epoch_ms - sum(split.values()))
+    return split
+
+
+def phase_pytree(bw: float, errs):
+    """``ConsensusSession.pytree`` on qwen3-1.7b's stacked parameter tree
+    (6 layers, f32, seed 0), M = 2 by LPT, N = 2: 5 epochs on the kernels, then 5 on the plain ``torch`` backend
+    from the same state. B1 (no x) and B2 launch once an epoch; each
+    epoch's z, and epoch 1's y and w_cache, are held between the two
+    backends by the kernels' rule; the pad lanes of z, y and w_cache
+    stay exactly 0; z moves. Prints the epoch ms of both, both peaks
+    beside the reckoning, a profile of the kernel epoch split into pack
+    and unpack copies, the loss's passes, B1, B2 and host gaps, and B1's
+    and B2's device ms per launch beside their bounds; one more kernel
+    epoch's B1 and B2 held against their plain versions on its inputs
+    and timed there (``kernels_on_path``)."""
+    import dataclasses
+    from repro_torch.configs import qwen3_1p7b
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+
+    N, M = TREE_WORKERS, TREE_BLOCKS
+    model_cfg = dataclasses.replace(qwen3_1p7b.config(),
+                                    num_layers=TREE_LAYERS)
+    sess, a = tree_session(model_cfg)
+    space, layout = sess.spec.space, sess.spec.space.layout
+    if space.backend != "cuda":
+        fail(f"pytree: 'auto' resolved to {space.backend!r} on the card")
+    if layout.block_sizes != TREE_BLOCK_SIZES or \
+            layout.block_dim != TREE_BLOCK_SIZES[0]:
+        fail(f"pytree: LPT gave blocks {layout.block_sizes}, dblk "
+             f"{layout.block_dim}; the reference's are {TREE_BLOCK_SIZES}")
+    P = sum(int(t.numel()) for t in tree_leaves(sess.z0))
+    T = M * layout.block_dim
+    d = layout.block_dim
+
+    def run(session, on_epoch):
+        # earlier phases' reference cycles may still hold device tensors
+        # until the collector runs; collect them so the peak is this path's
+        gc.collect()
+        reset_peak()
+        ops.reset_launch_counts()
+        state = session.init()
+        torch.cuda.synchronize()
+        times = []
+        for t in range(TREE_EPOCHS):
+            t0 = time.perf_counter()
+            state, info = session.step(state, a)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if not pads_zero(layout, state.z_hist, state.y, state.w_cache):
+                fail(f"pytree {session.spec.space.backend}: a pad lane is "
+                     f"not 0 after epoch {t}")
+            on_epoch(t, state, info)
+        return (state, times, ops.launch_counts(),
+                torch.cuda.max_memory_allocated())
+
+    z_host, first = [], {}
+
+    def keep(t, state, info):
+        z_host.append(state.z_blocks.cpu())
+        if t == 0:
+            first.update(y=state.y.cpu(), w_cache=state.w_cache.cpu(),
+                         selected=float(info["selected_fraction"]))
+
+    state, times, launches, peak = run(sess, keep)
+    expect_launches("pytree", launches, TREE_EPOCHS, MAIN_KERNELS)
+    z0 = layout.to_blocks(sess.z0)
+    moved = float((state.z_blocks - z0).abs().max())
+    del z0
+    if not moved > 0.0 or not bool(torch.isfinite(state.z_blocks).all()):
+        fail(f"pytree: z did not move or is not finite (max|z - z0| = "
+             f"{moved})")
+    z_tree = sess.z(state)
+    if [tuple(x.shape) for x in tree_leaves(z_tree)] != \
+            [tuple(x.shape) for x in tree_leaves(sess.z0)]:
+        fail("pytree: z is not the params tree")
+    del z_tree
+    epoch_ms = statistics.median(times[1:])
+    held = [state]
+    del state
+
+    def step():
+        held[0], _ = sess.step(held[0], a)
+
+    profile = profile_calls("pytree", step, epoch_ms, TREE_PROFILE_EPOCHS,
+                            expect={B1_NAME: 1, B2_NAME: 1})
+    split = tree_split("pytree", epoch_ms)
+    # one more epoch: B1 and B2 against their plain versions on the
+    # inputs it gave them, and timed there (the tensors themselves: the
+    # state that epoch made is dropped, nothing writes to them)
+    with capture_inputs(copy=False, names=MAIN_KERNELS, keep=1) as inputs:
+        step()
+    del held[0]
+    torch.cuda.empty_cache()
+    rows = check_on_path("pytree", inputs, MAIN_KERNELS, bw, errs)
+
+    diffs = []
+
+    def hold(t, state, info):
+        diffs.append(compare(z_host[t].cuda(), state.z_blocks))
+        if t == 0:
+            for name in ("y", "w_cache"):
+                errs["admm_worker_select_update"] = max(
+                    errs["admm_worker_select_update"],
+                    compare(first[name].cuda(), getattr(state, name)))
+            errs["server_prox_update"] = max(errs["server_prox_update"],
+                                             diffs[0])
+
+    plain = tree_like(sess.spec.loss_fn, sess.z0, backend="torch")
+    del sess
+    state, plain_times, plain_launches, plain_peak = run(plain, hold)
+    if any(plain_launches.values()):
+        fail("pytree: the torch backend launched a kernel")
+    params = plain.z0
+    del state, plain, first["y"], first["w_cache"]
+    z_host.clear()
+    torch.cuda.empty_cache()
+
+    kernels = {}
+    for name, frag in (("admm_worker_select_update", B1_NAME),
+                       ("server_prox_update", B2_NAME)):
+        r = rows[name]
+        dev_ms = profile["kernels"][frag]["device_ms_per_launch"]
+        kernels[name] = dict(
+            device_ms_per_launch=dev_ms, ms=r["ms"], plain_ms=r["plain_ms"],
+            bytes=r["bytes"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            bound_share=r["bound_ms"] / dev_ms,
+            max_abs_err=r["max_abs_err"])
+    emit("pytree", arch=SERVE_ARCH, layers=TREE_LAYERS, N=N, M=M,
+         params=P, block_sizes=list(layout.block_sizes), dblk=d,
+         table_entries=T, padding_share=1.0 - P / T, epochs=TREE_EPOCHS,
+         launches=launches, selected_fraction=first["selected"],
+         epoch_ms=times, epoch_ms_median=epoch_ms,
+         torch_epoch_ms=plain_times,
+         torch_epoch_ms_median=statistics.median(plain_times[1:]),
+         peak_bytes=peak, torch_peak_bytes=plain_peak,
+         reckoned_peak_bytes=4 * (2 * T + 6 * N * T + N * P + P),
+         z_max_abs_diff_vs_torch=diffs, z_moved_max_abs=moved,
+         pads_zero=True, device_ms_per_epoch=split, profile=profile,
+         kernels=kernels, card=smi_line())
+    del params, a
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tree_replay_bitwise(path: str, sess, res, a) -> list:
+    """Replay ``res``'s trace through the tree epoch of ``sess``'s
+    problem on the kernels; every round's z tree must equal the
+    runtime's bit for bit. Returns the epochs' ms."""
+    from repro_torch.core.tree import tree_leaves
+    rs = tree_like(sess.spec.loss_fn, sess.z0,
+                   delay_model=res.to_delay_model())
+    state = rs.init()
+    times = []
+    for t in range(res.num_rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = rs.step(state, a)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if not all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(rs.z(state)), tree_leaves(res.z_versions[t + 1]))):
+            fail(f"{path}: the replayed z differs from the runtime's at "
+                 f"round {t} by {tree_max_diff(rs.z(state), res.z_versions[t + 1]):.3e} "
+                 f"(bitwise gate)")
+    return times
+
+
+def phase_ps_tree() -> dict:
+    """``run_ps`` (lockfree, 6 rounds, lognormal service times) on a
+    pytree session of the qwen3-1.7b smoke config's stacked tree, N = 2,
+    M = 2: B1 once per worker compute and B2 once per block commit, z
+    trees at every version; the trace replayed through the tree epoch on
+    the kernels, z bitwise equal at every round."""
+    from repro_torch.configs import qwen3_1p7b
+    from repro_torch.kernels import ops
+
+    model_cfg = qwen3_1p7b.smoke()
+    sess, a = tree_session(model_cfg)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sess.run_ps(PS_ROUNDS, timing=ps_timing(), batches=lambda t: a)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    computes = res.metrics["worker_iterations"]
+    commits = ps_block_commits(res, TREE_BLOCKS)
+    expect_counts("ps_tree", launches, {"admm_worker_select_update": computes,
+                                        "server_prox_update": commits})
+    if computes != TREE_WORKERS * PS_ROUNDS or \
+            commits != TREE_BLOCKS * PS_ROUNDS:
+        fail(f"ps_tree: {computes} worker computes and {commits} block "
+             f"commits in {PS_ROUNDS} rounds")
+    if not isinstance(res.z_final, dict) or not all(
+            isinstance(v, dict) for v in res.z_versions):
+        fail("ps_tree: z_final / z_versions are not params trees")
+    ops.reset_launch_counts()
+    replay_ms = tree_replay_bitwise("ps_tree", sess, res, a)
+    expect_launches("ps_tree replay", ops.launch_counts(), PS_ROUNDS,
+                    MAIN_KERNELS)
+    emit("ps_tree", arch=model_cfg.name, N=TREE_WORKERS, M=TREE_BLOCKS,
+         dblk=sess.spec.space.layout.block_dim, rounds=res.num_rounds,
+         discipline=res.discipline, wall_ms_per_round=1e3 * wall_s
+         / res.num_rounds, replay_epoch_ms=replay_ms,
+         makespan=res.makespan, worker_computes=computes,
+         block_commits=commits, launches=launches, replay_bitwise=True,
+         losses=res.losses, card=smi_line())
+    del sess, res
+    return launches
+
+
+def spmd_tree() -> dict:
+    """The pytree session with ``mesh=`` on phase ``spmd``'s 1x1 NCCL
+    mesh at the qwen3-1.7b smoke size, 10 epochs: B1 and B3 once an
+    epoch, B2 never; z within 1e-5 of the single-device tree epoch."""
+    from repro_torch.configs import qwen3_1p7b
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+
+    model_cfg = qwen3_1p7b.smoke()
+    single, a = tree_session(model_cfg)
+    state = single.init()
+    for _ in range(MAIN_EPOCHS):
+        state, _ = single.step(state, a)
+    z_single = single.z(state)
+    sess = tree_like(single.spec.loss_fn, single.z0,
+                     mesh=make_test_mesh(1, 1))
+    ops.reset_launch_counts()
+    state = sess.init()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(MAIN_EPOCHS):
+        t0 = time.perf_counter()
+        state, _ = sess.step(state, a)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    launches = ops.launch_counts()
+    expect_launches("spmd_tree", launches, MAIN_EPOCHS, SPMD_KERNELS)
+    diff = tree_max_diff(sess.z(state), z_single)
+    scale = max(float(x.abs().max()) for x in tree_leaves(z_single))
+    if not diff <= TRAJ_TOL * (1.0 + scale):
+        fail(f"spmd_tree: z differs from the single-device tree epoch by "
+             f"{diff:.3e}")
+    emit("spmd_tree", arch=model_cfg.name, world_size=1,
+         mesh=dict(sess.spec.space.mesh.shape), N=TREE_WORKERS,
+         M=TREE_BLOCKS, epochs=MAIN_EPOCHS, launches=launches,
+         epoch_ms_median=statistics.median(times[1:]),
+         z_max_abs_diff_vs_single=diff, z_max_abs=scale, card=smi_line())
+    return launches
 
 
 def commit_on_path(case, rows) -> dict:
@@ -2873,6 +3247,8 @@ def main() -> int:
     phase_spmd_ranks(errs)
     ps_launches, ps_rows, ps_peaks = phase_ps(bw, errs)
     phase_ps_durable(ps_peaks)
+    phase_pytree(bw, errs)
+    phase_ps_tree()
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)

@@ -1,9 +1,16 @@
-"""User-facing builder API for AsyBADMM in flat mode.
+"""User-facing API for AsyBADMM — one surface over both spaces.
 
 ``ConsensusSession`` binds a :class:`~repro_torch.core.space.ConsensusSpec`
 (space + policies) to an :class:`~repro_torch.configs.base.ADMMConfig`
-and exposes init/step/run. It runs on the CUDA card unless the caller
-passes ``device="cpu"``:
+and exposes init/step/run. Build one with:
+
+* ``ConsensusSession.flat(...)``   — flat-vector consensus (the paper's
+  sparse workloads; fixed per-worker data, optional support/edge set);
+* ``ConsensusSession.pytree(...)`` — params-pytree consensus (per-worker
+  batches streamed through ``step``/``run``; the leaves packed into the
+  same block table by ``core.blocks.BlockLayout``).
+
+It runs on the CUDA card unless the caller passes ``device="cpu"``:
 
     from repro_torch.api import ConsensusSession, solve
 
@@ -14,6 +21,11 @@ passes ``device="cpu"``:
 
     # or, one call:
     z, history = solve(loss_fn, (X, y), dim=512, num_epochs=600, cfg=cfg)
+
+    # or a params tree, one batch per worker (leading axis N) an epoch:
+    sess = ConsensusSession.pytree(tree_loss, params, cfg, num_workers=4)
+    state, info = sess.step(sess.init(), batch)
+    params = sess.z(state)
 
     # or under the event-driven Parameter Server runtime:
     res = sess.run_ps(20, discipline="lockfree")
@@ -36,30 +48,36 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from .configs.base import ADMMConfig
+from .core.blocks import TreeBlocks, make_block_layout, make_tree_blocks
 from .core.consensus import ConsensusProblem, make_problem
 from .core.metrics import kkt_violations, stationarity
 from .core.sharded import full_z_blocks
-from .core.space import (ConsensusSpec, ConsensusState, asybadmm_epoch,
-                         consensus_residual, init_consensus_state)
+from .core.space import (ConsensusSpec, ConsensusState, TreeSpace,
+                         asybadmm_epoch, consensus_residual,
+                         init_consensus_state, make_spec)
 from .device import DeviceLike
 
 
 @dataclasses.dataclass(frozen=True)
 class ConsensusSession:
-    """A configured AsyBADMM run: spec + config + fixed data.
+    """A configured AsyBADMM run: spec + config (+ fixed data, flat mode).
 
     spec    : the generic step spec (space, edge, rho_vec, policies);
     cfg     : the ADMMConfig the spec was built from;
-    data    : fixed per-worker data on the spec's device (on a mesh, this
-              rank's rows); ``step`` falls back to it when no batch is
-              passed;
-    problem : the flat-mode ConsensusProblem — kept so the objective and
-              the stationarity/KKT metrics stay available.
+    data    : fixed per-worker data on the spec's device (flat mode; on a
+              mesh, this rank's rows); ``step`` falls back to it when no
+              batch is passed;
+    z0      : default initial consensus value in user representation
+              (the params pytree in pytree mode);
+    problem : the flat-mode ConsensusProblem (None in pytree mode) —
+              kept so the objective and the stationarity/KKT metrics
+              stay available.
     """
     spec: ConsensusSpec
     cfg: ADMMConfig
-    data: Any
-    problem: ConsensusProblem
+    data: Any = None
+    z0: Any = None
+    problem: Optional[ConsensusProblem] = None
 
     @staticmethod
     def flat(loss_fn: Callable, data: Any, dim: int,
@@ -98,17 +116,49 @@ class ConsensusSession:
         return ConsensusSession(spec=spec, cfg=cfg, data=problem.data,
                                 problem=problem)
 
+    @staticmethod
+    def pytree(loss_fn: Callable, params: Any, cfg: Optional[ADMMConfig],
+               num_workers: int, *,
+               blocks: Optional[TreeBlocks] = None,
+               edge: Optional[Any] = None,
+               rho_scale: Optional[Any] = None,
+               selector=None, delay_model=None,
+               backend: Optional[str] = None,
+               mesh: Any = None,
+               autotune: Optional[str] = None,
+               device: DeviceLike = None) -> "ConsensusSession":
+        """Params-pytree consensus: leaves are balanced into
+        ``cfg.num_blocks`` blocks (LPT, or pass explicit ``blocks``) and
+        packed into the (M, dblk) table; per-worker batches stream in
+        through ``step``/``run``. ``params`` (tensors, on any device, or
+        numpy arrays) is the default initial value; the layout reads only
+        its shapes and dtypes. ``backend``, ``mesh`` and ``device`` as in
+        :meth:`flat`: under a mesh the model axis splits the table's
+        rows, never its lanes."""
+        cfg = cfg if cfg is not None else ADMMConfig()
+        if blocks is None:
+            blocks = make_tree_blocks(params, cfg.num_blocks)
+        space = TreeSpace(blocks=blocks, num_workers=num_workers,
+                          layout=make_block_layout(params, blocks))
+        spec = make_spec(space, cfg, loss_fn, edge=edge, rho_scale=rho_scale,
+                         selector=selector, delay_model=delay_model,
+                         track_x=False, backend=backend, mesh=mesh,
+                         autotune=autotune, device=device)
+        return ConsensusSession(spec=spec, cfg=cfg, z0=params)
+
     # ------------------------------------------------------------------
     # driving
     # ------------------------------------------------------------------
     def init(self, z0: Any = None) -> ConsensusState:
-        """Algorithm 1 lines 1-2 from the flat vector ``z0`` (default 0)."""
-        return init_consensus_state(self.spec, z0)
+        """Algorithm 1 lines 1-2 from ``z0`` in user representation (flat
+        mode: default 0; pytree mode: default the session's params)."""
+        return init_consensus_state(
+            self.spec, z0 if z0 is not None else self.z0)
 
     def step(self, state: ConsensusState, batch: Any = None
              ) -> Tuple[ConsensusState, Dict]:
-        """One epoch of Algorithm 1. ``batch`` defaults to the session's
-        fixed data."""
+        """One epoch of Algorithm 1. ``batch`` (per-worker data, leading
+        axis N) defaults to the session's fixed data (flat mode)."""
         data = batch if batch is not None else self.data
         return asybadmm_epoch(self.spec, state, data)
 
@@ -148,9 +198,10 @@ class ConsensusSession:
         ``record_z=False`` keeps only the live staleness window of
         committed versions (``z_final`` still returned, ``z_versions``
         not). Returns a :class:`~repro_torch.ps.runtime.PSRunResult`
-        (``z_final`` / ``z_versions`` flat vectors on the session's
-        device) — replay its trace through the epoch with
-        ``delay_model=result.to_delay_model()``.
+        (``z_final`` / ``z_versions`` in user representation, flat
+        vectors or params trees, on the session's device) — replay its
+        trace through the epoch with ``delay_model=result.to_delay_model()``.
+        A pytree session takes its per-round data from ``batches(t)``.
 
         ``faults`` is a :class:`~repro_torch.ps.chaos.FaultPlan` (or a
         path to its JSON) injecting worker crash/rejoin, joins/leaves,
@@ -193,7 +244,8 @@ class ConsensusSession:
                        compute=compute, seed=seed, record_z=record_z,
                        faults=faults, check_finite=check_finite,
                        telemetry=telemetry, metrics_every=metrics_every)
-        return rt.run(num_rounds, z0=z0, checkpoint_every=checkpoint_every,
+        return rt.run(num_rounds, z0=z0 if z0 is not None else self.z0,
+                      checkpoint_every=checkpoint_every,
                       checkpoint_dir=checkpoint_dir,
                       resume_from=resume_from)
 
@@ -204,8 +256,8 @@ class ConsensusSession:
             ) -> Tuple[ConsensusState, List[Dict]]:
         """Drive ``num_epochs`` epochs. ``batches(t)`` supplies the epoch-t
         per-worker batch (defaults to the fixed data). Eval records carry
-        ``loss`` and ``objective`` plus ``eval_fn(session, state)``
-        extras."""
+        ``loss`` (+ ``objective`` in flat mode) and ``eval_fn(session,
+        state)`` extras."""
         state = self.init(z0)
         step = self.step_fn()
         hist: List[Dict] = []
@@ -213,8 +265,9 @@ class ConsensusSession:
             data = batches(t) if batches is not None else self.data
             state, info = step(state, data)
             if eval_every and (t + 1) % eval_every == 0:
-                rec = {"epoch": t + 1, "loss": float(info["loss"]),
-                       "objective": self.objective(state)}
+                rec = {"epoch": t + 1, "loss": float(info["loss"])}
+                if self.problem is not None:
+                    rec["objective"] = self.objective(state)
                 if eval_fn is not None:
                     rec.update(eval_fn(self, state))
                 hist.append(rec)
@@ -224,24 +277,34 @@ class ConsensusSession:
     # inspection
     # ------------------------------------------------------------------
     def z(self, state: ConsensusState):
-        """Newest consensus value as a flat vector (on a sharded state,
-        the model shards gathered)."""
+        """Newest consensus value in user representation: a flat vector,
+        or the params tree with leaves in their stored dtypes (on a
+        sharded state, the model shards gathered)."""
         return self.spec.space.to_user(full_z_blocks(self.spec, state))
 
+    def _flat_problem(self, what: str) -> ConsensusProblem:
+        if self.problem is None:
+            raise ValueError(f"{what} needs flat mode (fixed data); use "
+                             f"step()'s info['loss'] in pytree mode")
+        return self.problem
+
     def objective(self, state: ConsensusState) -> float:
-        return float(self.problem.objective(self.z(state)))
+        return float(self._flat_problem("objective()").objective(
+            self.z(state)))
 
     def consensus_residual(self, state: ConsensusState) -> float:
-        """Cross-worker w-cache dispersion (0 at consensus)."""
+        """Cross-worker w-cache dispersion (0 at consensus), both modes."""
         return float(consensus_residual(self.spec, state))
 
     def stationarity(self, state: ConsensusState) -> Dict:
+        self._flat_problem("the stationarity metric")
         # per-worker rho_i, so heterogeneous rho_scale runs are scored
         # against the Lagrangian they actually optimized
         return stationarity(self.problem, state, self.spec.rho_vec,
                             self.spec)
 
     def kkt_violations(self, state: ConsensusState) -> Dict:
+        self._flat_problem("the KKT violations")
         return kkt_violations(self.problem, state, self.spec.rho_vec,
                               self.spec)
 

@@ -1,17 +1,35 @@
-"""Block partitioning for general form consensus (paper §2.2), flat mode.
+"""Block partitioning for general form consensus (paper §2.2).
 
-The decision variable is a flat vector of dim ``d`` padded and reshaped
-to a lane-aligned ``(M, dblk)`` table; block j is row j. The edge set E
-is an (N, M) bool matrix: worker i touches block j iff its local data
-has support there. The table is element for element the reference's
-(``repro/core/blocks.py``), so states and block ids carry across.
+Two user-facing representations, one packed ``(M, dblk)`` table
+underneath, element for element the reference's (``repro/core/blocks.py``)
+so states and block ids carry across:
+
+* **flat mode**: the decision variable is a flat vector of dim ``d``
+  padded and reshaped to a lane-aligned ``(M, dblk)`` table; block j is
+  row j. The edge set E is an (N, M) bool matrix: worker i touches block
+  j iff its local data has support there.
+* **pytree mode**: every leaf of a params tree is assigned to one of M
+  blocks, balanced by size (greedy LPT, :class:`TreeBlocks`), and
+  :class:`BlockLayout` packs block j's leaves into row j of the same
+  table (zero padding, bitwise round-trip).
+
+**Block-id contract**: block j of a :class:`BlockLayout` is row j of the
+table, in ``TreeBlocks.leaf_block_ids`` order, with the leaves listed as
+``jax.tree.flatten`` lists them (``core/tree.py``). Selection masks and
+edge sets index columns j, the SPMD ``model`` axis shards rows j, and
+the PS runtime's lock domains group ids j, so a block id means the same
+server in every execution mode and in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Tuple
 
 import numpy as np
+import torch
 import torch.nn.functional as F
+
+from .tree import TreeDef, tree_flatten, tree_unflatten
 
 #: Packed block rows are rounded up to a multiple of this at layout-build
 #: time. The reference chose it for the TPU's 128-wide vector lanes; the
@@ -98,3 +116,197 @@ def edge_set_from_support(support: np.ndarray, blocks: FlatBlocks) -> np.ndarray
     pad = blocks.logical_dim - d
     sp = np.pad(support, [(0, 0), (0, pad)])
     return sp.reshape(N, blocks.num_blocks, blocks.used_dim).any(axis=-1)
+
+
+# --------------------------------------------------------------------------
+# pytree mode
+# --------------------------------------------------------------------------
+
+def _dtype_name(dtype) -> str:
+    """``float32``, ``bfloat16``, ... for a torch or numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return np.dtype(dtype).name
+
+
+def _size(shape) -> int:
+    return int(np.prod(tuple(shape), dtype=np.int64))
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeBlocks:
+    """Per-leaf block ids for a params pytree (greedy size-balanced)."""
+    num_blocks: int
+    leaf_block_ids: Tuple[int, ...]      # aligned with tree_leaves order
+    treedef: TreeDef
+
+    def block_id_tree(self):
+        return tree_unflatten(self.treedef, list(self.leaf_block_ids))
+
+    def mask_tree(self, selected):
+        """selected: (M,) 0/1 tensor -> pytree of scalar multipliers."""
+        return tree_unflatten(self.treedef,
+                              [selected[i] for i in self.leaf_block_ids])
+
+    def block_sizes(self, tree) -> np.ndarray:
+        sizes = np.zeros(self.num_blocks, np.int64)
+        for leaf, bid in zip(tree_flatten(tree)[0], self.leaf_block_ids):
+            sizes[bid] += _size(leaf.shape)
+        return sizes
+
+
+def make_tree_blocks(tree, num_blocks: int) -> TreeBlocks:
+    """LPT: leaves largest first, each to the least-loaded block. The
+    order is the reference's ``np.argsort(sizes)[::-1]`` over the same
+    list, so ties between equal leaves fall as they fall there (a stable
+    sort would give another table)."""
+    leaves, treedef = tree_flatten(tree)
+    sizes = [_size(leaf.shape) for leaf in leaves]
+    order = np.argsort(sizes)[::-1]                     # LPT: largest first
+    load = np.zeros(num_blocks, np.int64)
+    ids = [0] * len(leaves)
+    for li in order:
+        j = int(np.argmin(load))
+        ids[int(li)] = j
+        load[j] += sizes[int(li)]
+    return TreeBlocks(num_blocks=num_blocks, leaf_block_ids=tuple(ids),
+                      treedef=treedef)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockLayout:
+    """Packed block layout: a params pytree lowered onto the flat-mode
+    ``(M, dblk)`` block table.
+
+    Block j's leaves are raveled and placed (in leaf order) into row j;
+    rows are zero-padded to ``block_dim`` = the largest packed block
+    rounded up to :data:`LANE`. ``to_blocks`` / ``from_blocks`` mirror
+    :class:`FlatBlocks` (leading batch axes, worker N or ring depth D+1,
+    pass through) and round-trip bitwise: arithmetic happens in
+    ``dtype`` (float32), and f32, bf16 and f16 leaves embed in it
+    exactly. Pad lanes are zero on pack, never read on unpack, and inert
+    through every epoch op (all lane-local).
+    """
+    tree: TreeBlocks
+    leaf_shapes: Tuple[Tuple[int, ...], ...]
+    leaf_dtypes: Tuple[str, ...]          # dtype names (hashable/comparable)
+    leaf_offsets: Tuple[int, ...]         # per leaf: offset within its row
+    block_leaves: Tuple[Tuple[int, ...], ...]  # per block: leaf idx, pack order
+    block_sizes: Tuple[int, ...]          # per block: packed (pad-free) size
+    block_dim: int                        # dblk (max packed block size)
+    dtype: str = "float32"                # packed compute dtype
+
+    @property
+    def num_blocks(self) -> int:
+        return self.tree.num_blocks
+
+    @property
+    def block_ids(self) -> Tuple[int, ...]:
+        """Per-leaf block assignment — THE block-id contract."""
+        return self.tree.leaf_block_ids
+
+    def padding_mask(self) -> np.ndarray:
+        """(M, dblk) bool — True on real coordinates, False on padding."""
+        mask = np.zeros((self.num_blocks, self.block_dim), bool)
+        for j, used in enumerate(self.block_sizes):
+            mask[j, :used] = True
+        return mask
+
+    def _lead(self, leaves) -> Tuple[int, ...]:
+        lead = leaves[0].ndim - len(self.leaf_shapes[0])
+        batch = tuple(leaves[0].shape[:lead])
+        for k, leaf in enumerate(leaves):
+            if tuple(leaf.shape) != batch + self.leaf_shapes[k]:
+                raise ValueError(
+                    f"leaf {k} has shape {tuple(leaf.shape)}; expected "
+                    f"batch {batch} + {self.leaf_shapes[k]} (layout built "
+                    f"for a different tree?)")
+        return batch
+
+    def leaf_starts(self) -> Tuple[int, ...]:
+        """Per leaf: start offset within the row-major flattened table."""
+        return tuple(self.block_ids[k] * self.block_dim + self.leaf_offsets[k]
+                     for k in range(len(self.leaf_shapes)))
+
+    def pack_leaves(self, leaves):
+        """Leaves (in ``tree_flatten`` order, shapes ``batch +
+        leaf_shape``) -> the table ``batch + (M, dblk)``: one zeroed
+        table, each leaf cast into its window by one copy (no
+        concatenated intermediate)."""
+        batch = self._lead(leaves)
+        out = torch.zeros(batch + (self.num_blocks, self.block_dim),
+                          dtype=getattr(torch, self.dtype),
+                          device=leaves[0].device)
+        flat = out.view(batch + (self.num_blocks * self.block_dim,))
+        for leaf, shape, start in zip(leaves, self.leaf_shapes,
+                                      self.leaf_starts()):
+            size = _size(shape)
+            flat.narrow(-1, start, size).copy_(
+                leaf.reshape(batch + (size,)))
+        return out
+
+    def unpack_leaves(self, arr):
+        """The table ``batch + (M, dblk)`` -> leaves in ``tree_flatten``
+        order, in their stored dtypes; padding dropped. Leaves in the
+        compute dtype are views of the (contiguous) table: each reads
+        only its own window."""
+        batch = tuple(arr.shape[:-2])
+        flat = arr.contiguous().view(batch + (self.num_blocks
+                                              * self.block_dim,))
+        leaves = []
+        for shape, dt, start in zip(self.leaf_shapes, self.leaf_dtypes,
+                                    self.leaf_starts()):
+            piece = flat.narrow(-1, start, _size(shape))
+            leaves.append(piece.view(batch + shape).to(getattr(torch, dt)))
+        return leaves
+
+    def to_blocks(self, tree_val):
+        """Pack a pytree (leaves ``batch + leaf_shape``) into the block
+        table ``batch + (M, dblk)`` in the packed compute dtype."""
+        leaves, treedef = tree_flatten(tree_val)
+        if treedef != self.tree.treedef:
+            raise ValueError(f"tree structure {treedef} does not match the "
+                             f"layout's {self.tree.treedef}")
+        return self.pack_leaves(leaves)
+
+    def from_blocks(self, arr):
+        """Unpack a block table ``batch + (M, dblk)`` back to the pytree
+        (leaves cast back to their stored dtypes; padding dropped)."""
+        return tree_unflatten(self.tree.treedef, self.unpack_leaves(arr))
+
+
+def make_block_layout(tree, blocks: TreeBlocks = None, *,
+                      num_blocks: int = None, dtype="float32") -> BlockLayout:
+    """Build the packed layout for ``tree`` (tensors, on any device
+    including ``meta``; only shapes and dtypes are read). ``blocks``
+    defaults to the LPT assignment of :func:`make_tree_blocks` over
+    ``num_blocks``."""
+    leaves, treedef = tree_flatten(tree)
+    if not leaves:
+        raise ValueError("cannot build a BlockLayout for an empty pytree")
+    if blocks is None:
+        blocks = make_tree_blocks(tree, num_blocks)
+    if treedef != blocks.treedef:
+        raise ValueError(f"tree structure {treedef} does not match the "
+                         f"TreeBlocks' {blocks.treedef}")
+    sizes = [_size(leaf.shape) for leaf in leaves]
+    block_leaves = tuple(
+        tuple(k for k, b in enumerate(blocks.leaf_block_ids) if b == j)
+        for j in range(blocks.num_blocks))
+    offsets = [0] * len(leaves)
+    block_sizes = []
+    for kidx in block_leaves:
+        off = 0
+        for k in kidx:
+            offsets[k] = off
+            off += sizes[k]
+        block_sizes.append(off)
+    return BlockLayout(
+        tree=blocks,
+        leaf_shapes=tuple(tuple(leaf.shape) for leaf in leaves),
+        leaf_dtypes=tuple(_dtype_name(leaf.dtype) for leaf in leaves),
+        leaf_offsets=tuple(offsets),
+        block_leaves=block_leaves,
+        block_sizes=tuple(block_sizes),
+        block_dim=round_up_to_lane(max(1, max(block_sizes))),
+        dtype=_dtype_name(dtype))

@@ -32,6 +32,9 @@ from .sharded import full_z_blocks, psum_rank_data, tile_for, \
 from .space import (ConsensusSpec, ConsensusState, FlatSpace, asybadmm_epoch,
                     init_consensus_state, make_spec)
 
+# The reference's name for the flat path's state: the generic one.
+AsyBADMMState = ConsensusState
+
 
 @dataclasses.dataclass(frozen=True)
 class ConsensusProblem:
@@ -55,6 +58,13 @@ class ConsensusProblem:
     # the launch.mesh.Mesh the data was cut for, or None (all N rows)
     mesh: Any = None
 
+    def rho_vec(self, rho: float) -> torch.Tensor:
+        """(N,) per-worker penalties rho_i = rho * rho_scale[i]."""
+        if self.rho_scale is None:
+            return torch.full((self.num_workers,), float(rho),
+                              dtype=torch.float32, device=self.device)
+        return rho * self.rho_scale
+
     def space(self) -> FlatSpace:
         return FlatSpace(blocks=self.blocks, num_workers=self.num_workers)
 
@@ -67,6 +77,12 @@ class ConsensusProblem:
             kw["mesh"] = self.mesh
         kw.update(overrides)
         return make_spec(self.space(), cfg, self.loss_fn, **kw)
+
+    def worker_loss(self, z_vec, i: int):
+        """f_i(z): worker i's loss, i a row of ``data`` (all N workers'
+        rows without a mesh)."""
+        return self.loss_fn(z_vec, pytree.tree_map(lambda a: a[i],
+                                                   self.data))
 
     def objective(self, z_vec):
         """Global objective (1): sum_i f_i(z) + h(z); on a mesh, this
@@ -126,6 +142,13 @@ def make_problem(loss_fn, data, dim: int, num_blocks: int,
 def init_state(problem: ConsensusProblem, cfg: ADMMConfig,
                z0=None) -> ConsensusState:
     return init_consensus_state(problem.spec(cfg), z0)
+
+
+def asybadmm_step(problem: ConsensusProblem, cfg: ADMMConfig,
+                  state: AsyBADMMState) -> AsyBADMMState:
+    """One epoch of Algorithm 1 across all workers + servers."""
+    new, _ = asybadmm_epoch(problem.spec(cfg), state, problem.data)
+    return new
 
 
 def make_step_fn(problem: ConsensusProblem, cfg: ADMMConfig):

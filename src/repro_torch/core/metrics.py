@@ -11,7 +11,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .consensus import ConsensusProblem
+from .consensus import AsyBADMMState, ConsensusProblem
 from .space import ConsensusSpec, ConsensusState
 
 
@@ -149,6 +149,18 @@ def block_residuals(z, y, x, edge, rho, reg=None, grads=None) -> dict:
         P_blocks = P_blocks + grad_sq
     return {"primal": torch.sqrt(primal_sq), "prox": prox_b,
             "grad": grad_b, "P": P_blocks}
+
+
+def stationarity_blocks(problem: ConsensusProblem, state: AsyBADMMState,
+                        rho) -> dict:
+    """Per-block view of :func:`stationarity` on one device: the same P
+    (eqs. 14-15) decomposed over blocks by :func:`block_residuals`, with
+    the gradient term evaluated as ``stationarity`` does. Each per-block
+    tensor sums (in squares) to the corresponding total up to fp
+    reassociation."""
+    return block_residuals(state.z_hist[0], state.y, state.x, problem.edge,
+                           rho, reg=problem.reg,
+                           grads=_grads_at_x(problem, state))
 
 
 def kkt_violations(problem: ConsensusProblem, state: ConsensusState,

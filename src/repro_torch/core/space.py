@@ -1,11 +1,23 @@
-"""The flat variable space and one epoch of Algorithm 1, in torch.
+"""The variable spaces and one epoch of Algorithm 1, in torch.
 
-Port of the flat half of ``repro/core/space.py``. The space owns the
-mechanics of the paper's Algorithm 1 on the packed (M, dblk) block table
+Port of ``repro/core/space.py``. A space owns the mechanics of the
+paper's Algorithm 1 on the packed (M, dblk) block table
 (bounded-staleness history, gather, per-worker gradients, worker and
-server updates); on top of it sit two pluggable policies, block
-selection (a registry: ``random``, ``cyclic``, ``zipf``,
-``gauss_southwell``, or any callable) and the delay model (Assumption 3).
+server updates), behind two interchangeable codecs of the user's
+representation:
+
+* ``FlatSpace`` — a flat vector, blocked by
+  :class:`~repro_torch.core.blocks.FlatBlocks` (the paper's workloads);
+* ``TreeSpace`` — a params pytree, its leaves assigned to blocks by
+  :class:`~repro_torch.core.blocks.TreeBlocks` and packed into the same
+  table by :class:`~repro_torch.core.blocks.BlockLayout` (consensus
+  training). Packing touches only the epoch's boundary (the z~ unpack
+  and the gradient repack in ``worker_grads``): the kernels, the SPMD
+  block servers and the PS lock domains see the one table.
+
+On top of the space sit two pluggable policies, block selection (a
+registry: ``random``, ``cyclic``, ``zipf``, ``gauss_southwell``, or any
+callable) and the delay model (Assumption 3).
 
 Each space carries a **compute backend** for the epoch's elementwise hot
 path, resolved from ``"auto"`` by :func:`resolve_backend`:
@@ -51,8 +63,9 @@ from ..kernels import ops as kernel_ops
 from .admm import server_update, worker_update
 from .async_sim import (gather_delayed, gumbel, push_history, sample_delays,
                         select_blocks, subsample_worker_data)
-from .blocks import FlatBlocks
+from .blocks import FlatBlocks, TreeBlocks
 from .prox import Regularizer, make_prox
+from .tree import tree_map, tree_unflatten
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +372,7 @@ def gauss_southwell_selector(ctx: SelectorContext) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the packed block mechanics and the flat space
+# the packed block mechanics and the two spaces
 # ---------------------------------------------------------------------------
 
 class _PackedOps:
@@ -488,6 +501,55 @@ class FlatSpace(_PackedOps):
             torch.as_tensor(z0, dtype=torch.float32, device=device))
 
 
+@dataclasses.dataclass(frozen=True)
+class TreeSpace(_PackedOps):
+    """Pytree consensus, lowered onto the packed block layout: z is the
+    same (M, dblk) table flat mode uses, block j's leaves packed into row
+    j (:class:`~repro_torch.core.blocks.BlockLayout`, zero-padded,
+    bitwise round-trip). Worker bundles are (N, M, dblk) tensors;
+    arithmetic runs in float32 and leaves cast back to their stored
+    dtype at ``to_user`` and for the loss. Everything past the gradient
+    is :class:`_PackedOps`' and so ``FlatSpace``'s: the kernels, the
+    SPMD sharding of rows over ``model``, the PS runtime's block ids."""
+    blocks: TreeBlocks
+    num_workers: int
+    backend: str = "torch"
+    mesh: Any = None
+    layout: Any = None                    # BlockLayout (required to run)
+
+    @property
+    def packer(self):
+        if self.layout is None:
+            raise ValueError(
+                "TreeSpace needs its packed BlockLayout; build the space "
+                "via ConsensusSession.pytree, or pass "
+                "layout=make_block_layout(params, blocks)")
+        return self.layout
+
+    def init_repr(self, z0, device):
+        if z0 is None:
+            raise ValueError("TreeSpace needs an initial params pytree")
+        return self.packer.to_blocks(
+            tree_map(lambda a: torch.as_tensor(a, device=device), z0))
+
+    def worker_grads(self, loss_fn, z_tilde, data, minibatch=None, rng=None):
+        """As :meth:`_PackedOps.worker_grads`, differentiating the list of
+        leaves (views of z~ for f32 leaves): ``torch.func`` takes a
+        ``None`` node for a leaf, which the layout's trees keep as JAX
+        does. The loss must not write its params in place (autograd
+        refuses it under ``grad``)."""
+        data = subsample_worker_data(rng, data, minibatch)
+        layout = self.packer
+        treedef = layout.tree.treedef
+
+        def leaf_loss(leaves, d):
+            return loss_fn(tree_unflatten(treedef, leaves), d)
+
+        g, losses = torch.func.vmap(torch.func.grad_and_value(leaf_loss))(
+            layout.unpack_leaves(z_tilde), data)
+        return losses, layout.pack_leaves(g)
+
+
 # ---------------------------------------------------------------------------
 # the state / spec / epoch
 # ---------------------------------------------------------------------------
@@ -519,7 +581,7 @@ class ConsensusState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class ConsensusSpec:
     """Everything one epoch of Algorithm 1 needs besides state + data."""
-    space: Any                         # FlatSpace
+    space: Any                         # FlatSpace | TreeSpace
     loss_fn: Callable                  # loss_fn(z_user, worker_data) -> scalar
     edge: torch.Tensor                 # (N, M) bool — the paper's E
     rho_vec: torch.Tensor              # (N,) per-worker penalties rho_i
@@ -614,8 +676,9 @@ def make_spec(space, cfg, loss_fn, *, edge=None, rho_scale=None, reg=None,
 
 
 def init_consensus_state(spec: ConsensusSpec, z0=None) -> ConsensusState:
-    """Algorithm 1 lines 1-2. ``z0`` is a flat vector (default 0). With a
-    mesh on the space, the state is this rank's local tiles."""
+    """Algorithm 1 lines 1-2. ``z0`` is in user representation (a flat
+    vector, default 0; a params pytree). With a mesh on the space, the
+    state is this rank's local tiles."""
     space = spec.space
     z0r = space.init_repr(z0, spec.device)
     rho_vec = spec.rho_vec

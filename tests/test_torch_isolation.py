@@ -30,6 +30,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "import repro_torch.ps.runtime, repro_torch.ps.engine\n"
             "import repro_torch.benchmarks.speedup\n"
             "import repro_torch.checkpoint, repro_torch.ps.recovery\n"
+            "import repro_torch.core.tree, repro_torch.core.blocks\n"
+            "import repro_torch.models.weights\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")

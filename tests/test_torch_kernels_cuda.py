@@ -684,3 +684,50 @@ def test_flash_kernel_refuses_bad_tensors(gen):
         with pytest.raises(ValueError, match="16-byte"):
             flash_attention.flash_attention_cuda(shifted, q.to(dtype),
                                                  q.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pytree_session_on_the_card_launches_b1_b2_per_epoch(gen, dtype):
+    """``ConsensusSession.pytree`` on the qwen3-1.7b smoke config's
+    stacked tree (leaves in ``dtype``): B1 (no x) and B2 once an epoch,
+    z within the kernels' rule of the plain backend's at every epoch
+    (bf16 leaves: from epoch 2 at the reference's bf16 tolerance,
+    tests/test_kernels.py:37), pad lanes exactly 0, z back in the
+    leaves' dtype."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models.weights import stacked_params
+
+    cfg = get_smoke("qwen3-1.7b")
+    params = tree_map(lambda t: t.to(dtype), stacked_params(cfg, 0, "cuda"))
+    c = tree_leaves(stacked_params(cfg, 1, "cuda"))
+
+    def loss(p, a):
+        return 0.5 * sum(torch.sum(torch.square(x.float() - a * cx))
+                         for x, cx in zip(tree_leaves(p), c))
+    admm = ADMMConfig(rho=2.0, gamma=0.1, max_delay=1, block_fraction=0.5,
+                      num_blocks=3, l1_coef=1e-3, clip=1.0, seed=0)
+    a = torch.tensor([0.5, 1.5], device="cuda")
+    runs = {}
+    for backend in ("cuda", "torch"):
+        sess = ConsensusSession.pytree(loss, params, admm, num_workers=2,
+                                       backend=backend)
+        pad = ~torch.as_tensor(sess.spec.space.layout.padding_mask(),
+                               device="cuda")
+        ops.reset_launch_counts()
+        state, zs = sess.init(), []
+        for _ in range(4):
+            state, _ = sess.step(state, a)
+            for t in (state.z_hist, state.y, state.w_cache):
+                assert not bool(t[..., pad].any())
+            zs.append(state.z_blocks.clone())
+        runs[backend] = (zs, ops.launch_counts(), sess.z(state))
+    launches = runs["cuda"][1]
+    assert launches["admm_worker_select_update"] == 4
+    assert launches["server_prox_update"] == 4
+    assert not any(runs["torch"][1].values())
+    for t, (zk, zp) in enumerate(zip(runs["cuda"][0], runs["torch"][0])):
+        if dtype == torch.float32 or t == 0:
+            _agree(zk, zp)
+        else:        # z~ rounds to bf16 for the loss: a 1e-8 gap can flip
+            torch.testing.assert_close(zk, zp, rtol=4e-2, atol=4e-2)
+    assert all(x.dtype == dtype for x in tree_leaves(runs["cuda"][2]))

@@ -61,6 +61,29 @@ def test_chaos_run_matches_reference(monkeypatch, plan, discipline):
     assert t.metrics["version_resets"] == t.metrics["rejoins"]
 
 
+def test_tree_chaos_run_matches_reference_and_replays(monkeypatch):
+    """A pytree session under the chaos plan, per-push discipline
+    (tests/test_ps_chaos.py:102)."""
+    ref, port = pairs.sessions("random", edge=None, centers=CENTERS,
+                               num_blocks=M8, tree=True)
+    pairs.inject_selection(monkeypatch, ref)
+    (rb, tb), (rt, tt) = pairs.batches(CENTERS), pairs.timings("constant")
+    r = ref.run_ps(ROUNDS, discipline="per_push", timing=rt,
+                   faults=_plan(rps), batches=rb)
+    t = port.run_ps(ROUNDS, discipline="per_push", timing=tt,
+                    faults=_plan(tps), batches=tb)
+    pairs.assert_same_schedule(r, t)
+    pairs.assert_same_z(r, t)
+    assert t.metrics["crashes"] >= 1
+    monkeypatch.undo()
+    own = port.run_ps(ROUNDS, discipline="per_push", timing=tt,
+                      faults=_plan(tps), batches=tb)
+    _, replay = pairs.sessions("random", edge=None, centers=CENTERS,
+                               num_blocks=M8, tree=True,
+                               delay_models=(None, own.to_delay_model()))
+    pairs.assert_replays(own, replay, batch=tb(0))
+
+
 def test_chaos_trace_replays_and_roundtrips(tmp_path):
     _, port = pairs.sessions("random", edge=None, centers=CENTERS,
                              num_blocks=M8)

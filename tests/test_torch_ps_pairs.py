@@ -11,7 +11,12 @@ draw-free configs (cyclic selection over a full edge set,
 Gauss-Southwell) need neither. Everything else — service-time draws,
 fault timelines, transport decisions — is numpy on both sides and must
 come out identical.
+
+``sessions(tree=True)`` builds pytree sessions instead: one leaf
+``w{j}`` per block, pinned to block j, the same quadratic loss over
+their concatenation; their runs take the centers from ``batches``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -20,9 +25,12 @@ from torch.utils import _pytree as pytree
 from repro import api as rapi
 from repro import ps as rps
 from repro.configs.base import ADMMConfig as RConfig
+from repro.core.blocks import TreeBlocks as RTreeBlocks
 from repro_torch import api as tapi
 from repro_torch import ps as tps
 from repro_torch.configs.base import ADMMConfig as TConfig
+from repro_torch.core import tree as ttree
+from repro_torch.core.blocks import TreeBlocks
 
 N, M, DBLK = 3, 4, 5
 DIM = M * DBLK
@@ -46,10 +54,41 @@ def cfg_kw(selection="random", max_delay=2, num_blocks=M, **kw):
                 l1_coef=1e-3, clip=0.8, seed=0, **kw)
 
 
+def _tree_sessions(r_loss, t_loss, c, ckw, extra, delay_models):
+    """Pytree sessions of leaves w0..w{M-1}, leaf j pinned to block j."""
+    M_ = ckw["num_blocks"]
+    dblk = c.shape[1] // M_
+    rparams = {f"w{j}": jnp.zeros(dblk, jnp.float32) for j in range(M_)}
+    tparams = {f"w{j}": torch.zeros(dblk) for j in range(M_)}
+    ids = tuple(range(M_))
+    rb = RTreeBlocks(num_blocks=M_, leaf_block_ids=ids,
+                     treedef=jax.tree.structure(rparams))
+    tb = TreeBlocks(num_blocks=M_, leaf_block_ids=ids,
+                    treedef=ttree.tree_structure(tparams))
+    ref = rapi.ConsensusSession.pytree(
+        lambda p, cc: r_loss(jnp.concatenate(
+            [p[f"w{j}"] for j in range(M_)]), cc),
+        rparams, RConfig(**ckw), num_workers=c.shape[0], blocks=rb,
+        delay_model=delay_models[0], **extra)
+    port = tapi.ConsensusSession.pytree(
+        lambda p, cc: t_loss(torch.cat([p[f"w{j}"] for j in range(M_)]), cc),
+        tparams, TConfig(**ckw), num_workers=c.shape[0], blocks=tb,
+        delay_model=delay_models[1], device="cpu", **extra)
+    return ref, port
+
+
+def batches(centers=None):
+    """(reference, port) ``batches`` callables of a tree run."""
+    c = CENTERS if centers is None else centers
+    rc, tc = jnp.asarray(c), torch.as_tensor(c)
+    return (lambda t: rc), (lambda t: tc)
+
+
 def sessions(selection="random", *, edge=EDGE, logreg=False, centers=None,
-             delay_models=(None, None), **kw):
+             delay_models=(None, None), tree=False, **kw):
     """(reference session, port session) on the CPU: the quadratic loss
-    around ``centers`` (or the logistic loss on ``LOGREG``)."""
+    around ``centers`` (or the logistic loss on ``LOGREG``); pytree
+    sessions of the quadratic loss with ``tree=True``."""
     c = CENTERS if centers is None else centers
     dim = LOGREG[0].shape[2] if logreg else c.shape[1]
     ckw = cfg_kw(selection, **kw)
@@ -64,6 +103,8 @@ def sessions(selection="random", *, edge=EDGE, logreg=False, centers=None,
         r_loss = lambda z, cc: 0.5 * jnp.sum(jnp.square(z - cc))
         t_loss = lambda z, cc: 0.5 * torch.sum(torch.square(z - cc))
         r_data, t_data = jnp.asarray(c), torch.as_tensor(c)
+    if tree:
+        return _tree_sessions(r_loss, t_loss, c, ckw, extra, delay_models)
     ref = rapi.ConsensusSession.flat(r_loss, r_data, dim=dim,
                                      cfg=RConfig(**ckw),
                                      delay_model=delay_models[0], **extra)
@@ -137,20 +178,29 @@ def assert_same_schedule(ref_res, port_res):
     assert port_res.metrics == ref_res.metrics
 
 
+def vec(z) -> np.ndarray:
+    """A flat z, or a tree's leaves in sorted-key order, as one vector."""
+    if isinstance(z, dict):
+        return np.concatenate([np.asarray(z[k]).ravel() for k in sorted(z)])
+    return np.asarray(z)
+
+
 def assert_same_z(ref_res, port_res):
     assert len(port_res.z_versions) == len(ref_res.z_versions)
     for v, (a, b) in enumerate(zip(ref_res.z_versions, port_res.z_versions)):
-        np.testing.assert_allclose(b.numpy(), np.asarray(a),
-                                   err_msg=f"version {v}", **TOL)
+        assert isinstance(b, dict) == isinstance(a, dict)
+        np.testing.assert_allclose(vec(b), vec(a), err_msg=f"version {v}",
+                                   **TOL)
     if ref_res.losses is not None:
         np.testing.assert_allclose(port_res.losses, ref_res.losses, **TOL)
 
 
-def assert_replays(res, sess, to_numpy=lambda z: z.numpy()):
-    """``res``'s trace through ``sess``'s epoch gives ``res``'s z."""
+def assert_replays(res, sess, to_numpy=vec, batch=None):
+    """``res``'s trace through ``sess``'s epoch (on ``batch``, a tree
+    session's data) gives ``res``'s z."""
     state = sess.init()
     for t in range(res.num_rounds):
-        state, _ = sess.step(state)
+        state, _ = sess.step(state, batch)
         np.testing.assert_allclose(
             to_numpy(sess.z(state)), to_numpy(res.z_versions[t + 1]),
             err_msg=f"replay diverged at round {t}", **TOL)

@@ -9,7 +9,7 @@ the reference's, on the CPU.
 (b) snapshots interchange: one written by the reference resumes in the
     port, one written by the port resumes in the reference, and each
     finishes within TOL of the other package's uninterrupted run with
-    delays, fold logs and makespan equal;
+    delays, fold logs and makespan equal; for pytree sessions too;
 (c) the rest of ``tests/test_ps_recovery.py``, port only: zero lost
     folds, bitwise z at bound 0, trace replay, determinism, timing-only
     runs, merged outages, the WAL's dedup and sequencing, resume parity
@@ -141,6 +141,30 @@ def test_port_snapshot_resumes_in_reference(monkeypatch, tmp_path, pick):
     rt_res = rts["ref"]()
     res = rt_res.run(ROUNDS, resume_from=snaps[pick])
     _assert_cross_resume(rt_full, full, rt_res, res, full_is_port=True)
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_tree_snapshot_resumes_in_the_other_package(monkeypatch, tmp_path,
+                                                    writer):
+    """A pytree session's snapshot, written by either package, resumes
+    in the other and finishes as the writer's uninterrupted run."""
+    ref, port = pairs.sessions("random", tree=True)
+    pairs.inject_selection(monkeypatch, ref)
+    rb, tb = pairs.batches()
+    rts = {"ref": (lambda: rps.PSRuntime(ref.spec, batches=rb,
+                                         timing=_timing(rps)), ref.z0),
+           "port": (lambda: tps.PSRuntime(port.spec, batches=tb,
+                                          timing=_timing(tps)), port.z0)}
+    make, z0 = rts[writer]
+    rt_full = make()
+    full = rt_full.run(ROUNDS, z0=z0, checkpoint_every=2,
+                       checkpoint_dir=str(tmp_path / writer))
+    make, z0 = rts["port" if writer == "ref" else "ref"]
+    rt_res = make()
+    res = rt_res.run(ROUNDS, z0=z0, resume_from=full.metrics["snapshots"][1])
+    assert isinstance(res.z_final, dict)
+    _assert_cross_resume(rt_full, full, rt_res, res,
+                         full_is_port=writer == "port")
 
 
 def test_snapshot_files_match_reference(monkeypatch, tmp_path):

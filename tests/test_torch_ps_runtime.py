@@ -12,7 +12,11 @@
 (e) a committed version never changes after later rounds (torch
     tensors are mutable where the reference's arrays were not);
 (f) the durability knobs and ``server_crash`` faults work (the layer's
-    parity with the reference is in ``test_torch_ps_recovery.py``).
+    parity with the reference is in ``test_torch_ps_recovery.py``);
+(g) a pytree session (tests/test_ps_runtime.py:120): the reference's
+    schedule and z, params trees for ``z_final`` / ``z_versions``, and the
+    port's own trace replayed through the port's tree epoch, in both
+    disciplines.
 
 Random selections and minibatches come from the reference's engine
 (``test_torch_ps_pairs.inject_*``); the rest of each run is numpy on both
@@ -63,6 +67,26 @@ def test_minibatch_matches_reference(monkeypatch):
     t = port.run_ps(ROUNDS, timing=tt)
     pairs.assert_same_schedule(r, t)
     pairs.assert_same_z(r, t)
+
+
+@pytest.mark.parametrize("discipline", ["lockfree", "locked"])
+def test_tree_session_matches_reference_and_replays(monkeypatch, discipline):
+    ref, port = pairs.sessions("random", tree=True)
+    pairs.inject_selection(monkeypatch, ref)
+    (rb, tb), (rt, tt) = pairs.batches(), pairs.timings("pareto")
+    r = ref.run_ps(ROUNDS, discipline=discipline, timing=rt, batches=rb)
+    t = port.run_ps(ROUNDS, discipline=discipline, timing=tt, batches=tb)
+    pairs.assert_same_schedule(r, t)
+    pairs.assert_same_z(r, t)
+    assert isinstance(t.z_final, dict) and sorted(t.z_final) == \
+        [f"w{j}" for j in range(pairs.M)]
+    assert all(torch.equal(t.z_final[k], t.z_versions[-1][k])
+               for k in t.z_final)
+    monkeypatch.undo()                       # the port's own selection
+    own = port.run_ps(ROUNDS, discipline=discipline, timing=tt, batches=tb)
+    _, replay = pairs.sessions("random", tree=True,
+                               delay_models=(None, own.to_delay_model()))
+    pairs.assert_replays(own, replay, batch=tb(0))
 
 
 # ---------------------------------------------------------------------------

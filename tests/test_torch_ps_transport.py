@@ -63,6 +63,24 @@ def test_lossy_run_matches_reference_and_replays(monkeypatch):
     pairs.assert_replays(own, replay)
 
 
+def test_tree_lossy_run_matches_reference_and_replays(monkeypatch):
+    """A pytree session under the lossy transport
+    (tests/test_ps_transport.py:124)."""
+    ref, port = pairs.sessions("random", tree=True)
+    pairs.inject_selection(monkeypatch, ref)
+    (rb, tb), (rt, tt) = pairs.batches(), pairs.timings("pareto")
+    r = ref.run_ps(ROUNDS, timing=rt, transport=_lossy(rps), batches=rb)
+    t = port.run_ps(ROUNDS, timing=tt, transport=_lossy(tps), batches=tb)
+    pairs.assert_same_schedule(r, t)
+    pairs.assert_same_z(r, t)
+    assert t.metrics["transport"]["drops"] > 0
+    monkeypatch.undo()
+    own = port.run_ps(ROUNDS, timing=tt, transport=_lossy(tps), batches=tb)
+    _, replay = pairs.sessions("random", tree=True,
+                               delay_models=(None, own.to_delay_model()))
+    pairs.assert_replays(own, replay, batch=tb(0))
+
+
 @pytest.mark.parametrize("plan", [
     lambda ps: ps.FaultPlan.of(ps.FaultPlan.link_loss(1.0, 4.0, 0.5)),
     lambda ps: ps.FaultPlan.of(ps.FaultPlan.link_loss(0.5, 5.0, 0.4),

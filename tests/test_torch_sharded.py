@@ -19,6 +19,12 @@ tests/test_spmd_parity.py. They also check the local tile shapes and data
 rows, the mesh's divisibility errors, group layout and preset cache, a sharded run continued
 from the reference's state (``state_from_numpy``), and the session's
 measures on the sharded state against the single-device ones.
+
+Pytree sessions run on the same ranks (``TREE_CASES``, one leaf per
+block as in tests/test_spmd_parity.py:98): the model axis splits the
+packed table's rows, never its lanes, and the sharded tree trajectory is
+held against the reference's single-device ``ConsensusSession.pytree``
+(injected draws) and the port's own single-device tree epoch.
 """
 import pickle
 import time
@@ -33,6 +39,7 @@ import torch_sharded_ranks as ranks
 from repro import api as rapi
 from repro.configs.base import ADMMConfig as RConfig
 from repro.core import space as rspace
+from repro.core.blocks import TreeBlocks
 
 WORLD = 8                                   # data=4 x model=2
 JOIN_TIMEOUT_S = 240
@@ -62,6 +69,13 @@ CASES = {
     "gauss_southwell": ("gauss_southwell", ("uniform", 1), "four"),
     "split_grads": ("random", ("uniform", 1), "eight"),
     "pareto": ("random", ("pareto", 3, 1.2), "pareto"),
+}
+
+
+# pytree sessions: name -> (selector, delay model, workers' data)
+TREE_CASES = {
+    "tree_random": ("random", ("uniform", 1), "four"),
+    "tree_split_grads": ("random", ("uniform", 1), "eight"),
 }
 
 
@@ -113,6 +127,13 @@ def _scenarios():
         delays, sels = _reference_draws(scheme, dm, edge)
         out[f"{name}/injected"] = dict(base, delays=delays, sels=sels)
         out[f"{name}/own"] = dict(base, delay_model=dm)
+    for name, (scheme, dm, which) in TREE_CASES.items():
+        centers, edge, rho_scale, max_delay = _problem(which)
+        base = dict(centers=centers, edge=edge, rho_scale=rho_scale, dim=DIM,
+                    cfg=_cfg(scheme, max_delay), epochs=EPOCHS, tree=True)
+        delays, sels = _reference_draws(scheme, dm, edge)
+        out[f"{name}/injected"] = dict(base, delays=delays, sels=sels)
+        out[f"{name}/own"] = dict(base, delay_model=dm)
     # the reference's state after RESUME_AT epochs, for state_from_numpy
     key = "split_grads/injected"
     out[key]["resume"] = _reference_run(out[key], epochs=RESUME_AT)["state"]
@@ -149,11 +170,41 @@ def _jax_quad(z, c):
     return 0.5 * jnp.sum(jnp.square(z - c))
 
 
+def _reference_tree_run(sc, sel):
+    """The JAX reference's single-device pytree run of an injected tree
+    scenario: z after each epoch, leaves concatenated in block order."""
+    M_ = sc["cfg"]["num_blocks"]
+    params = {f"w{j}": jnp.zeros(DIM // M_, jnp.float32) for j in range(M_)}
+    blocks = TreeBlocks(num_blocks=M_, leaf_block_ids=tuple(range(M_)),
+                        treedef=jax.tree.structure(params))
+    sess = rapi.ConsensusSession.pytree(
+        lambda p, c: _jax_quad(jnp.concatenate(
+            [p[f"w{j}"] for j in range(M_)]), c),
+        params, RConfig(**sc["cfg"]), num_workers=sc["centers"].shape[0],
+        blocks=blocks, edge=sc["edge"], rho_scale=sc["rho_scale"],
+        delay_model=rspace.TraceDelay(sc["delays"]), selector=sel)
+    step = sess.step_fn()
+    state = sess.init()
+    batch = jnp.asarray(sc["centers"])
+    zs, losses, fracs = [], [], []
+    for _ in range(sc["epochs"]):
+        state, info = step(state, batch)
+        z = sess.z(state)
+        zs.append(np.concatenate([np.asarray(z[f"w{j}"])
+                                  for j in range(M_)]))
+        losses.append(float(info["loss"]))
+        fracs.append(float(info["selected_fraction"]))
+    return {"z": np.stack(zs), "loss": np.array(losses),
+            "selected_fraction": np.array(fracs)}
+
+
 def _reference_run(sc, epochs=EPOCHS):
     """The JAX reference's single-device run of an injected scenario."""
     sels = None if sc["sels"] is None else jnp.asarray(sc["sels"])
     sel = sc["cfg"]["block_selection"] if sels is None else (
         lambda ctx: sels[ctx.t] & ctx.edge)
+    if sc.get("tree"):
+        return _reference_tree_run(sc, sel)
     sess = rapi.ConsensusSession.flat(
         _jax_quad, jnp.asarray(sc["centers"]), dim=DIM,
         cfg=RConfig(**sc["cfg"]), edge=sc["edge"],
@@ -210,6 +261,30 @@ def test_sharded_matches_port_single_device(sharded, case):
     key = f"{case}/own"
     _assert_trajectory(_every_rank(results, key),
                        ranks.run_scenario(scenarios[key]))
+
+
+@pytest.mark.parametrize("case", list(TREE_CASES))
+def test_tree_sharded_matches_jax_reference(sharded, case):
+    scenarios, results = sharded
+    key = f"{case}/injected"
+    _assert_trajectory(_every_rank(results, key),
+                       _reference_run(scenarios[key]))
+
+
+@pytest.mark.parametrize("case", list(TREE_CASES))
+def test_tree_sharded_matches_port_single_device(sharded, case):
+    """Also: each rank holds (N/4, M/2, 128) worker tiles of the packed
+    table, full lane-aligned rows (tests/test_block_layout.py's sharded
+    divisibility case)."""
+    scenarios, results = sharded
+    key = f"{case}/own"
+    _assert_trajectory(_every_rank(results, key),
+                       ranks.run_scenario(scenarios[key]))
+    local = scenarios[key]["centers"].shape[0] // 4
+    for r in results:
+        assert r[key]["shapes"]["y"] == (local, M // 2, LANE)
+        assert r[key]["shapes"]["z_hist"] == (2, M // 2, LANE)
+        assert "x" not in r[key]["shapes"]
 
 
 def test_sharded_run_continues_a_reference_state(sharded):

@@ -2,7 +2,9 @@
 
 ``run_rank`` is one process of a gloo process group on the CPU: it
 builds the (data=4, model=2) test mesh, runs every scenario it is given
-through ``ConsensusSession.flat(..., mesh=mesh)``, checks the mesh
+through ``ConsensusSession.flat(..., mesh=mesh)`` (a scenario marked
+``tree`` through ``ConsensusSession.pytree``: one leaf per block, its
+centers the batch), checks the mesh
 errors and the groups of a (pod, data, model) mesh, and pickles what it
 saw to ``out_dir/rank<r>.pkl``. It imports
 torch and the port only, so the spawned ranks never load JAX; scenarios
@@ -19,7 +21,9 @@ import torch.distributed as dist
 from repro_torch.api import ConsensusSession
 from repro_torch.configs.base import ADMMConfig
 from repro_torch.core import space
+from repro_torch.core.blocks import TreeBlocks
 from repro_torch.core.sharded import grad_split_size
+from repro_torch.core.tree import tree_structure
 from repro_torch.launch.mesh import make_mesh, make_test_mesh, resolve_mesh
 
 PG_TIMEOUT_S = 60
@@ -47,7 +51,32 @@ def selector(sc):
     return lambda ctx: sels[ctx.t] & ctx.edge
 
 
+def tree_params(sc):
+    """Leaves w0..w{M-1}, one per block, and the blocks pinning leaf j
+    to block j."""
+    M = sc["cfg"]["num_blocks"]
+    params = {f"w{j}": torch.zeros(sc["dim"] // M) for j in range(M)}
+    return params, TreeBlocks(num_blocks=M, leaf_block_ids=tuple(range(M)),
+                              treedef=tree_structure(params))
+
+
+def tree_loss(p, c):
+    return quad_loss(torch.cat([p[f"w{j}"] for j in range(len(p))]), c)
+
+
+def tree_vec(z):
+    return torch.cat([z[f"w{j}"] for j in range(len(z))]).numpy().copy()
+
+
 def session(sc, mesh=None):
+    if sc.get("tree"):
+        params, blocks = tree_params(sc)
+        return ConsensusSession.pytree(
+            tree_loss, params, ADMMConfig(**sc["cfg"]),
+            num_workers=sc["centers"].shape[0], blocks=blocks,
+            edge=sc["edge"], rho_scale=sc.get("rho_scale"),
+            delay_model=delay_model(sc), selector=selector(sc), mesh=mesh,
+            device="cpu")
     return ConsensusSession.flat(
         quad_loss, sc["centers"], dim=sc["dim"], cfg=ADMMConfig(**sc["cfg"]),
         edge=sc["edge"], rho_scale=sc.get("rho_scale"),
@@ -69,18 +98,23 @@ def run_scenario(sc, mesh=None):
     """Drive ``sc`` for its epochs; the z after each epoch, the infos,
     the local tile shapes and (when asked) the measures."""
     sess = session(sc, mesh)
+    tree = bool(sc.get("tree"))
+    batch = torch.as_tensor(sc["centers"]) if tree else None
+    to_numpy = tree_vec if tree else (lambda z: z.numpy().copy())
     state = sess.init()
     zs, losses, fracs = [], [], []
     for _ in range(sc["epochs"]):
-        state, info = sess.step(state)
-        zs.append(sess.z(state).numpy().copy())
+        state, info = sess.step(state, batch)
+        zs.append(to_numpy(sess.z(state)))
         losses.append(float(info["loss"]))
         fracs.append(float(info["selected_fraction"]))
     out = {"z": np.stack(zs), "loss": np.array(losses),
            "selected_fraction": np.array(fracs),
            "shapes": {k: tuple(getattr(state, k).shape)
-                      for k in ("z_hist", "y", "w_cache", "x")},
-           "data": sess.data.numpy().copy()}
+                      for k in ("z_hist", "y", "w_cache", "x")
+                      if getattr(state, k) is not None}}
+    if not tree:
+        out["data"] = sess.data.numpy().copy()
     if mesh is not None:
         out["grad_split_size"] = grad_split_size(sess.spec)
     if sc.get("measures"):
