@@ -121,6 +121,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    qwen3-1.7b smoke config's stacked tree: B1 once per worker compute
    and B2 once per block commit, z trees at every version, the trace
    replayed through the tree epoch on the kernels with z bitwise equal;
+   train   — ``ADMMTrainer`` on the same stacked tree (6 layers, N = 2,
+   M = 2 by LPT, launch/train.py's defaults: rho 20, gamma 0.01, D 1,
+   block fraction 1) training ``Model.loss`` on ``TokenPipeline``
+   batches of 2 x 512 tokens a worker: 5 steps on the kernels, then 5 on
+   the plain backend from the same state. Gates: step 0's loss equals
+   ``Model.loss`` at z0 (1e-6 relative); z of the two backends after
+   every step within KERNEL_TOL; losses and z finite, pads exactly 0;
+   B1 and B2 once a step, and held on one more step's inputs; the
+   trained z served as a ``ParamTree`` of views (``params_from_stacked``)
+   gives the stacked forward's last logits within 1e-5 of their max.
+   Prints step ms, tokens/s, peaks read step by step (the checks
+   excluded) beside a reckoning, the step's parts each timed alone (the
+   loss's forward and backward, the pack of g, gather and push) with
+   B1's and B2's device ms from the profiler. Line ``train_sgd``:
+   ``SGDTrainer`` + AdamW on all 28 layers, 3 steps of 4 x 512 tokens,
+   step 0's loss equal to ``Model.loss``, params finite, no kernel. Line
+   ``train_entry_points``: launch/train.py at its smoke defaults (admm
+   and sgd, 6 steps; ``--runtime ps``, 3 rounds) and the training
+   example with ``--quick``: B1 and B2 once per ADMM step (per worker
+   compute and per block commit under ps), every loss finite;
 8. serve   — the dense model stack at qwen3-1.7b's full width (28
    layers, d_model 2048, 16 / 8 heads of 128, vocab 151,936, fp32,
    random weights from a seed): ``Model.prefill`` of 4 x 4096 tokens on
@@ -180,6 +200,7 @@ import copy
 import datetime
 import gc
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -491,9 +512,12 @@ def worker_bytes_flops(case):
     rows = N * M
     sel_rows = int(sel.sum())
     per_row = d * 4
-    kept = 3 if x_old is not None else 2        # y, w_old[, x_old] read
-    bytes_ = (kept * rows + 2 * sel_rows) * per_row   # + g, z~ on selected
-    bytes_ += kept * rows * per_row                    # outputs written
+    # y read on every row; w_old[, x_old] only where a row is not
+    # selected (a selected row's outputs do not depend on them), g and z~
+    # only where it is; y', w'[, x'] written on every row
+    kept = 2 if x_old is not None else 1
+    bytes_ = (rows + kept * (rows - sel_rows) + 2 * sel_rows) * per_row
+    bytes_ += (kept + 1) * rows * per_row
     bytes_ += sel.numel() + rho.numel() * 4
     return bytes_, 5 * sel_rows * d
 
@@ -1775,6 +1799,9 @@ def phase_ps(bw: float, errs):
     rows = None
     peaks = {}
     for disc in PS_DISCIPLINES:
+        # earlier phases' reference cycles may still hold device tensors
+        # until the collector runs; collect them so the peak is this run's
+        gc.collect()
         reset_peak()
         ops.reset_launch_counts()
         # the first run's first worker compute and commit are kept
@@ -2405,6 +2432,361 @@ def spmd_tree() -> dict:
          epoch_ms_median=statistics.median(times[1:]),
          z_max_abs_diff_vs_single=diff, z_max_abs=scale, card=smi_line())
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase train: the trainers at qwen3-1.7b width
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 6               # the pytree phase's cut
+TRAIN_WORKERS, TRAIN_BLOCKS = 2, 2
+TRAIN_STEPS = 5
+TRAIN_BATCH, TRAIN_SEQ = 2, 512          # per worker: 2 x 512 tokens
+TRAIN_PROFILE_STEPS = 2
+SGD_BATCH, SGD_STEPS = 4, 3              # AdamW, all 28 layers
+SERVE_LOGIT_TOL = 1e-5         # the served tree vs the stacked forward
+LOSS_TOL = 1e-6                # step 0's loss vs Model.loss, relative
+
+
+def train_config(**kw):
+    """launch/train.py's ADMM defaults (rho 20, gamma 0.01, D 1, block
+    fraction 1, random selection) at M = TRAIN_BLOCKS."""
+    from repro_torch.configs.base import ADMMConfig
+    return ADMMConfig(rho=20.0, gamma=0.01, max_delay=1, block_fraction=1.0,
+                      num_blocks=TRAIN_BLOCKS, seed=0, **kw)
+
+
+def direct_loss(model, params, batch, workers=None) -> float:
+    """``Model.loss`` at ``params``, computed on its own (the mean over
+    workers of each worker's batch when ``workers`` is given)."""
+    with torch.no_grad():
+        if workers is None:
+            return float(model.loss(params, batch))
+        return float(torch.stack([
+            model.loss(params, {k: v[i] for k, v in batch.items()})
+            for i in range(workers)]).mean())
+
+
+def same_loss(path: str, got: float, want: float) -> float:
+    rel = abs(got - want) / abs(want)
+    if not rel <= LOSS_TOL:
+        fail(f"{path}: step 0's loss {got!r} differs from Model.loss "
+             f"{want!r} by {rel:.3e} relative")
+    return rel
+
+
+def train_parts(model, spec, packed, batch) -> dict:
+    """ms of each part of one ADMM train step, each timed alone on the
+    step's inputs: the gather of z~ and the push of z, the loss's forward
+    (no autograd) and its backward (``worker_grads`` less the forward and
+    the pack of g), the pack of g into the table (the unpack of z~ is
+    views)."""
+    from repro_torch.core.tree import tree_unflatten
+    space, layout = spec.space, spec.space.layout
+    N, M = spec.edge.shape
+    delays = torch.ones((N, M), dtype=torch.int64, device="cuda")
+    z_tilde = space.gather(packed.z_hist, delays)
+    gather = time_ms(lambda: space.gather(packed.z_hist, delays), 5, 3)
+    push = time_ms(lambda: space.push(packed.z_hist, packed.z_hist[0]), 5,
+                   3)
+    leaves = layout.unpack_leaves(z_tilde)
+    forward = torch.func.vmap(model.loss)
+    with torch.no_grad():
+        fwd = time_ms(lambda: forward(
+            tree_unflatten(layout.tree.treedef, leaves), batch), 3, 3, 1)
+    grads = time_ms(lambda: space.worker_grads(model.loss, z_tilde, batch),
+                    2, 3, 1)
+    _, g = space.worker_grads(model.loss, z_tilde, batch)
+    g_leaves = layout.unpack_leaves(g)
+    pack = time_ms(lambda: layout.pack_leaves(g_leaves), 5, 3)
+    return {"loss_forward": fwd, "loss_backward": grads - fwd - pack,
+            "pack_and_unpack": pack, "gather_and_push": gather + push}
+
+
+def phase_train(bw: float, errs):
+    """``ADMMTrainer`` on qwen3-1.7b's stacked tree at full width, cut to
+    TRAIN_LAYERS layers (f32, seed 0), N = 2, M = 2 by LPT, launch/train.py's
+    defaults, ``TokenPipeline`` batches of 2 x 512 tokens a worker: 5
+    steps on the kernels, then 5 on the plain backend from the same
+    state. Gates: step 0's loss is ``Model.loss`` at z0; z of the two
+    backends agree every step by the kernels' rule; losses and z finite,
+    pads 0; B1 and B2 once a step; one more step's B1 and B2 held on
+    their inputs; the trained z served as a ``ParamTree`` gives the
+    stacked forward's last logits. Then ``SGDTrainer`` with AdamW on all
+    28 layers, 3 steps of 4 x 512 tokens: step 0's loss is
+    ``Model.loss``, params finite. Prints step ms, tokens/s, peaks,
+    a device split of the ADMM step and B1's and B2's device ms."""
+    import dataclasses
+    from repro_torch.configs import qwen3_1p7b
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, params_from_stacked
+    from repro_torch.models import transformer
+    from repro_torch.models.weights import stacked_params
+    from repro_torch.training import ADMMTrainer
+
+    N, M = TRAIN_WORKERS, TRAIN_BLOCKS
+    model_cfg = dataclasses.replace(qwen3_1p7b.config(),
+                                    num_layers=TRAIN_LAYERS)
+    model = build_model(model_cfg)
+    params = stacked_params(model_cfg, 0, "cuda")
+    pipe = TokenPipeline(vocab_size=model_cfg.vocab_size,
+                         seq_len=TRAIN_SEQ + 1,
+                         global_batch=N * TRAIN_BATCH, seed=0)
+    batches = [pipe.batch(t, num_workers=N, device="cuda")
+               for t in range(TRAIN_STEPS + 1)]
+    tokens = N * TRAIN_BATCH * TRAIN_SEQ
+    P = sum(int(t.numel()) for t in tree_leaves(params))
+
+    def trainer(backend):
+        return ADMMTrainer(loss_fn=model.loss,
+                           admm=train_config(backend=backend),
+                           num_workers=N, device="cuda")
+
+    def run(tr, on_step):
+        # the peak is the trainer's: read after each step, the checks
+        # after it excluded (the peak reset after them)
+        gc.collect()
+        reset_peak()
+        ops.reset_launch_counts()
+        state = tr.init(params)
+        torch.cuda.synchronize()
+        times, losses, peaks = [], [], []
+        for t in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, info = tr.train_step(state, batches[t])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            peaks.append(torch.cuda.max_memory_allocated())
+            losses.append(float(info["loss"]))
+            packed = tr._packed(tr._spec(state.params), state)
+            if not pads_zero(layout, packed.z_hist, packed.y,
+                             packed.w_cache):
+                fail(f"train {tr.admm.backend}: a pad lane is not 0 after "
+                     f"step {t}")
+            if not math.isfinite(losses[-1]) or not bool(
+                    torch.isfinite(packed.z_hist[0]).all()):
+                fail(f"train {tr.admm.backend}: loss or z not finite at "
+                     f"step {t}")
+            on_step(t, packed)
+            del packed
+            torch.cuda.reset_peak_memory_stats()
+        return state, times, losses, ops.launch_counts(), peaks
+
+    kern = trainer("auto")
+    spec = kern._spec(params)
+    layout = spec.space.layout
+    if spec.space.backend != "cuda":
+        fail(f"train: 'auto' resolved to {spec.space.backend!r} on the card")
+    if layout.block_sizes != TREE_BLOCK_SIZES:
+        fail(f"train: LPT gave blocks {layout.block_sizes}; the "
+             f"reference's are {TREE_BLOCK_SIZES}")
+    T = M * layout.block_dim
+    loss0 = direct_loss(model, params, batches[0], N)
+    z_host = []
+    state, times, losses, launches, peaks = run(
+        kern, lambda t, packed: z_host.append(packed.z_hist[0].cpu()))
+    expect_launches("train", launches, TRAIN_STEPS, MAIN_KERNELS)
+    loss_rel = same_loss("train", losses[0], loss0)
+    step_ms = statistics.median(times[1:])
+
+    # the trained z served: a ParamTree of views, its last logits against
+    # the stacked forward's on one worker's tokens
+    tok = batches[0]["tokens"][0]
+    served = params_from_stacked(model_cfg, state.params)
+    with torch.no_grad():
+        want = transformer.forward(state.params, tok, model_cfg,
+                                   logits_mode="last")[0]
+        got = model.prefill(served, tok, logits_mode="last")
+    serve_diff = float((got - want).abs().max())
+    serve_scale = float(want.abs().max())
+    if not serve_diff <= SERVE_LOGIT_TOL * serve_scale:
+        fail(f"train: the served tree's logits differ from the stacked "
+             f"forward's by {serve_diff:.3e} (max |logits| "
+             f"{serve_scale:.3e})")
+    del served, want, got
+
+    # the step profiled; then its parts timed alone (CUDA-event windows)
+    # on the next step's inputs, as asybadmm_epoch calls them: the model's
+    # own index, cat and copy kernels share names with the gather, push
+    # and pack, so the profile alone cannot split them
+    held = [state]
+    del state
+
+    def step():
+        held[0], _ = kern.train_step(held[0], batches[TRAIN_STEPS])
+
+    profile = profile_calls("train", step, step_ms, TRAIN_PROFILE_STEPS,
+                            expect={B1_NAME: 1, B2_NAME: 1})
+    split = train_parts(model, spec, kern._packed(spec, held[0]),
+                        batches[TRAIN_STEPS])
+    split.update(
+        B1=profile["kernels"][B1_NAME]["device_ms_per_launch"],
+        B2=profile["kernels"][B2_NAME]["device_ms_per_launch"],
+        idle=step_ms - profile["device_busy_ms_per_epoch"])
+    split["rest"] = step_ms - sum(split.values())
+    with capture_inputs(copy=False, names=MAIN_KERNELS, keep=1) as inputs:
+        step()
+    del held[0]
+    torch.cuda.empty_cache()
+    rows = check_on_path("train", inputs, MAIN_KERNELS, bw, errs)
+
+    diffs = []
+    plain = trainer("torch")
+    p_state, plain_times, plain_losses, plain_launches, plain_peaks = run(
+        plain, lambda t, packed: diffs.append(compare(
+            z_host[t].cuda(), packed.z_hist[0])))
+    if any(plain_launches.values()):
+        fail("train: the torch backend launched a kernel")
+    del p_state
+    z_host.clear()
+    errs["server_prox_update"] = max(errs["server_prox_update"], max(diffs))
+    del params, batches
+    torch.cuda.empty_cache()
+
+    kernels = {}
+    for name, frag in (("admm_worker_select_update", B1_NAME),
+                       ("server_prox_update", B2_NAME)):
+        r = rows[name]
+        dev_ms = profile["kernels"][frag]["device_ms_per_launch"]
+        kernels[name] = dict(
+            device_ms_per_launch=dev_ms, ms=r["ms"], plain_ms=r["plain_ms"],
+            bytes=r["bytes"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            bound_share=r["bound_ms"] / dev_ms,
+            max_abs_err=r["max_abs_err"])
+    emit("train", arch=SERVE_ARCH, layers=TRAIN_LAYERS, N=N, M=M, params=P,
+         block_sizes=list(layout.block_sizes), dblk=layout.block_dim,
+         table_entries=T, steps=TRAIN_STEPS,
+         tokens_per_step=tokens, launches=launches, losses=losses,
+         torch_losses=plain_losses, loss0_direct=loss0,
+         loss0_rel_diff=loss_rel, step_ms=times, step_ms_median=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3, torch_step_ms=plain_times,
+         torch_step_ms_median=statistics.median(plain_times[1:]),
+         torch_tokens_per_s=tokens / statistics.median(plain_times[1:])
+         * 1e3,
+         peak_bytes=max(peaks), torch_peak_bytes=max(plain_peaks),
+         peak_bytes_by_step=peaks, torch_peak_bytes_by_step=plain_peaks,
+         reckoned_peak_bytes=4 * (2 * T + 6 * N * T + N * P + P)
+         + 4 * N * (3 * TRAIN_BATCH * TRAIN_SEQ + model_cfg.d_model)
+         * model_cfg.vocab_size,
+         z_max_abs_diff_vs_torch=diffs, served_logits_max_abs_diff=serve_diff,
+         served_logits_max_abs=serve_scale, pads_zero=True,
+         device_ms_per_step=split, profile=profile, kernels=kernels,
+         card=smi_line())
+    phase_train_sgd()
+    return launches
+
+
+def phase_train_sgd() -> None:
+    """``SGDTrainer`` + AdamW (launch/train.py's warmup-cosine at lr
+    1e-3) on qwen3-1.7b in full, 28 layers, 3 steps of 4 x 512 tokens
+    of the same stream."""
+    from repro_torch.configs import qwen3_1p7b
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.weights import stacked_params
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.training import SGDTrainer
+
+    cfg = qwen3_1p7b.config()
+    model = build_model(cfg)
+    gc.collect()
+    reset_peak()
+    params = stacked_params(cfg, 0, "cuda")
+    P = sum(int(t.numel()) for t in tree_leaves(params))
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ + 1,
+                         global_batch=SGD_BATCH, seed=0)
+    batches = [pipe.batch(t, device="cuda") for t in range(SGD_STEPS)]
+    loss0 = direct_loss(model, params, batches[0])
+    tr = SGDTrainer(loss_fn=model.loss, optimizer=adamw(
+        warmup_cosine(1e-3, SGD_STEPS // 10, SGD_STEPS)))
+    state = tr.init(params)
+    del params
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for t in range(SGD_STEPS):
+        t0 = time.perf_counter()
+        state, info = tr.train_step(state, batches[t])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(info["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    expect_counts("train_sgd", launches, {})
+    loss_rel = same_loss("train_sgd", losses[0], loss0)
+    if not all(bool(torch.isfinite(x).all()) for x in
+               tree_leaves(state.params)) or not all(
+                   math.isfinite(x) for x in losses):
+        fail("train_sgd: params or losses not finite")
+    tokens = SGD_BATCH * TRAIN_SEQ
+    step_ms = statistics.median(times[1:])
+    emit("train_sgd", arch=cfg.name, layers=cfg.num_layers, params=P,
+         steps=SGD_STEPS, tokens_per_step=tokens, losses=losses,
+         loss0_direct=loss0, loss0_rel_diff=loss_rel, step_ms=times,
+         step_ms_median=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+         peak_bytes=peak, launches=launches, card=smi_line())
+    del state, batches
+    torch.cuda.empty_cache()
+
+
+def phase_train_entry_points() -> dict:
+    """launch/train.py at its smoke defaults, 6 steps of each trainer and
+    3 rounds of ``--runtime ps``, and the training example with
+    ``--quick``: B1 and B2 once per ADMM step (per worker compute and
+    block commit under ps), none for AdamW, every loss finite."""
+    import contextlib as _cl
+    import io
+    from repro_torch.examples import train_transformer_admm as example
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    out = {}
+
+    def run(name, fn, want):
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with _cl.redirect_stdout(buf):
+            losses = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()
+                 if x.startswith("{")]
+        flat = [v for x in (losses.values() if isinstance(losses, dict)
+                            else [losses]) for v in x]
+        if not flat or not all(math.isfinite(v) for v in flat):
+            fail(f"train_entry_points {name}: a loss is not finite")
+        expect_counts(f"train_entry_points {name}", launches, want(lines))
+        out[name] = dict(launches=launches, losses=losses, wall_s=wall)
+
+    steps, rounds, workers, blocks = 6, 3, 4, 8     # the launcher's
+    admm = ["--steps", str(steps), "--log-every", "1"]
+    run("admm", lambda: train.main(admm),
+        lambda lines: {k: steps for k in MAIN_KERNELS})
+    run("sgd", lambda: train.main(admm + ["--trainer", "sgd"]),
+        lambda lines: {})
+
+    def ps_counts(lines):
+        commits = lines[-1]["commits"]
+        if commits != blocks * rounds:
+            fail(f"train_entry_points ps: {commits} block commits in "
+                 f"{rounds} rounds")
+        return {"admm_worker_select_update": workers * rounds,
+                "server_prox_update": commits}
+    run("ps", lambda: train.main(["--steps", str(rounds), "--runtime", "ps",
+                                  "--log-every", "1"]), ps_counts)
+    quick = 30                                       # the example's --quick
+    run("example", lambda: example.main(["--quick"]),
+        lambda lines: {k: quick for k in MAIN_KERNELS})
+    emit("train_entry_points", **out, card=smi_line())
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def commit_on_path(case, rows) -> dict:
@@ -3249,6 +3631,8 @@ def main() -> int:
     phase_ps_durable(ps_peaks)
     phase_pytree(bw, errs)
     phase_ps_tree()
+    phase_train(bw, errs)
+    phase_train_entry_points()
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)

@@ -16,9 +16,10 @@
 //
 // Bound: memory bytes. About 5 flops per element against 32 bytes moved
 // (with x), far below the card's flops-per-byte balance. A call must read
-// y, w_old, x_old everywhere, g and z~ on selected rows only, and write
-// the three outputs: at most 8 fp32 bundles, 5.18 GB at N=8, M=64,
-// d=315,904 (the paper's KDDa width).
+// y everywhere, w_old and x_old on unselected rows only, g and z~ on
+// selected rows only, and write the three outputs: 6 fp32 bundles, 3.88
+// GB at N=8, M=64, d=315,904 (the paper's KDDa width), whatever the
+// share of selected rows (without x: 4 bundles and the selected rows).
 //
 // Design for that bound: a grid-stride loop over the N*M*d/4 float4s with
 // 64-bit indices (N*M*d passes 2^31 for more workers), 16-byte loads and

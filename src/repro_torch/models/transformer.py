@@ -2,16 +2,27 @@
 [attention + MLP] x L (qwen3, qwen1.5, chatglm3, and chameleon, whose
 image tokens share the vocabulary).
 
-Parameters are a tree of ``ParamTree`` modules that keeps the
-reference's names and (in, out) layouts: ``params["layers"][i]["attn"]
-["w_q"]`` is the reference's ``params["layers"]["attn"]["w_q"][i]``. The
-layer stack is an ``nn.ModuleList`` walked by a Python loop where the
-reference scans its stacked layers. The parameters do not require
-gradients: training is a later slice.
+Two parameter trees, one forward:
+
+* inference holds a tree of ``ParamTree`` modules that keeps the
+  reference's names and (in, out) layouts: ``params["layers"][i]["attn"]
+  ["w_q"]`` is the reference's ``params["layers"]["attn"]["w_q"][i]``,
+  the layer stack an ``nn.ModuleList``; its parameters do not require
+  gradients;
+* training differentiates the reference's own tree, a nested dict whose
+  ``layers`` leaves are stacked on a leading L axis
+  (``weights.stacked_params``). ``forward`` takes each stacked leaf
+  apart once with ``torch.unbind`` (its backward is one ``stack``;
+  indexing ``leaf[i]`` per layer would make each layer's backward
+  write a zeroed (L, ...) tensor) and walks the layers with the same
+  Python loop where the reference scans them. The pass writes nothing
+  in place and reads no value on the host, so it runs under
+  ``torch.func.grad`` and ``vmap``.
 
 The reference's other families (moe, ssm, hybrid, audio) and MLA raise
 ``NotImplementedError`` (ROADMAP Queue A item 11). ``remat`` changes
-nothing at inference.
+nothing at inference; on the stacked tree it raises: ``torch.func.grad``
+refuses the saved-tensor hooks that ``torch.utils.checkpoint`` needs.
 """
 from __future__ import annotations
 
@@ -108,8 +119,20 @@ def _dense_layer_fwd(lp, x, cfg, positions):
     return x + mlp(lp["mlp"], h, cfg.act)
 
 
+def unbind_layers(stacked: Dict[str, Any]):
+    """The per-layer trees of a stacked layer tree, each leaf taken apart
+    once along its leading L axis (views of the stacked leaves)."""
+    parts = {name: unbind_layers(value) if isinstance(value, dict)
+             else torch.unbind(value, 0) for name, value in stacked.items()}
+    num_layers = len(next(iter(parts.values())))
+    return [{name: layers[i] for name, layers in parts.items()}
+            for i in range(num_layers)]
+
+
 def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
-    """tokens: (B, S) integers -> (logits (B, S, V), aux).
+    """tokens: (B, S) integers -> (logits (B, S, V), aux), on a
+    ``ParamTree`` or on the stacked tree (``params["layers"]`` a dict of
+    (L, ...) leaves).
 
     logits_mode="last": project only the final position (serving prefill
     needs one next-token distribution, not S of them). ``aux`` is the
@@ -118,10 +141,19 @@ def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
     if enc_frames is not None:
         raise NotImplementedError(
             f"enc_frames belong to the enc-dec family ({NOT_PORTED})")
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        if cfg.remat:
+            raise NotImplementedError(
+                f"{cfg.name}: remat=True (activation checkpointing) is not "
+                f"supported on the stacked tree: torch.func.grad refuses "
+                f"the saved-tensor hooks torch.utils.checkpoint needs; set "
+                f"remat=False")
+        layers = unbind_layers(layers)
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for lp in params["layers"]:
+    for lp in layers:
         x = _dense_layer_fwd(lp, x, cfg, positions)
     if logits_mode == "last":
         x = x[:, -1:]

@@ -1,12 +1,19 @@
 """The reference's parameter layout, both ways.
 
-``params_from_numpy`` fills the port's parameter tree (``ParamTree``,
-one module per layer) from the reference's param pytree as numpy arrays
-(``layers`` stacked on a leading L axis), so that both packages compute
-the same function in the tests. ``stacked_params`` goes the other way:
-it draws the port's weights straight into the reference's nested dict
-with stacked layers, the tree pytree-mode consensus packs, so its leaf
-order and block assignment are the reference's."""
+Two trees hold one model's weights: the port's inference tree
+(``ParamTree``, one module per layer) and the reference's nested dict
+with ``layers`` stacked on a leading L axis, the tree training
+differentiates and pytree-mode consensus packs (its leaf order and
+block assignment are the reference's).
+
+* ``params_from_numpy`` fills a ``ParamTree`` from the reference's
+  param pytree as numpy arrays; ``stacked_from_numpy`` carries the same
+  arrays into the stacked dict. With either, both packages compute the
+  same function in the tests.
+* ``stacked_params`` draws the port's weights straight into the
+  stacked dict.
+* ``params_from_stacked`` views a stacked dict (a trained state) as a
+  ``ParamTree`` for serving, without a copy."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -17,6 +24,16 @@ import torch
 from ..device import DeviceLike, resolve_device, seeded_generator
 from . import transformer
 from .layers import dense_init, embed_init
+
+
+def _tensor(value) -> torch.Tensor:
+    """A CPU tensor of a numpy array, dtype kept: numpy's ``bfloat16``
+    (ml_dtypes, as the reference's bf16 arrays convert) through its raw
+    16-bit words."""
+    a = np.asarray(value)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -92,3 +109,46 @@ def stacked_params(cfg, seed: int = 0,
         _stack_into(stack, layer, i)
     params["layers"] = stack
     return params
+
+
+def _fill_like(like: Dict[str, Any], tree: Dict[str, Any], dev,
+               prefix: str = "") -> Dict[str, Any]:
+    """``tree``'s arrays as tensors on ``dev``, checked name by name and
+    shape by shape against the meta tree ``like``."""
+    if set(like) != set(tree):
+        raise ValueError(f"{prefix or 'the tree'}: names {sorted(tree)}, "
+                         f"the config's stacked tree has {sorted(like)}")
+    out = {}
+    for name, spec in like.items():
+        if isinstance(spec, dict):
+            out[name] = _fill_like(spec, tree[name], dev, f"{prefix}{name}.")
+            continue
+        t = _tensor(tree[name])
+        if tuple(t.shape) != tuple(spec.shape):
+            raise ValueError(f"{prefix}{name}: shape {tuple(t.shape)}, the "
+                             f"config's is {tuple(spec.shape)}")
+        out[name] = t.to(dev)
+    return out
+
+
+def stacked_from_numpy(cfg, tree: Dict[str, Any],
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's param pytree (numpy arrays, ``layers`` stacked on
+    a leading L axis) as the port's stacked dict of tensors on
+    ``device``, dtypes kept; names and shapes must be those of
+    ``stacked_params(cfg)``."""
+    return _fill_like(stacked_params(cfg, device="meta"), tree,
+                      resolve_device(device))
+
+
+def params_from_stacked(cfg, stacked: Dict[str, Any]
+                        ) -> transformer.ParamTree:
+    """The ``ParamTree`` whose parameters are views of the stacked tree's
+    leaves (layer i's are the leaves' slices at i): no weight is copied,
+    so the tree serves what the stacked tree holds."""
+    transformer.check_family(cfg)
+    tree = dict(stacked, layers=transformer.unbind_layers(stacked["layers"]))
+    if len(tree["layers"]) != cfg.num_layers:
+        raise ValueError(f"{len(tree['layers'])} stacked layers, the "
+                         f"config has {cfg.num_layers}")
+    return transformer.ParamTree(tree)

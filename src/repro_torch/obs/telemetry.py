@@ -131,7 +131,9 @@ class Telemetry:
     # ------------------------------------------------------------------
     def finalize(self, meta: Optional[Dict[str, Any]] = None) -> None:
         """End of run: flush/close the sink and save the Chrome trace
-        when a ``trace_path`` was configured."""
+        when a ``trace_path`` was configured. Drops the round-record
+        callback, a method of the runtime that holds this object."""
+        self._record_fn = None
         if self.sink is not None:
             self.sink.close()
         if self.spans is not None:

@@ -51,6 +51,7 @@ Event kinds
 from __future__ import annotations
 
 import dataclasses
+import weakref
 import json
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
@@ -328,7 +329,8 @@ class FaultInjector:
 
     def __init__(self, plan: Optional[FaultPlan], runtime):
         self.plan = plan if plan is not None else FaultPlan()
-        self.rt = runtime
+        # the runtime owns its injector: a weak back-reference, no cycle
+        self.rt = None if runtime is None else weakref.proxy(runtime)
         self.fired = set()                         # action keys already run
         self._worker_windows = defaultdict(list)   # i -> [(s, e, factor)]
         self._block_windows = defaultdict(list)    # j -> [(s, e, factor)]

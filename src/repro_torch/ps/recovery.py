@@ -72,6 +72,7 @@ cover the process side.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 import os
 from collections import defaultdict
 from typing import Any, Dict, List, Optional, Tuple
@@ -182,7 +183,7 @@ class SnapshotCoordinator:
     resumed run re-creates the identical releases)."""
 
     def __init__(self, runtime, every: int, directory: str):
-        self.rt = runtime
+        self.rt = weakref.proxy(runtime)   # the runtime owns it: no cycle
         self.every = int(every)
         self.dir = str(directory)
         self.next_round = self.every

@@ -421,18 +421,24 @@ class PSRuntime:
         the final ``PSRunResult.metrics`` dict — kept identical to the
         pre-registry inline assembly (byte-compatible)."""
         reg = self.registry = MetricsRegistry()
-        self.enforcer.register_metrics(reg)
-        reg.gauge("makespan", lambda: self.sched.now)
-        reg.counter("events", lambda: self.sched.events_processed)
-        BlockServerProc.register_metrics(reg, self.domains, self.sched)
+        # the instruments close over the components, never over the
+        # runtime: the runtime holds the registry, and a closure over
+        # it would make a cycle that keeps the run's device tensors
+        # alive until the cycle collector runs
+        sched, enforcer, domains = self.sched, self.enforcer, self.domains
+        N = self.engine.N
+        enforcer.register_metrics(reg)
+        reg.gauge("makespan", lambda: sched.now)
+        reg.counter("events", lambda: sched.events_processed)
+        BlockServerProc.register_metrics(reg, domains, sched)
         WorkerProc.register_metrics(reg, self)
         reg.histogram("histograms", lambda: {
             "worker_stall_time": hist(
-                [self.enforcer.stall_time_by_worker.get(i, 0.0)
-                 for i in range(self.engine.N)]),
+                [enforcer.stall_time_by_worker.get(i, 0.0)
+                 for i in range(N)]),
             "server_occupancy": hist(
-                [d.busy_time / self.sched.now if self.sched.now > 0
-                 else 0.0 for d in self.domains])})
+                [d.busy_time / sched.now if sched.now > 0
+                 else 0.0 for d in domains])})
         if any(d.wal is not None for d in self.domains):
             _recovery.register_wal_metrics(reg, self.domains)
         if self.ckpt is not None:

@@ -55,6 +55,7 @@ the B2 kernel, once per replayed block version — bitwise.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -153,8 +154,9 @@ class BlockServerProc:
         self._fault_factor = fault_factor
         # unreliable-transport state (None/unused on reliable runs):
         # the owning runtime (for routing responses/acks back through
-        # its fabric), per-(worker, round) pull dedup and dup counter
-        self.rt = runtime
+        # its fabric; weakly, as it owns this server: no reference
+        # cycle), per-(worker, round) pull dedup and dup counter
+        self.rt = None if runtime is None else weakref.proxy(runtime)
         self._pull_state: Dict[Tuple[int, int], Optional[int]] = {}
         self.dups_dropped = 0
         # the exactly-once fold log ((version, worker, block) in fold

@@ -165,9 +165,11 @@ class TransportFabric:
         """Register the fleet-wide transport instrument (delivery
         totals + the server/enforcer dedup and fallback counters that
         belong to the transport story)."""
+        domains, enforcer = rt.domains, rt.enforcer   # not rt: no cycle
+
         def value():
             s = self.stats()
-            s["dups_dropped"] = sum(d.dups_dropped for d in rt.domains)
-            s["timeout_fallbacks"] = rt.enforcer.timeout_fallbacks
+            s["dups_dropped"] = sum(d.dups_dropped for d in domains)
+            s["timeout_fallbacks"] = enforcer.timeout_fallbacks
             return s
         reg.gauge("transport", value)

@@ -41,6 +41,7 @@ rows the epoch's partial-participation mask reproduces on replay.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -49,7 +50,7 @@ import numpy as np
 class WorkerProc:
     def __init__(self, i: int, runtime, *, cold: bool = False):
         self.i = i
-        self.rt = runtime
+        self.rt = weakref.proxy(runtime)   # the runtime owns it: no cycle
         self.rng = np.random.default_rng([runtime.seed, 1000 + i])
         self.t = 0
         self.rounds_done = 0

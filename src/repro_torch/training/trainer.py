@@ -1,0 +1,308 @@
+"""Trainers, a port of ``repro/training/trainer.py``.
+
+``ADMMTrainer`` — AsyBADMM as a distributed-training feature (pytree
+mode), a thin adapter: the delay gather, block selection, worker update
+and server prox all route through ``core.space.TreeSpace`` and the
+shared ``core.space.asybadmm_epoch``, the implementation the flat driver
+and ``ConsensusSession.pytree`` use, so the trainer honours every
+``ADMMConfig`` policy (``block_selection`` random / cyclic /
+gauss_southwell / zipf), heterogeneous per-worker ``rho_scale`` and an
+optional general-form ``edge`` set. On the card ``train_step`` runs the
+epoch's two kernels, B1 (the worker update with its sel-masked merges)
+and B2 (the edge-masked reduce and the prox), once a step.
+
+The state stays params-shaped, as the reference's: ``train_step`` packs
+it onto the (N, M, dblk) block table, runs the epoch and unpacks the
+result. An unpacked f32 leaf is a view of its table, so a state that
+``train_step`` or ``init`` returned packs back with no copy: the step
+finds the table behind its leaves. A state built any other way (a
+restored checkpoint) is packed by a copy. The spec (layout, edge set,
+penalties, policies) is built once per trainer and tree structure: the
+reference leans on ``jit``'s cache for that, and an eager rebuild would
+be host work on every step.
+
+``SGDTrainer`` — the conventional synchronous data-parallel baseline
+(mean gradient + AdamW/SGD), for the convergence comparisons.
+
+Every draw comes from a generator seeded from ``(admm.seed, step,
+stream)``: ``train_step`` uses the epoch's streams, ``train_step_block``
+streams of its own (the reference splits its own key chain there).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ADMMConfig
+from ..core.admm import server_update, worker_update
+from ..core.async_sim import push_history, subsample_worker_data
+from ..core.blocks import TreeBlocks, make_block_layout, make_tree_blocks
+from ..core.space import (ConsensusSpec, ConsensusState, TreeSpace,
+                          asybadmm_epoch, consensus_residual,
+                          init_consensus_state, make_spec,
+                          sample_delay_model)
+from ..core.tree import tree_flatten, tree_leaves, tree_unflatten
+from ..device import DeviceLike, seeded_generator
+from ..optim.optimizers import Optimizer, apply_updates
+from .train_state import ADMMTrainState, SGDTrainState
+
+# generator streams of train_step_block (the epoch's are 0-2)
+_BLOCK_DELAY, _BLOCK_BATCH = 3, 4
+
+
+# ===========================================================================
+# baseline: synchronous data-parallel SGD/Adam
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class SGDTrainer:
+    loss_fn: Callable            # loss_fn(params, batch) -> scalar
+    optimizer: Optimizer
+
+    def init(self, params) -> SGDTrainState:
+        return SGDTrainState(params=params,
+                             opt_state=self.optimizer.init(params), step=0)
+
+    def train_step(self, state: SGDTrainState, batch
+                   ) -> Tuple[SGDTrainState, Dict]:
+        grads, loss = torch.func.grad_and_value(self.loss_fn)(state.params,
+                                                              batch)
+        updates, opt_state = self.optimizer.update(grads, state.opt_state,
+                                                   state.params)
+        del grads                    # the gradient's memory, before the sum
+        params = apply_updates(state.params, updates)
+        return (SGDTrainState(params, opt_state, int(state.step) + 1),
+                {"loss": loss})
+
+
+# ===========================================================================
+# AsyBADMM consensus trainer — thin adapter over core.space
+# ===========================================================================
+
+def _table(layout, tree):
+    """The block table behind a params-shaped tree: the table itself when
+    every leaf is still the view ``layout.from_blocks`` made of it (so a
+    step's output packs with no copy), else a packed copy."""
+    leaves = tree_leaves(tree)
+    base = leaves[0]._base
+    lead = leaves[0].dim() - len(layout.leaf_shapes[0])
+    shape = tuple(leaves[0].shape[:lead]) + (layout.num_blocks,
+                                             layout.block_dim)
+    if base is not None and base.dtype == torch.float32 \
+            and base.is_contiguous() and base.numel() == torch.Size(
+                shape).numel() \
+            and all(leaf._base is base and leaf.dtype == torch.float32
+                    for leaf in leaves):
+        table = base.view(shape)
+        if all(leaf.data_ptr() == view.data_ptr()
+               and leaf.shape == view.shape and leaf.stride() == view.stride()
+               for leaf, view in zip(leaves, layout.unpack_leaves(table))):
+            return table
+    return layout.to_blocks(tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class ADMMTrainer:
+    """Block-wise asynchronous consensus training over a params pytree.
+
+    loss_fn(params, worker_batch) -> scalar — per-worker loss; batches
+    carry a leading worker axis N.
+
+    edge      : optional (N, M) bool — the paper's general-form edge set
+                E; worker i only touches blocks j with edge[i, j].
+    rho_scale : optional (N,) — heterogeneous per-worker penalties,
+                effective rho_i = admm.rho * rho_scale[i].
+    mesh      : optional ``launch.mesh.Mesh`` (or preset name)
+                overriding ``admm.mesh``: ``train_step`` then runs the
+                SPMD epoch. The state stays params-shaped, so the mesh
+                must leave each rank the whole table (1 x 1);
+                ``ConsensusSession.pytree(mesh=...)`` splits it.
+    device    : where the state lives and the epoch runs (None: the card).
+    """
+    loss_fn: Callable
+    admm: ADMMConfig
+    num_workers: int
+    blocks: Optional[TreeBlocks] = None
+    edge: Optional[Any] = None
+    rho_scale: Optional[Any] = None
+    mesh: Optional[Any] = None
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        # specs by tree structure, leaf shapes and dtypes
+        object.__setattr__(self, "_specs", {})
+
+    def _spec(self, params) -> ConsensusSpec:
+        leaves, treedef = tree_flatten(params)
+        key = (treedef, tuple((tuple(leaf.shape), leaf.dtype)
+                              for leaf in leaves))
+        spec = self._specs.get(key)
+        if spec is None:
+            blocks = self.blocks if self.blocks is not None \
+                else make_tree_blocks(params, self.admm.num_blocks)
+            space = TreeSpace(blocks=blocks, num_workers=self.num_workers,
+                              layout=make_block_layout(params, blocks))
+            spec = make_spec(space, self.admm, self.loss_fn, edge=self.edge,
+                             rho_scale=self.rho_scale, track_x=False,
+                             mesh=self.mesh, device=self.device)
+            if spec.space.mesh is not None:
+                from ..core.sharded import local_tile
+                tile = local_tile(spec)
+                if (tile.Nl, tile.Ml) != (self.num_workers,
+                                          space.num_blocks):
+                    raise NotImplementedError(
+                        "ADMMTrainer keeps its state params-shaped, and "
+                        "this mesh splits the block table over ranks; "
+                        "train through ConsensusSession.pytree(mesh=...) "
+                        "instead")
+            self._specs[key] = spec
+        return spec
+
+    def _packed(self, spec, state: ADMMTrainState) -> ConsensusState:
+        layout = spec.space.layout
+        return ConsensusState(z_hist=_table(layout, state.z_hist),
+                              y=_table(layout, state.y),
+                              w_cache=_table(layout, state.w_cache), x=None,
+                              t=int(state.step))
+
+    @staticmethod
+    def _check_w_cache(state: ADMMTrainState, what: str) -> None:
+        if isinstance(state.w_cache, tuple) and state.w_cache == ():
+            raise ValueError(
+                f"state was built with init(cyclic=True), which drops the "
+                f"w cache {what}")
+
+    def init(self, params, *, cyclic: bool = False) -> ADMMTrainState:
+        spec = self._spec(params)
+        g = init_consensus_state(spec, params)
+        # the trainer's user-facing state stays in PARAMS representation
+        # (leaf dtypes, checkpoints); train_step lowers it onto the
+        # packed block table per step
+        unpack = spec.space.layout.from_blocks
+        z_hist, y, w_cache = (unpack(g.z_hist), unpack(g.y),
+                              unpack(g.w_cache))
+        if cyclic:
+            # Static Gauss-Seidel rounds (train_step_block) never read the
+            # stale-w cache (every worker pushes the active block fresh) —
+            # don't carry it.
+            w_cache = ()
+        return ADMMTrainState(z_hist=z_hist, y=y, w_cache=w_cache, step=g.t)
+
+    # -----------------------------------------------------------------
+    def train_step(self, state: ADMMTrainState, batch
+                   ) -> Tuple[ADMMTrainState, Dict]:
+        """One AsyBADMM epoch across all N workers (Alg. 1, both roles),
+        delegated to the shared generic step.
+
+        batch: pytree with leading axes (N, per_worker_batch, ...).
+        """
+        self._check_w_cache(
+            state, "and only supports train_step_block; for the dynamic "
+                   "block_selection='cyclic' policy use a plain "
+                   "init(params)")
+        spec = self._spec(state.params)
+        g, info = asybadmm_epoch(spec, self._packed(spec, state), batch)
+        unpack = spec.space.layout.from_blocks
+        return (ADMMTrainState(z_hist=unpack(g.z_hist), y=unpack(g.y),
+                               w_cache=unpack(g.w_cache), step=g.t), info)
+
+    # -----------------------------------------------------------------
+    def train_step_block(self, state: ADMMTrainState, batch, block_id: int
+                         ) -> Tuple[ADMMTrainState, Dict]:
+        """Cyclic (Gauss-Seidel) block round: ALL workers update block
+        ``block_id`` this step (the paper's §3.2 alternative block
+        selection); drive it with ``step % num_blocks``.
+
+        * gradients are taken w.r.t. the active leaves only — the
+          parameter-gradient products of frozen leaves are never built;
+        * the cross-worker reduction (the paper's w push) covers only
+          the active block;
+        * the server-side stale-w cache is never read (every worker
+          pushes the active block fresh), so it is not carried at all.
+
+        The update equations and server prox are the plain
+        ``core.admm`` ones, per leaf, as in the reference: this path
+        launches no kernel. Its delay and minibatch draws come from
+        streams of its own.
+        """
+        cfg = self.admm
+        N, M = self.num_workers, cfg.num_blocks
+        spec = self._spec(state.params)
+        blocks = spec.space.blocks
+        t, dev = int(state.step), spec.device
+        if spec.minibatch is not None:
+            # incremental workers: same semantics as the generic epoch
+            batch = subsample_worker_data(
+                seeded_generator(dev, spec.seed, t, _BLOCK_BATCH), batch,
+                spec.minibatch)
+
+        leaf_ids = blocks.leaf_block_ids
+        active_idx = [i for i, b in enumerate(leaf_ids) if b == block_id]
+
+        # --- bounded-staleness pull (all leaves — forward needs them);
+        #     per-leaf gather on the params-shaped state ---
+        delays = sample_delay_model(
+            spec.delay_model,
+            seeded_generator(dev, spec.seed, t, _BLOCK_DELAY), N, M, t)
+        zh_leaves, treedef = tree_flatten(state.z_hist)
+        zt_leaves = [zh[delays[:, bid]] for zh, bid in zip(zh_leaves,
+                                                           leaf_ids)]
+        active_zt = [zt_leaves[i] for i in active_idx]
+
+        def loss_from_active(active_leaves, all_leaves, b):
+            merged = list(all_leaves)
+            for i, leaf in zip(active_idx, active_leaves):
+                merged[i] = leaf
+            return self.loss_fn(tree_unflatten(treedef, merged), b)
+
+        g_active, losses = torch.func.vmap(
+            torch.func.grad_and_value(loss_from_active))(active_zt,
+                                                         zt_leaves, batch)
+
+        # --- worker + server update on the active leaves only ---
+        rho32 = spec.rho_vec.float()
+        e_blk = spec.edge[:, block_id]                       # (N,) bool
+        y_leaves, y_def = tree_flatten(state.y)
+        y_new_leaves = list(y_leaves)
+        w_sum_active = []
+        for i, g in zip(active_idx, g_active):
+            g32 = g.float()
+            wshape = (N,) + (1,) * (g32.dim() - 1)
+            _, y_new, w_new = worker_update(g32, y_leaves[i].float(),
+                                            zt_leaves[i].float(),
+                                            rho32.reshape(wshape))
+            em = e_blk.reshape(wshape)
+            y_new_leaves[i] = torch.where(em, y_new, y_leaves[i].float()
+                                          ).to(y_leaves[i].dtype)
+            w_sum_active.append(                      # reduce over N
+                torch.sum(torch.where(em, w_new, 0.0), dim=0))
+
+        rho_sum = torch.sum(torch.where(e_blk, rho32, 0.0))
+        zh_new = list(zh_leaves)
+        for i, w_sum in zip(active_idx, w_sum_active):
+            zh = zh_leaves[i]
+            z_new = server_update(zh[0].float(), w_sum, rho_sum, spec.gamma,
+                                  spec.reg.prox).to(zh.dtype)
+            zh_new[i] = push_history(zh, z_new)
+
+        info = {"loss": torch.mean(losses),
+                "selected_fraction": torch.tensor(
+                    len(active_idx) / max(len(leaf_ids), 1), device=dev)}
+        return (ADMMTrainState(
+            z_hist=tree_unflatten(treedef, zh_new),
+            y=tree_unflatten(y_def, y_new_leaves),
+            w_cache=state.w_cache,        # untouched (never read in cyclic)
+            step=t + 1), info)
+
+    # -----------------------------------------------------------------
+    def consensus_residual(self, state: ADMMTrainState) -> torch.Tensor:
+        """||x_i - z||/||z|| proxy: since x = z~-(g+y')/rho and y' = -g at
+        update time, the dual drift ||y_i + g_i|| collapses; we report the
+        w-cache dispersion across workers instead (0 at consensus)."""
+        self._check_w_cache(
+            state, "the consensus residual is computed from; use a plain "
+                   "init(params) to track it")
+        spec = self._spec(state.params)
+        return consensus_residual(spec, self._packed(spec, state))

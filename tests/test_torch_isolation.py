@@ -1,8 +1,9 @@
 """The port stands alone: ``repro_torch`` (its kernels, examples,
-benchmarks, models, serving engine, launchers, observability layer and
-PS runtime too), ``chip_smoke.py`` and the rank side of the sharded
-tests import neither JAX nor the reference package, and the kernels
-build without fast math (their plain versions are their yardstick)."""
+benchmarks, models, serving engine, optimizers, trainers, launchers,
+observability layer and PS runtime too), ``chip_smoke.py`` and the rank
+side of the sharded tests import neither JAX nor the reference package,
+and the kernels build without fast math (their plain versions are their
+yardstick)."""
 import ast
 import subprocess
 import sys
@@ -32,6 +33,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "import repro_torch.checkpoint, repro_torch.ps.recovery\n"
             "import repro_torch.core.tree, repro_torch.core.blocks\n"
             "import repro_torch.models.weights\n"
+            "import repro_torch.optim, repro_torch.training\n"
+            "import repro_torch.launch.train\n"
+            "import repro_torch.examples.train_transformer_admm\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
