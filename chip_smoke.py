@@ -141,6 +141,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and sgd, 6 steps; ``--runtime ps``, 3 rounds) and the training
    example with ``--quick``: B1 and B2 once per ADMM step (per worker
    compute and per block commit under ps), every loss finite;
+   train_moe — ``ADMMTrainer`` on granite-moe-1b-a400m's stacked tree at
+   its widths (d_model 1024, 32 experts top-8 of ff 512, vocab 49,155),
+   8 of 24 layers (528,768,000 f32 parameters, seed 0), the reference's
+   onehot dispatch, N = 2, M = 2 by LPT, launch/train.py's defaults,
+   2 x 512 tokens a worker: 5 steps on the kernels, before each the
+   plain backend's step from the same state (routing follows z, so two
+   free-running trajectories part at a token's first flip). Gates: z of
+   the two within KERNEL_TOL every step; step 0's loss equals
+   ``Model.loss`` at z0, the router's aux loss in it; the loss and
+   gradient taken twice from one state bitwise equal; B1 and B2 once a
+   step and held on one more step's inputs; pads 0; losses and z
+   finite. Prints the reckoned peak first (line ``train_moe_plan``),
+   then step ms, tokens/s, peaks, the step's parts and the MoE layer's
+   (router, dispatch, experts) each timed alone;
 8. serve   — the dense model stack at qwen3-1.7b's full width (28
    layers, d_model 2048, 16 / 8 heads of 128, vocab 151,936, fp32,
    random weights from a seed): ``Model.prefill`` of 4 x 4096 tokens on
@@ -163,6 +177,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    past it), with a profile; layer 0's bf16 B7 inputs checked (row by
    row too), gated against four faulty results and timed the same way,
    and the same inputs in f16;
+   serve_moe — granite-moe-1b-a400m at full width (24 layers, f32, seed
+   0, ``moe_impl="scatter"``): the 4 x 4096 prefill on the flash path (B7
+   once per layer: 24, the (64, 4096, 128) launch of hd 64 padded to
+   128) and the naive path, their last logits within 2e-3 with the
+   flash path's routing replayed into the naive one (a wrapper local to
+   this script), every routing flip of the free-running pair a near-tie
+   (``routing_flips``); B7 on layer 0's inputs against float64 as in
+   ``serve``; the dropped share of (token, k) pairs by layer at the
+   published capacity factor 1.25; ``Engine.generate`` with
+   launch/serve.py's batch (B7 never in decode); decode vs prefill
+   within 5e-4 on the dropless copy (capacity factor E / K), the
+   prefill's routing replayed, the free decode's flips near-ties; first
+   tokens the prefill's argmax where decided; a decode profile. Line
+   ``serve_moe_onehot``: both dispatches' ``moe_forward`` on each
+   layer's input of a 1 x 2048 prefill within KERNEL_TOL (1 + max), their
+   layer ms, extra peaks and prefill ms. Line ``serve_mixtral``:
+   mixtral-8x7b at its widths, 2 of 32 layers (f32, seed 0, onehot),
+   a 2 x 4608 naive prefill past the 4096 window (shown to differ from
+   the same prefill without it), ``Engine.generate`` 2 x (16 + 24),
+   decode vs prefill on the dropless copy; no kernel launched;
 9. logreg  — ``ops.logreg_grad`` at the size the repo declares for it
    (m = 2^20 samples, d = 2^14 features, X dense f32, 68.72 GB, filled
    on the card in row chunks): launches B5 twice and B6 once; each pass
@@ -2185,6 +2219,22 @@ def tree_split(path: str, epoch_ms: float) -> dict:
     return split
 
 
+def b1_b2_rows(rows, profile) -> dict:
+    """B1's and B2's rows on a tree path: their windows and bounds on the
+    path's inputs (``rows``) beside the profiler's device ms."""
+    kernels = {}
+    for name, frag in (("admm_worker_select_update", B1_NAME),
+                       ("server_prox_update", B2_NAME)):
+        r = rows[name]
+        dev_ms = profile["kernels"][frag]["device_ms_per_launch"]
+        kernels[name] = dict(
+            device_ms_per_launch=dev_ms, ms=r["ms"], plain_ms=r["plain_ms"],
+            bytes=r["bytes"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            bound_share=r["bound_ms"] / dev_ms,
+            max_abs_err=r["max_abs_err"])
+    return kernels
+
+
 def phase_pytree(bw: float, errs):
     """``ConsensusSession.pytree`` on qwen3-1.7b's stacked parameter tree
     (6 layers, f32, seed 0), M = 2 by LPT, N = 2: 5 epochs on the kernels, then 5 on the plain ``torch`` backend
@@ -2300,16 +2350,7 @@ def phase_pytree(bw: float, errs):
     z_host.clear()
     torch.cuda.empty_cache()
 
-    kernels = {}
-    for name, frag in (("admm_worker_select_update", B1_NAME),
-                       ("server_prox_update", B2_NAME)):
-        r = rows[name]
-        dev_ms = profile["kernels"][frag]["device_ms_per_launch"]
-        kernels[name] = dict(
-            device_ms_per_launch=dev_ms, ms=r["ms"], plain_ms=r["plain_ms"],
-            bytes=r["bytes"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            bound_share=r["bound_ms"] / dev_ms,
-            max_abs_err=r["max_abs_err"])
+    kernels = b1_b2_rows(rows, profile)
     emit("pytree", arch=SERVE_ARCH, layers=TREE_LAYERS, N=N, M=M,
          params=P, block_sizes=list(layout.block_sizes), dblk=d,
          table_entries=T, padding_share=1.0 - P / T, epochs=TREE_EPOCHS,
@@ -2503,6 +2544,19 @@ def train_parts(model, spec, packed, batch) -> dict:
             "pack_and_unpack": pack, "gather_and_push": gather + push}
 
 
+def train_split(model, spec, packed, batch, profile, step_ms) -> dict:
+    """Device ms of a train step by part: ``train_parts``, and B1's and
+    B2's device ms per launch from ``profile``; the idle time and the
+    rest of ``step_ms``."""
+    split = train_parts(model, spec, packed, batch)
+    split.update(
+        B1=profile["kernels"][B1_NAME]["device_ms_per_launch"],
+        B2=profile["kernels"][B2_NAME]["device_ms_per_launch"],
+        idle=step_ms - profile["device_busy_ms_per_epoch"])
+    split["rest"] = step_ms - sum(split.values())
+    return split
+
+
 def phase_train(bw: float, errs):
     """``ADMMTrainer`` on qwen3-1.7b's stacked tree at full width, cut to
     TRAIN_LAYERS layers (f32, seed 0), N = 2, M = 2 by LPT, launch/train.py's
@@ -2619,13 +2673,8 @@ def phase_train(bw: float, errs):
 
     profile = profile_calls("train", step, step_ms, TRAIN_PROFILE_STEPS,
                             expect={B1_NAME: 1, B2_NAME: 1})
-    split = train_parts(model, spec, kern._packed(spec, held[0]),
-                        batches[TRAIN_STEPS])
-    split.update(
-        B1=profile["kernels"][B1_NAME]["device_ms_per_launch"],
-        B2=profile["kernels"][B2_NAME]["device_ms_per_launch"],
-        idle=step_ms - profile["device_busy_ms_per_epoch"])
-    split["rest"] = step_ms - sum(split.values())
+    split = train_split(model, spec, kern._packed(spec, held[0]),
+                        batches[TRAIN_STEPS], profile, step_ms)
     with capture_inputs(copy=False, names=MAIN_KERNELS, keep=1) as inputs:
         step()
     del held[0]
@@ -2645,16 +2694,7 @@ def phase_train(bw: float, errs):
     del params, batches
     torch.cuda.empty_cache()
 
-    kernels = {}
-    for name, frag in (("admm_worker_select_update", B1_NAME),
-                       ("server_prox_update", B2_NAME)):
-        r = rows[name]
-        dev_ms = profile["kernels"][frag]["device_ms_per_launch"]
-        kernels[name] = dict(
-            device_ms_per_launch=dev_ms, ms=r["ms"], plain_ms=r["plain_ms"],
-            bytes=r["bytes"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            bound_share=r["bound_ms"] / dev_ms,
-            max_abs_err=r["max_abs_err"])
+    kernels = b1_b2_rows(rows, profile)
     emit("train", arch=SERVE_ARCH, layers=TRAIN_LAYERS, N=N, M=M, params=P,
          block_sizes=list(layout.block_sizes), dblk=layout.block_dim,
          table_entries=T, steps=TRAIN_STEPS,
@@ -2826,6 +2866,56 @@ def commit_on_path(case, rows) -> dict:
 # phase 8: the model stack at qwen3-1.7b's full width, and its serving path
 # ---------------------------------------------------------------------------
 
+def timed_prefill(model, params, tokens, mode="last", **route_kw):
+    """(logits, host ms) of one prefill, under ``routing(**route_kw)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with routing(**route_kw):
+        out = model.prefill(params, tokens, logits_mode=mode)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def first_tokens_decided(path: str, tokens, decoded_last, last) -> dict:
+    """The first generated tokens are the prefill's argmax wherever its
+    top-2 gap exceeds what separates the decode's last logits from it
+    (as phase ``serve`` holds them)."""
+    delta = float((decoded_last - last).abs().max())
+    top2 = last.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > delta
+    first = torch.as_tensor(tokens[:, 0], device=last.device)
+    if not torch.equal(first[decided], last.argmax(-1)[decided]):
+        fail(f"{path}: first tokens {first.tolist()} against the "
+             f"prefill's argmax {last.argmax(-1).tolist()}")
+    return dict(first_token_delta=delta,
+                first_tokens_decided=int(decided.sum()))
+
+
+def generate_timed(path: str, engine, prompts, max_new: int) -> tuple:
+    """``Engine.generate`` (greedy), timed, its launches counted: none."""
+    from repro_torch.kernels import ops
+    reset_peak()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new=max_new)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    expect_counts(f"{path} decode", launches, {})
+    vocab = engine.model.cfg.vocab_size
+    if res.tokens.shape != (prompts.shape[0], max_new) or \
+            res.tokens.min() < 0 or res.tokens.max() >= vocab:
+        fail(f"{path}: generated tokens {res.tokens.shape}, ids "
+             f"{res.tokens.min()}..{res.tokens.max()}")
+    return res, dict(requests=prompts.shape[0], prompt_len=prompts.shape[1],
+                     max_new=max_new, generate_s=seconds,
+                     generate_tokens_per_s=prompts.shape[0] * max_new
+                     / seconds, launches=launches,
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     tokens_req0=res.tokens[0].tolist())
+
+
 def refused_attention(case, plain, exact) -> dict:
     """Results a faulty B7 could return for ``case``, which its float64
     gate must refuse: no causal mask; the last 64 keys dropped; inputs
@@ -2882,7 +2972,7 @@ def b7_on_path(case, cfg, dtype, bw, errs) -> dict:
     by B5's rule (in 16 bits row by row too), the gate shown to refuse
     faulty results (``refused_attention``), timed beside its plain
     version and SDPA in the same dtype."""
-    hd = cfg.resolved_head_dim
+    hd = max(128, -(-cfg.resolved_head_dim // 128) * 128)   # padded so
     if [list(t.shape) for t in case[:3]] != [
             [SERVE_BATCH * cfg.num_heads, SERVE_SEQ, hd]] * 3 or \
             case[3] is not True or case[0].dtype != dtype:
@@ -2915,11 +3005,7 @@ def serve_bf16(cfg, tokens, bw, errs) -> tuple:
     params16 = naive16.init(0)
 
     def prefill(m, params):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = m.prefill(params, tokens, logits_mode="last")
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - t0)
+        return timed_prefill(m, params, tokens)
 
     reset_peak()
     ops.reset_launch_counts()
@@ -3031,11 +3117,7 @@ def phase_serve(bw: float, errs):
                            generator=gen, device="cuda")
 
     def prefill(m, toks, mode="last"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = m.prefill(params, toks, logits_mode=mode)
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - t0)
+        return timed_prefill(m, params, toks, mode)
 
     # the path: the flash prefill, its launches counted, layer 0's B7
     # inputs kept
@@ -3079,20 +3161,7 @@ def phase_serve(bw: float, errs):
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS,
                                                 SERVE_PROMPT),
                             generator=gen, device="cuda")
-    reset_peak()
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = engine.generate(prompts, max_new=SERVE_NEW)
-    torch.cuda.synchronize()
-    generate_s = time.perf_counter() - t0
-    decode_launches = ops.launch_counts()
-    decode_peak = torch.cuda.max_memory_allocated()
-    expect_counts("serve decode", decode_launches, {})
-    if res.tokens.shape != (SERVE_REQUESTS, SERVE_NEW) or \
-            res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
-        fail(f"serve: generated tokens {res.tokens.shape}, ids "
-             f"{res.tokens.min()}..{res.tokens.max()}")
+    res, serve = generate_timed("serve", engine, prompts, SERVE_NEW)
 
     # decode against prefill at each prompt position, timed per step
     cache = model.init_cache(SERVE_REQUESTS, engine.max_len)
@@ -3110,17 +3179,10 @@ def phase_serve(bw: float, errs):
     if not decode_err < DECODE_TOL:
         fail(f"serve: decode and prefill logits differ by {decode_err:.3e} "
              f"(limit {DECODE_TOL})")
-    # the first token is the flash prefill's argmax wherever its top-2
-    # gap exceeds what separates the decode's last logits from it
     last, _ = prefill(flash, prompts)
     last = last[:, -1]
-    delta = float((decoded[:, -1] - last).abs().max())
-    top2 = last.topk(2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > delta
-    first = torch.as_tensor(res.tokens[:, 0], device="cuda")
-    if not torch.equal(first[decided], last.argmax(-1)[decided]):
-        fail(f"serve: first tokens {first.tolist()} against the flash "
-             f"prefill's argmax {last.argmax(-1).tolist()}")
+    serve.update(first_tokens_decided("serve", res.tokens, decoded[:, -1],
+                                      last))
     step = statistics.median(step_ms[1:])
     held = [cache, SERVE_PROMPT]
 
@@ -3129,20 +3191,12 @@ def phase_serve(bw: float, errs):
                                        held[1])
         held[1] += 1
 
-    decode_profile = profile_calls("serve_decode", one_step, step, 5,
-                                   "decode_step")
-    serve = dict(requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
-                 max_new=SERVE_NEW, generate_s=generate_s,
-                 generate_tokens_per_s=SERVE_REQUESTS * SERVE_NEW
-                 / generate_s, decode_steps=SERVE_PROMPT + SERVE_NEW,
+    serve.update(decode_steps=SERVE_PROMPT + SERVE_NEW,
                  decode_ms_per_step=step,
                  decode_tokens_per_s=SERVE_REQUESTS / (step / 1e3),
-                 launches=decode_launches, peak_bytes=decode_peak,
-                 profile=decode_profile,
-                 decode_vs_prefill_max_abs_err=decode_err,
-                 first_token_delta=delta,
-                 first_tokens_decided=int(decided.sum()),
-                 tokens_req0=res.tokens[0].tolist())
+                 profile=profile_calls("serve_decode", one_step, step, 5,
+                                       "decode_step"),
+                 decode_vs_prefill_max_abs_err=decode_err)
     emit("serve", arch=cfg.name, params=n_params,
          weight_bytes=sum(p.numel() * p.element_size()
                           for p in params.parameters()), init_s=init_s,
@@ -3168,6 +3222,640 @@ def phase_serve(bw: float, errs):
     return (launches, {"flash_attention": row},
             {"flash_attention_bf16": launches16["flash_attention"]},
             {"flash_attention_bf16": row16})
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: granite-moe-1b-a400m served and trained at its widths,
+# mixtral-8x7b served at its widths with its sliding window
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+MIXTRAL_ARCH = "mixtral-8x7b"
+MIXTRAL_LAYERS = 2             # of 32: depth is the only cut
+MIXTRAL_BATCH, MIXTRAL_SEQ = 2, 4608      # past the 4096-token window
+MIXTRAL_REQUESTS = 2           # Engine.generate: 2 x (16 + 24) tokens
+ONEHOT_SEQ = 2048              # onehot vs scatter on 1 x 2048 tokens
+ONEHOT_REPS, ONEHOT_WINDOWS = 3, 3
+TRAIN_MOE_LAYERS = 8           # of 24 (every layer alike): depth only
+
+
+@contextlib.contextmanager
+def routing(record=None, replay=None):
+    """Inside the block every call of ``moe.route`` (one per MoE layer,
+    in layer order) appends its (probs, top_e) to ``record``; with
+    ``replay`` (top_e by call) the call's tokens go to the replayed
+    experts instead, gated by this call's own probabilities of them,
+    renormalised as the router renormalises. The check's wrapper, local
+    to this script: the package routes as it always does."""
+    from repro_torch.models import moe
+    real = moe.route
+    calls = [0]
+
+    def wrapped(params, xt, cfg):
+        probs, top_p, top_e = real(params, xt, cfg)
+        if replay is not None:
+            top_e = replay[calls[0]]
+            top_p = probs.gather(-1, top_e)
+            top_p = top_p / top_p.sum(-1, keepdim=True)
+        calls[0] += 1
+        if record is not None:
+            record.append((probs, top_e))
+        return probs, top_p, top_e
+
+    moe.route = wrapped
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def routing_flips(ref, other, K: int) -> list:
+    """By layer, between two runs over the same tokens (``ref``,
+    ``other``: (probs, top_e) by layer, rows aligned): the tokens whose
+    set of K experts differs, the largest router-probability difference
+    between the runs, and how many flips are not near-ties. A flip is a
+    near-tie when ``ref``'s K-th minus (K+1)-th probability of the token
+    is at most twice the token's own largest probability difference
+    between the runs: an expert can only overtake another when the two
+    moved that far. Stricter than twice the layer's largest difference,
+    which a token flipped in an earlier layer sets for all."""
+    rows = []
+    for (p, e), (q, f) in zip(ref, other):
+        diff = (p - q).abs().amax(-1)
+        flipped = (e.sort(-1).values != f.sort(-1).values).any(-1)
+        top = p.topk(K + 1, dim=-1).values
+        margin = top[:, K - 1] - top[:, K]
+        n = int(flipped.sum())
+        rows.append(dict(
+            flips=n, not_near_tie=int((flipped & (margin > 2 * diff)).sum()),
+            prob_max_abs_diff=float(diff.max()),
+            flipped_max_margin=float(margin[flipped].max()) if n else None,
+            flipped_max_margin_over_diff=float(
+                (margin / diff)[flipped].max()) if n else None))
+    return rows
+
+
+def expect_near_ties(path: str, flips) -> None:
+    bad = [(i, r) for i, r in enumerate(flips) if r["not_near_tie"]]
+    if bad:
+        fail(f"{path}: routing flips that are not near-ties, by layer: "
+             f"{bad}")
+
+
+def dropped_share(top_e, cfg) -> float:
+    """Share of one layer's (token, k) pairs past their expert's
+    capacity, from its routing: the queue positions and capacity as
+    ``moe_forward`` counts them."""
+    from repro_torch.models import moe
+    oh = moe.one_hot(top_e.reshape(-1), cfg.moe.num_experts, torch.int64)
+    pos = (torch.cumsum(oh, 0) * oh).sum(-1) - 1
+    return float((pos >= moe.capacity(top_e.shape[0], cfg)).double().mean())
+
+
+def dropless(cfg):
+    """``cfg`` with capacity factor E / K: every queue holds every
+    token."""
+    import dataclasses
+    return cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def moe_decode_check(path: str, model, params, prompts) -> tuple:
+    """The dropless ``model``'s decode over ``prompts``, token by token,
+    against its own prefill at every position. The free-running decode
+    is timed step by step and its routing held to the prefill's by the
+    near-tie rule; the logits, with the prefill's routing replayed into
+    each step, within DECODE_TOL (a near-tie flip moves a token's output
+    by a gate's share of another expert's). Returns the report and the
+    free decode's last logits."""
+    B, S = prompts.shape
+    pre = []
+    full, _ = timed_prefill(model, params, prompts, "all", record=pre)
+    cache = model.init_cache(B, S + 8)
+    step_ms, free, logits = [], [], []
+    for t in range(S):
+        rec = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with routing(record=rec):
+            lg, cache = model.decode_step(params, prompts[:, t:t + 1],
+                                          cache, t)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        free.append(rec)
+        logits.append(lg[:, 0])
+    # a decode step's rows are the requests (b); the prefill's b * S + t
+    dec = [tuple(torch.stack([free[t][layer][i] for t in range(S)], 1)
+                 .reshape(B * S, -1) for i in (0, 1))
+           for layer in range(len(pre))]
+    flips = routing_flips(pre, dec, model.cfg.moe.top_k)
+    expect_near_ties(f"{path} decode", flips)
+    free_logits = torch.stack(logits, 1)
+    cache = model.init_cache(B, S + 8)
+    replayed = []
+    for t in range(S):
+        with routing(replay=[e.view(B, S, -1)[:, t] for _, e in pre]):
+            lg, cache = model.decode_step(params, prompts[:, t:t + 1],
+                                          cache, t)
+        replayed.append(lg[:, 0])
+    err = float((torch.stack(replayed, 1) - full).abs().max())
+    if not err < DECODE_TOL:
+        fail(f"{path}: decode and prefill logits differ by {err:.3e} with "
+             f"the prefill's routing replayed (limit {DECODE_TOL})")
+    report = dict(steps=S, decode_ms_per_step=statistics.median(step_ms[1:]),
+                  decode_vs_prefill_max_abs_err=err,
+                  free_decode_vs_prefill_max_abs_err=float(
+                      (free_logits - full).abs().max()),
+                  free_decode_flips=[r["flips"] for r in flips],
+                  free_decode_prob_max_abs_diff=max(
+                      r["prob_max_abs_diff"] for r in flips))
+    return report, free_logits[:, -1]
+
+
+def phase_serve_moe(bw: float, errs) -> dict:
+    """granite-moe-1b-a400m at full width (24 layers, f32, seed 0) with
+    ``moe_impl="scatter"``: ``Model.prefill`` of SERVE_BATCH x SERVE_SEQ
+    tokens on the flash path (B7 once per layer, hd 64 padded to 128)
+    and the naive path, flash vs naive with the flash path's routing
+    replayed into the naive one, the free-running pair's routing flips
+    held to the near-tie rule; B7 on layer 0's inputs against float64;
+    the dropped share of (token, k) pairs by layer at the published
+    capacity factor; ``Engine.generate`` with launch/serve.py's batch;
+    decode vs prefill on the dropless copy. Then the lines
+    ``serve_moe_onehot`` and ``serve_mixtral``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, moe
+    from repro_torch.serving import Engine
+
+    cfg = get_config(MOE_ARCH).with_(moe_impl="scatter")
+    naive, flash = build_model(cfg), build_model(cfg.with_(attn_impl="flash"))
+    gc.collect()
+    reset_peak()
+    t0 = time.perf_counter()
+    params = naive.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ),
+                           generator=gen, device="cuda")
+
+    # the path: the flash prefill, its launches counted, layer 0's B7
+    # inputs kept, each layer's routing recorded
+    reset_peak()
+    ops.reset_launch_counts()
+    flash_route = []
+    with capture_inputs(names=("flash_attention",), keep=1) as inputs:
+        flash_logits, flash_first_ms = timed_prefill(
+            flash, params, tokens, record=flash_route)
+    launches = ops.launch_counts()
+    flash_peak = torch.cuda.max_memory_allocated()
+    expect_counts("serve_moe prefill (flash)", launches,
+                  {"flash_attention": cfg.num_layers})
+    flash_ms = [timed_prefill(flash, params, tokens)[1] for _ in range(2)]
+    flash_profile = profile_calls(
+        "serve_moe_prefill", lambda: flash.prefill(params, tokens,
+                                                   logits_mode="last"),
+        statistics.median(flash_ms), 1, "prefill")
+    dropped = [dropped_share(e, cfg) for _, e in flash_route]
+    # the queue cumsum on layer 0's routing as moe_forward lays it out
+    # (experts first: the scan runs along the tokens) and tokens first
+    tokens_first = moe.one_hot(flash_route[0][1].reshape(-1),
+                               cfg.moe.num_experts, torch.int64)
+    experts_first = tokens_first.T.contiguous()
+    cumsum_ms = dict(
+        experts_first=time_ms(lambda: torch.cumsum(experts_first, dim=-1)),
+        tokens_first=time_ms(lambda: torch.cumsum(tokens_first, dim=0)))
+    del tokens_first, experts_first
+
+    # the naive path with the flash path's routing replayed, then free
+    reset_peak()
+    ops.reset_launch_counts()
+    replayed_logits, naive_first_ms = timed_prefill(
+        naive, params, tokens, replay=[e for _, e in flash_route])
+    naive_peak = torch.cuda.max_memory_allocated()
+    naive_route = []
+    free_logits, naive_free_ms = timed_prefill(naive, params, tokens,
+                                               record=naive_route)
+    naive_ms = [naive_free_ms, timed_prefill(naive, params, tokens)[1]]
+    expect_counts("serve_moe prefill (naive)", ops.launch_counts(), {})
+    for name_, lg in (("flash", flash_logits), ("naive", free_logits)):
+        if lg.shape != (SERVE_BATCH, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(lg).all()):
+            fail(f"serve_moe: {name_} prefill logits {tuple(lg.shape)} are "
+                 f"not finite last-position logits")
+    flash_vs_naive = float((flash_logits - replayed_logits).abs().max())
+    if not flash_vs_naive < FLASH_NAIVE_TOL:
+        fail(f"serve_moe: flash and naive prefill logits differ by "
+             f"{flash_vs_naive:.3e} with the routing replayed (limit "
+             f"{FLASH_NAIVE_TOL})")
+    flips = routing_flips(flash_route, naive_route, cfg.moe.top_k)
+    expect_near_ties("serve_moe prefill", flips)
+    free_diff = float((flash_logits - free_logits).abs().max())
+    del flash_route, naive_route, flash_logits, replayed_logits, free_logits
+    torch.cuda.empty_cache()
+
+    # B7 on the path's own inputs: float64, faulty results, times; half
+    # of each head's 128 lanes are the zero pad of hd 64
+    (case,) = inputs["flash_attention"]
+    row = b7_on_path(case, cfg, torch.float32, bw, errs)
+    row["useful_share"] = cfg.resolved_head_dim / case[0].shape[-1]
+    del case, inputs
+    torch.cuda.empty_cache()
+
+    # serving: launch/serve.py's batch; a decode step's capacity is
+    # max(int(4 K / E cf), 4) = 4 = the requests, so it drops nothing
+    engine = Engine(naive, params, max_len=SERVE_PROMPT + SERVE_NEW + 8)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (SERVE_REQUESTS, SERVE_PROMPT), generator=gen,
+                            device="cuda")
+    res, serve = generate_timed("serve_moe", engine, prompts, SERVE_NEW)
+    lossless = dropless(cfg)
+    decode, decoded_last = moe_decode_check(
+        "serve_moe", build_model(lossless), params, prompts)
+    last, _ = timed_prefill(build_model(lossless.with_(attn_impl="flash")),
+                            params, prompts)
+    serve.update(decode, **first_tokens_decided(
+        "serve_moe", res.tokens, decoded_last, last[:, -1]))
+    held = [naive.init_cache(SERVE_REQUESTS, engine.max_len), 0]
+
+    def one_step():
+        _, held[0] = naive.decode_step(params, prompts[:, :1], held[0],
+                                       held[1])
+        held[1] += 1
+
+    serve["profile"] = profile_calls("serve_moe_decode", one_step,
+                                     decode["decode_ms_per_step"], 5,
+                                     "decode_step")
+    del held
+    emit("serve_moe", arch=cfg.name, moe_impl=cfg.moe_impl, params=n_params,
+         weight_bytes=sum(p.numel() * p.element_size()
+                          for p in params.parameters()), init_s=init_s,
+         prefill=dict(batch=SERVE_BATCH, seq=SERVE_SEQ, launches=launches,
+                      flash_ms=flash_ms, flash_first_ms=flash_first_ms,
+                      naive_ms=naive_ms, naive_first_ms=naive_first_ms,
+                      flash_peak_bytes=flash_peak, profile=flash_profile,
+                      naive_peak_bytes=naive_peak,
+                      flash_vs_naive_replayed_max_abs_diff=flash_vs_naive,
+                      flash_vs_naive_free_max_abs_diff=free_diff,
+                      routing_flips=[r["flips"] for r in flips],
+                      routing_flips_by_layer=flips,
+                      capacity_factor=cfg.moe.capacity_factor,
+                      dropped_share_by_layer=dropped,
+                      dropped_share=statistics.mean(dropped),
+                      queue_cumsum_ms=cumsum_ms),
+         flash_attention=row, serve=serve, card=smi_line())
+    del engine, res, last, decoded_last
+    torch.cuda.empty_cache()
+    onehot = serve_moe_onehot(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral = serve_mixtral()
+    return dict(launches=launches, flash_attention=row, onehot=onehot,
+                mixtral=mixtral)
+
+
+def serve_moe_onehot(cfg, params) -> dict:
+    """granite's two dispatches on 1 x ONEHOT_SEQ tokens (onehot's
+    (T K, E, C) dispatch is 1.34 GB a layer here): each layer's
+    ``moe_forward`` of both on the input the scatter prefill gave that
+    layer, within KERNEL_TOL (1 + max|scatter|); both prefills, and the
+    layer 0 call of each, timed, with its peak above what was
+    allocated."""
+    from repro_torch.models import build_model, moe
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (1, ONEHOT_SEQ),
+                           generator=gen, device="cuda")
+    real = moe.moe_forward
+    inputs = []
+
+    def capture(p, x, c):
+        inputs.append((p, x))
+        return real(p, x, c)
+
+    moe.moe_forward = capture
+    try:
+        build_model(cfg).prefill(params, tokens, logits_mode="last")
+    finally:
+        moe.moe_forward = real
+    impls = {impl: cfg.with_(moe_impl=impl) for impl in ("scatter", "onehot")}
+    diffs, aux_diffs = [], []
+    with torch.no_grad():
+        for p, x in inputs:
+            (ys, auxs), (yo, auxo) = (real(p, x, c) for c in impls.values())
+            scale = float(ys.abs().max())
+            diff = float((yo - ys).abs().max())
+            if not diff <= KERNEL_TOL * (1.0 + scale):
+                fail(f"serve_moe_onehot: layer {len(diffs)}'s onehot and "
+                     f"scatter outputs differ by {diff:.3e} (max "
+                     f"{scale:.3e})")
+            diffs.append(diff)
+            aux_diffs.append(abs(float(auxo) - float(auxs)))
+    out = dict(tokens=ONEHOT_SEQ, layers=len(inputs),
+               max_abs_diff_by_layer=diffs, aux_abs_diff_by_layer=aux_diffs)
+    p, x = inputs[0]
+    for impl, c in impls.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            real(p, x, c)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        with torch.no_grad():
+            layer_ms = time_ms(lambda: real(p, x, c), ONEHOT_REPS,
+                               ONEHOT_WINDOWS)
+        model = build_model(c)
+        prefill_ms = [timed_prefill(model, params, tokens)[1]
+                      for _ in range(3)]
+        out[impl] = dict(layer0_ms=layer_ms, layer0_peak_extra_bytes=peak,
+                         prefill_ms=prefill_ms)
+    del inputs
+    torch.cuda.empty_cache()
+    emit("serve_moe_onehot", arch=cfg.name, **out, card=smi_line())
+    return out
+
+
+def serve_mixtral() -> dict:
+    """mixtral-8x7b at its widths (f32, seed 0), cut to MIXTRAL_LAYERS
+    layers: a naive prefill of MIXTRAL_BATCH x MIXTRAL_SEQ tokens (the
+    4096-token window masks; with it, flash is never taken) with the
+    reference's onehot dispatch, shown to differ from the same prefill
+    without the window; ``Engine.generate`` of 2 x (16 + 24) tokens;
+    decode vs prefill on the dropless copy, below the window. Launches
+    none of B1-B7."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine
+
+    cfg = get_config(MIXTRAL_ARCH).with_(num_layers=MIXTRAL_LAYERS)
+    model = build_model(cfg)
+    gc.collect()
+    reset_peak()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layer_params = sum(p.numel() for n, p in params.named_parameters()
+                       if n.startswith("layers."))
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (MIXTRAL_BATCH, MIXTRAL_SEQ),
+                           generator=gen, device="cuda")
+    reset_peak()
+    route = []
+    logits, first_ms = timed_prefill(model, params, tokens, record=route)
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = [timed_prefill(model, params, tokens)[1] for _ in range(2)]
+    dropped = [dropped_share(e, cfg) for _, e in route]
+    del route
+    if logits.shape != (MIXTRAL_BATCH, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"serve_mixtral: prefill logits {tuple(logits.shape)} are not "
+             f"finite last-position logits")
+    unwindowed, _ = timed_prefill(
+        build_model(cfg.with_(sliding_window=None)), params, tokens)
+    window_effect = float((logits - unwindowed).abs().max())
+    if not window_effect > 0.0:
+        fail("serve_mixtral: the prefill past the window equals the one "
+             "without it")
+    del logits, unwindowed
+    torch.cuda.empty_cache()
+    engine = Engine(model, params, max_len=SERVE_PROMPT + SERVE_NEW + 8)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (MIXTRAL_REQUESTS, SERVE_PROMPT), generator=gen,
+                            device="cuda")
+    res, serve = generate_timed("serve_mixtral", engine, prompts, SERVE_NEW)
+    lossless = build_model(dropless(cfg))
+    decode, decoded_last = moe_decode_check("serve_mixtral", lossless,
+                                            params, prompts)
+    last, _ = timed_prefill(lossless, params, prompts)
+    serve.update(decode, **first_tokens_decided(
+        "serve_mixtral", res.tokens, decoded_last, last[:, -1]))
+    launches = ops.launch_counts()
+    expect_counts("serve_mixtral", launches, {})
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               layer_params=layer_params, params=n_params,
+               weight_bytes=4 * n_params, init_s=init_s,
+               moe_impl=cfg.moe_impl, window=cfg.sliding_window,
+               prefill=dict(batch=MIXTRAL_BATCH, seq=MIXTRAL_SEQ,
+                            ms=prefill_ms, first_ms=first_ms,
+                            peak_bytes=peak,
+                            capacity_factor=cfg.moe.capacity_factor,
+                            dropped_share_by_layer=dropped,
+                            window_effect_max_abs_diff=window_effect),
+               serve=serve, launches=launches)
+    emit("serve_mixtral", **out, card=smi_line())
+    del params, engine, res, last, decoded_last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_parts(model_cfg, params, N: int, batch: int, seq: int) -> dict:
+    """ms of one MoE layer's parts under the train step's
+    ``vmap(grad)``, each timed alone on N workers' N(0, 1) inputs of the
+    step's token count and layer 0's weights (every worker's the same):
+    the router (softmax and top-k), the whole ``moe_forward`` forward
+    and forward + backward, and the three expert products alone on its
+    (E, C, d) buffer; the dispatch (top-k, cumsum, dispatch and combine)
+    is the whole less the experts. Times the layers."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    L = model_cfg.num_layers
+    d, E = model_cfg.d_model, model_cfg.moe.num_experts
+    C = moe.capacity(batch * seq, model_cfg)
+    lp = {k: v[0].expand((N,) + v.shape[1:])
+          for k, v in params["layers"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn((N, batch, seq, d), generator=gen, device="cuda")
+    buf = torch.randn((N, E, C, d), generator=gen, device="cuda")
+
+    def whole(p, x):
+        y, aux = moe.moe_forward(p, x, model_cfg)
+        return y.sum() + aux
+
+    def experts(p, h):
+        g = F.silu(torch.einsum("ecd,edf->ecf", h, p["w_gate"]))
+        g = g * torch.einsum("ecd,edf->ecf", h, p["w_up"])
+        return torch.einsum("ecf,efd->ecd", g, p["w_down"]).sum()
+
+    vm, grad = torch.func.vmap, torch.func.grad
+    with torch.no_grad():
+        route = time_ms(lambda: vm(lambda p, x: moe.route(
+            p, x.reshape(-1, d), model_cfg))(lp, x), 5, 3)
+        fwd = time_ms(lambda: vm(whole)(lp, x), 5, 3)
+        exp_fwd = time_ms(lambda: vm(experts)(lp, buf), 5, 3)
+    both = time_ms(lambda: vm(grad(whole, argnums=(0, 1)))(lp, x), 3, 3)
+    exp_both = time_ms(lambda: vm(grad(experts, argnums=(0, 1)))(lp, buf),
+                       3, 3)
+    per_layer = dict(router=route, forward=fwd, forward_backward=both,
+                     experts_forward=exp_fwd,
+                     experts_forward_backward=exp_both,
+                     dispatch_forward=fwd - exp_fwd,
+                     dispatch_forward_backward=both - exp_both)
+    return dict(capacity=C, per_layer_ms=per_layer,
+                per_step_ms={k: L * v for k, v in per_layer.items()})
+
+
+def phase_train_moe(bw: float, errs) -> dict:
+    """``ADMMTrainer`` on granite-moe-1b-a400m's stacked tree at its
+    widths, cut to TRAIN_MOE_LAYERS layers (f32, seed 0, the reference's
+    onehot dispatch), N = 2, M = 2 by LPT, launch/train.py's defaults,
+    ``TokenPipeline`` batches of 2 x 512 tokens a worker, 5 steps on the
+    kernels. Before each, the plain backend's step from the same state
+    (routing follows z, so two free-running trajectories part at a
+    token's first flip): z within KERNEL_TOL. Gates: step 0's loss is
+    ``Model.loss`` at z0 (aux in); the loss and gradient taken twice
+    from one state are bitwise equal; B1 and B2 once a step and held on
+    their inputs; pads 0; losses and z finite. Prints step ms, tokens/s,
+    peaks beside a reckoning, and a device split of the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+    from repro_torch.models.weights import stacked_params
+    from repro_torch.training import ADMMTrainer
+
+    N, M = TRAIN_WORKERS, TRAIN_BLOCKS
+    model_cfg = get_config(MOE_ARCH).with_(num_layers=TRAIN_MOE_LAYERS)
+    model = build_model(model_cfg)
+    gc.collect()
+    reset_peak()
+    params = stacked_params(model_cfg, 0, "cuda")
+    pipe = TokenPipeline(vocab_size=model_cfg.vocab_size,
+                         seq_len=TRAIN_SEQ + 1,
+                         global_batch=N * TRAIN_BATCH, seed=0)
+    batches = [pipe.batch(t, num_workers=N, device="cuda")
+               for t in range(TRAIN_STEPS + 1)]
+    tokens = N * TRAIN_BATCH * TRAIN_SEQ
+    P = sum(int(t.numel()) for t in tree_leaves(params))
+
+    def trainer(backend):
+        return ADMMTrainer(loss_fn=model.loss,
+                           admm=train_config(backend=backend),
+                           num_workers=N, device="cuda")
+
+    kern, plain = trainer("auto"), trainer("torch")
+    spec = kern._spec(params)
+    layout = spec.space.layout
+    if spec.space.backend != "cuda":
+        fail(f"train_moe: 'auto' resolved to {spec.space.backend!r} on the "
+             f"card")
+    T = M * layout.block_dim
+    m = model_cfg.moe
+    C = moe.capacity(TRAIN_BATCH * TRAIN_SEQ, model_cfg)
+    disp_bytes = 4 * TRAIN_BATCH * TRAIN_SEQ * m.top_k * m.num_experts * C
+    reckoned = (4 * (2 * T + 6 * N * T + N * P + P)
+                + N * model_cfg.num_layers * disp_bytes
+                + 4 * N * (3 * TRAIN_BATCH * TRAIN_SEQ + model_cfg.d_model)
+                * model_cfg.vocab_size)
+    emit("train_moe_plan", arch=model_cfg.name, layers=TRAIN_MOE_LAYERS,
+         params=P, block_sizes=list(layout.block_sizes),
+         dblk=layout.block_dim, padding=T - P, capacity=C,
+         dispatch_bytes_per_layer_per_worker=disp_bytes,
+         reckoned_peak_bytes=reckoned)
+    loss0 = direct_loss(model, params, batches[0], N)
+    state = kern.init(params)
+    del params
+
+    # the loss and gradient taken twice from one state: bitwise
+    space = spec.space
+    z_tilde = space.gather(kern._packed(spec, state).z_hist,
+                           torch.ones((N, M), dtype=torch.int64,
+                                      device="cuda"))
+    first = space.worker_grads(model.loss, z_tilde, batches[0])
+    second = space.worker_grads(model.loss, z_tilde, batches[0])
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail("train_moe: the loss and gradient taken twice from one state "
+             "differ")
+    del z_tilde, first, second
+    torch.cuda.empty_cache()
+
+    times, plain_times, losses, plain_losses, peaks, diffs = \
+        [], [], [], [], [], []
+    launches = {k: 0 for k in PLAIN}
+    for t in range(TRAIN_STEPS):
+        # the plain step from the kernel path's state before this step,
+        # its z to the host while the kernel step runs
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_state, p_info = plain.train_step(state, batches[t])
+        torch.cuda.synchronize()
+        plain_times.append(1e3 * (time.perf_counter() - t0))
+        if any(ops.launch_counts().values()):
+            fail("train_moe: the torch backend launched a kernel")
+        plain_losses.append(float(p_info["loss"]))
+        z_plain = plain._packed(plain._spec(p_state.params),
+                                p_state).z_hist[0].cpu()
+        del p_state, p_info
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, info = kern.train_step(state, batches[t])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        peaks.append(torch.cuda.max_memory_allocated())
+        step_launches = ops.launch_counts()
+        expect_launches(f"train_moe step {t}", step_launches, 1,
+                        MAIN_KERNELS)
+        for k, n in step_launches.items():
+            launches[k] += n
+        losses.append(float(info["loss"]))
+        packed = kern._packed(kern._spec(state.params), state)
+        if not pads_zero(layout, packed.z_hist, packed.y, packed.w_cache):
+            fail(f"train_moe: a pad lane is not 0 after step {t}")
+        if not math.isfinite(losses[-1]) or not bool(
+                torch.isfinite(packed.z_hist[0]).all()):
+            fail(f"train_moe: loss or z not finite at step {t}")
+        diffs.append(compare(packed.z_hist[0], z_plain.cuda()))
+        del packed, z_plain
+    loss_rel = same_loss("train_moe", losses[0], loss0)
+    step_ms = statistics.median(times[1:])
+    errs["server_prox_update"] = max(errs["server_prox_update"], max(diffs))
+
+    held = [state]
+    del state
+
+    def step():
+        held[0], _ = kern.train_step(held[0], batches[TRAIN_STEPS])
+
+    profile = profile_calls("train_moe", step, step_ms, TRAIN_PROFILE_STEPS,
+                            expect={B1_NAME: 1, B2_NAME: 1})
+    split = train_split(model, spec, kern._packed(spec, held[0]),
+                        batches[TRAIN_STEPS], profile, step_ms)
+    parts = moe_parts(model_cfg, held[0].params, N, TRAIN_BATCH, TRAIN_SEQ)
+    with capture_inputs(copy=False, names=MAIN_KERNELS, keep=1) as inputs:
+        step()
+    del held[0]
+    torch.cuda.empty_cache()
+    rows = check_on_path("train_moe", inputs, MAIN_KERNELS, bw, errs)
+    del batches
+    torch.cuda.empty_cache()
+
+    kernels = b1_b2_rows(rows, profile)
+    emit("train_moe", arch=model_cfg.name, layers=TRAIN_MOE_LAYERS, N=N, M=M,
+         params=P, block_sizes=list(layout.block_sizes),
+         dblk=layout.block_dim, padding=T - P, steps=TRAIN_STEPS,
+         tokens_per_step=tokens, launches=launches, losses=losses,
+         torch_losses_from_kernel_states=plain_losses, loss0_direct=loss0,
+         loss0_rel_diff=loss_rel, step_ms=times, step_ms_median=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3, torch_step_ms=plain_times,
+         torch_step_ms_median=statistics.median(plain_times[1:]),
+         peak_bytes=max(peaks), peak_bytes_by_step=peaks,
+         reckoned_peak_bytes=reckoned, z_max_abs_diff_vs_torch=diffs,
+         grads_twice_bitwise=True, pads_zero=True,
+         device_ms_per_step=split, moe_parts=parts, profile=profile,
+         kernels=kernels, card=smi_line())
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3633,8 +4321,10 @@ def main() -> int:
     phase_ps_tree()
     phase_train(bw, errs)
     phase_train_entry_points()
+    phase_train_moe(bw, errs)
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
+    phase_serve_moe(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)
     logreg16_launches, logreg16_rows = phase_logreg_bf16(bw, errs)
 

@@ -1,6 +1,16 @@
-"""Transformer stack — the dense family of ``repro/models/transformer.py``:
-[attention + MLP] x L (qwen3, qwen1.5, chatglm3, and chameleon, whose
-image tokens share the vocabulary).
+"""Transformer stack — the dense and MoE families of
+``repro/models/transformer.py``:
+
+  dense — [attention + MLP] x L  (qwen3, qwen1.5, chatglm3, and
+                                  chameleon, whose image tokens share
+                                  the vocabulary)
+  moe   — [attention + MoE] x L  (mixtral, with its sliding window;
+                                  granite-moe)
+
+A MoE layer returns its output and its auxiliary loss (the router's
+load-balance term); ``forward`` sums the layers' in layer order, as the
+reference's scan carries it (zero for the dense family), and
+``decode_step`` drops it.
 
 Two parameter trees, one forward:
 
@@ -19,7 +29,7 @@ Two parameter trees, one forward:
   in place and reads no value on the host, so it runs under
   ``torch.func.grad`` and ``vmap``.
 
-The reference's other families (moe, ssm, hybrid, audio) and MLA raise
+The reference's other families (ssm, hybrid, audio) and MLA raise
 ``NotImplementedError`` (ROADMAP Queue A item 11). ``remat`` changes
 nothing at inference; on the stacked tree it raises: ``torch.func.grad``
 refuses the saved-tensor hooks that ``torch.utils.checkpoint`` needs.
@@ -32,6 +42,7 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import dense_init, embed_init, init_mlp, mlp, rmsnorm
 
 NOT_PORTED = attn.NOT_PORTED
@@ -60,12 +71,12 @@ class ParamTree(nn.Module):
 
 
 def check_family(cfg) -> None:
-    """The families the port has: dense GQA (dense, vlm)."""
-    if cfg.arch_type not in ("dense", "vlm") or cfg.moe is not None \
+    """The families the port has: dense GQA (dense, vlm) and moe."""
+    if cfg.arch_type not in ("dense", "vlm", "moe") \
             or cfg.ssm is not None or cfg.is_enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
-            f"({NOT_PORTED}); the port has the dense GQA family")
+            f"({NOT_PORTED}); the port has the dense GQA and MoE families")
     if cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is not ported yet ({NOT_PORTED})")
@@ -77,13 +88,17 @@ def check_family(cfg) -> None:
 
 def _init_dense_layer(gen, cfg, device):
     dt = cfg.torch_param_dtype()
-    return {
+    p = {
         "attn": attn.init_attention(gen, cfg, device=device),
         "norm1": torch.ones((cfg.d_model,), dtype=dt, device=device),
         "norm2": torch.ones((cfg.d_model,), dtype=dt, device=device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt,
-                        device=device),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt,
+                            device=device)
+    return p
 
 
 def init_params(gen: Optional[torch.Generator], cfg, device=None) -> ParamTree:
@@ -110,13 +125,21 @@ def init_params(gen: Optional[torch.Generator], cfg, device=None) -> ParamTree:
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _ffn(lp, h, cfg):
+    """The layer's MoE or MLP on ``h``: (y, aux), aux None for an MLP
+    (no zero is made per layer)."""
+    if cfg.moe is not None:
+        return moe_mod.moe_forward(lp["moe"], h, cfg)
+    return mlp(lp["mlp"], h, cfg.act), None
+
+
 def _dense_layer_fwd(lp, x, cfg, positions):
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
     a = attn.gqa_forward(lp["attn"], h, cfg, positions,
                          window=cfg.sliding_window)
     x = x + a
-    h = rmsnorm(x, lp["norm2"], cfg.norm_eps)
-    return x + mlp(lp["mlp"], h, cfg.act)
+    y, aux = _ffn(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
+    return x + y, aux
 
 
 def unbind_layers(stacked: Dict[str, Any]):
@@ -136,7 +159,8 @@ def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
 
     logits_mode="last": project only the final position (serving prefill
     needs one next-token distribution, not S of them). ``aux`` is the
-    reference's auxiliary loss, zero for the dense family."""
+    reference's auxiliary loss: the layers' summed in layer order (the
+    MoE router's load-balance term), zero for the dense family."""
     check_family(cfg)
     if enc_frames is not None:
         raise NotImplementedError(
@@ -153,12 +177,15 @@ def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    aux_total = torch.zeros((), device=x.device)
     for lp in layers:
-        x = _dense_layer_fwd(lp, x, cfg, positions)
+        x, aux = _dense_layer_fwd(lp, x, cfg, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
     if logits_mode == "last":
         x = x[:, -1:]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x, cfg), torch.zeros((), device=x.device)
+    return _logits(params, x, cfg), aux_total
 
 
 def _logits(params, x, cfg):
@@ -197,7 +224,7 @@ def decode_step(params, token, cache, pos, cfg):
         a, _ = attn.gqa_decode(lp["attn"], h, cfg, {"k": ck[i], "v": cv[i]},
                                pos)
         y = x + a
-        x = y + mlp(lp["mlp"], rmsnorm(y, lp["norm2"], cfg.norm_eps),
-                    cfg.act)
+        z, _ = _ffn(lp, rmsnorm(y, lp["norm2"], cfg.norm_eps), cfg)
+        x = y + z
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), cache

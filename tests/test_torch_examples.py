@@ -1,8 +1,9 @@
 """The port's entry points against the reference's scripts:
 ``repro_torch.examples.quickstart``, ``repro_torch.examples.
-sparse_logreg_admm`` and ``repro_torch.benchmarks.convergence`` against
-``examples/quickstart.py``, ``examples/sparse_logreg_admm.py`` and
-``benchmarks/convergence.py``, loaded by path and run as they are, on
+sparse_logreg_admm``, ``repro_torch.benchmarks.convergence`` and
+``repro_torch.examples.serve_decode`` against ``examples/quickstart.py``,
+``examples/sparse_logreg_admm.py``, ``benchmarks/convergence.py`` and
+``examples/serve_decode.py``, loaded by path and run as they are, on
 the CPU.
 
 The draw-free variants (``max_delay=0``, ``block_fraction=1``) run with
@@ -29,7 +30,7 @@ from repro.kernels import ops as rops
 from repro_torch import api as tapi
 from repro_torch.benchmarks import convergence
 from repro_torch.core import space as tspace
-from repro_torch.examples import quickstart, sparse_logreg_admm
+from repro_torch.examples import quickstart, serve_decode, sparse_logreg_admm
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = 1e-5
@@ -177,6 +178,32 @@ def test_convergence_matches_the_reference(injected, monkeypatch):
         assert p["us_per_call"] > 0
 
 
+def test_serve_decode_matches_the_reference_lines(monkeypatch, capsys):
+    """``serve_decode`` at its defaults: one line per arch of the
+    reference's default list less the SSM and hybrid archs, in the
+    reference's format (the mixtral line against the reference script's
+    own); the samples are the port's draws (temperature 0.7, seed 1),
+    the same on a second run."""
+    monkeypatch.setattr(sys, "argv", ["serve_decode.py", "--arch",
+                                      "mixtral-8x7b"])
+    _load("examples/serve_decode.py").main()
+    ref_line = capsys.readouterr().out.splitlines()[-1]
+    rows = serve_decode.main(["--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert [r["arch"] for r in rows] == ["qwen3-1.7b", "mixtral-8x7b"]
+    assert out == [r["line"] for r in rows]
+    assert out[1].split()[:3] == ref_line.split()[:3] == [
+        "mixtral-8x7b", "64", "tokens"]
+    assert out[1].index("sample:") == ref_line.index("sample:")
+    for row in rows:
+        assert row["tokens"].shape == (4, 16)
+        assert row["tokens"].min() >= 0 and row["tokens"].max() < 512
+        assert f"sample: {row['tokens'][0][:8].tolist()}" in row["line"]
+    again = serve_decode.main(["--device", "cpu", "--arch",
+                               "mixtral-8x7b"])
+    np.testing.assert_array_equal(again[0]["tokens"], rows[1]["tokens"])
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """``device=None`` means CUDA; without a card each entry point
     raises rather than moving to the CPU."""
@@ -187,3 +214,5 @@ def test_entry_points_default_to_the_card(monkeypatch):
         sparse_logreg_admm.main(["--dim", "256", "--epochs", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convergence.main(epochs=1, eval_every=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_decode.main([])

@@ -2,8 +2,8 @@
 ``repro_torch.launch.train.main(argv)`` with both trainers, under the
 PS runtime (its ``--profile-dir`` through ``torch.profiler``) and with
 ``--ckpt``; ``repro_torch.examples.train_transformer_admm.main`` with
-``--quick``. Every JSON line must parse and every loss be finite; both
-default to the card."""
+``--quick``; the two MoE archs through ``--arch``. Every JSON line must
+parse and every loss be finite; both default to the card."""
 import json
 
 import numpy as np
@@ -42,6 +42,18 @@ def test_launch_train_runs_both_trainers(trainer, capsys, tmp_path):
     moved = max(float((a - b).abs().max()) for a, b in zip(
         tree_leaves(params), tree_leaves(like)))
     assert moved > 0.0
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x7b"])
+def test_launch_train_runs_the_moe_archs(arch, capsys):
+    """``--arch`` takes its choices from ``list_archs()``: both MoE
+    smokes train 3 ADMM steps, the router's aux loss in every loss."""
+    losses = train.main(["--arch", arch, "--device", "cpu", "--steps", "3",
+                         "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke" in out
+    assert [r["loss"] for r in _records(out)] == losses
+    assert len(losses) == 3 and np.isfinite(losses).all()
 
 
 def test_launch_train_ps_runtime(capsys, tmp_path):

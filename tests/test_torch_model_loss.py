@@ -8,7 +8,9 @@ on the same seeded tokens (fp32, TF32 off on the CPU). Tolerances: the
 loss within 1e-6 relative, each gradient leaf within 1e-5 (1 +
 max|g|), the port's parity tolerance (the reference's between its own
 backends). Measured on the four dense smokes: loss at most 1.4e-7
-relative, gradients at most 7.4e-7 (1 + max|g|).
+relative, gradients at most 7.4e-7 (1 + max|g|); on the two MoE smokes
+(both dispatches, the router's auxiliary loss in the sum): loss 1.4e-7,
+gradients 5.8e-7.
 """
 import jax
 import jax.numpy as jnp
@@ -19,15 +21,19 @@ import torch
 from repro.configs import get_smoke as ref_smoke
 from repro.models import build_model as ref_build
 from repro.models.layers import cross_entropy as ref_cross_entropy
+from repro.models.transformer import forward as ref_forward
 from repro_torch.configs import get_smoke
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.models import (build_model, params_from_numpy,
                                 params_from_stacked, stacked_from_numpy,
                                 stacked_params)
+from repro_torch.models import transformer
 from repro_torch.models.layers import cross_entropy
 from repro_torch.serving import Engine
 
-ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
+DENSE_ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
+MOE_ARCHS = ["mixtral-8x7b", "granite-moe-1b-a400m"]
+ARCHS = DENSE_ARCHS + MOE_ARCHS
 LOSS_TOL = 1e-6
 GRAD_TOL = 1e-5
 
@@ -89,6 +95,29 @@ def test_loss_and_grads_match_reference(arch):
     _grad_close(model.grad_fn()(params, tb), rgrad)
 
 
+@pytest.mark.parametrize("impl", ["onehot", "scatter"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_carries_the_aux_loss(arch, impl):
+    """``Model.loss`` of a MoE arch is the cross-entropy plus the layers'
+    router load-balance terms, summed in layer order: the aux equals the
+    reference's (1e-6 relative) and is not zero; the loss and gradient
+    match the reference's in each dispatch."""
+    rmodel, rparams, model, params = _pair(arch, moe_impl=impl)
+    rb, tb = _batch(model.cfg)
+    rlogits, raux = ref_forward(rparams, rb["tokens"], rmodel.cfg)
+    logits, aux = transformer.forward(params, tb["tokens"], model.cfg)
+    assert float(raux) > 0.0
+    np.testing.assert_allclose(float(aux), float(raux), rtol=LOSS_TOL)
+    with torch.no_grad():
+        ce = cross_entropy(logits, tb["labels"])
+        np.testing.assert_allclose(float(model.loss(params, tb)),
+                                   float(ce + aux), rtol=0, atol=0)
+    rloss, rgrad = jax.value_and_grad(rmodel.loss)(rparams, rb)
+    np.testing.assert_allclose(float(model.loss(params, tb)), float(rloss),
+                               rtol=LOSS_TOL)
+    _grad_close(model.grad_fn()(params, tb), rgrad)
+
+
 def test_loss_with_a_label_mask_matches_reference():
     rmodel, rparams, model, params = _pair("qwen3-1.7b")
     rb, tb = _batch(model.cfg, mask=True)
@@ -98,11 +127,13 @@ def test_loss_with_a_label_mask_matches_reference():
     _grad_close(model.grad_fn()(params, tb), rgrad)
 
 
-def test_loss_under_vmap_matches_per_worker_losses():
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+def test_loss_under_vmap_matches_per_worker_losses(arch):
     """``TreeSpace.worker_grads`` calls the loss as
     ``vmap(grad_and_value(loss))`` over a leading worker axis: each
-    worker's loss and gradient equal the loss taken on its own."""
-    cfg = get_smoke("qwen3-1.7b")
+    worker's loss and gradient equal the loss taken on its own (for
+    granite-moe through top-k, the cumsum and the dispatch)."""
+    cfg = get_smoke(arch)
     model = build_model(cfg)
     per = [stacked_params(cfg, seed, "cpu") for seed in (0, 1)]
     leaves, treedef = tree_flatten(per[0])
@@ -140,11 +171,13 @@ def test_stacked_forward_matches_paramtree_prefill(arch):
     assert float((last - ref[:, -1:]).abs().max()) <= 1e-6 * scale
 
 
-def test_params_from_stacked_views_the_tree_and_serves_it():
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+def test_params_from_stacked_views_the_tree_and_serves_it(arch):
     """``params_from_stacked`` copies no weight: every parameter is a
     view of a stacked leaf (a write to the stacked tree shows through),
-    and the ``Engine`` serves it as it serves ``Model.init``'s tree."""
-    cfg = get_smoke("qwen3-1.7b")
+    and the ``Engine`` serves it as it serves ``Model.init``'s tree (for
+    granite-moe the (L, E, d, ff) expert stacks too)."""
+    cfg = get_smoke(arch)
     model = build_model(cfg)
     stacked = stacked_params(cfg, 0, "cpu")
     tree = params_from_stacked(cfg, stacked)
@@ -158,6 +191,10 @@ def test_params_from_stacked_views_the_tree_and_serves_it():
     assert tree["layers"][1]["attn"]["w_q"].data_ptr() == \
         w[1].data_ptr()
     assert tree["embed"].data_ptr() == stacked["embed"].data_ptr()
+    if cfg.moe is not None:
+        w_up = stacked["layers"]["moe"]["w_up"]
+        assert tree["layers"][1]["moe"]["w_up"].data_ptr() == \
+            w_up[1].data_ptr()
     prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 4))
     a = Engine(model, tree, max_len=16).generate(prompts, max_new=4)
     b = Engine(model, init, max_len=16).generate(prompts, max_new=4)

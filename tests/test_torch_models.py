@@ -1,15 +1,19 @@
-"""The port's dense model stack (``repro_torch.models``) against the
-reference's (``repro.models``) for each of the four dense archs at their
-smoke configs. The reference's params (``model.init(PRNGKey(0))``) are
-carried across by ``params_from_numpy``, so both compute the same
-function on the same seeded tokens.
+"""The port's model stack (``repro_torch.models``) against the
+reference's (``repro.models``) for each of the four dense archs and the
+two MoE archs at their smoke configs. The reference's params
+(``model.init(PRNGKey(0))``) are carried across by ``params_from_numpy``,
+so both compute the same function on the same seeded tokens.
 
 Tolerance: 1e-5 of max|reference logits|, the parity tolerance of the
 port (the reference's between its own backends). Measured max|Δ| on
-the four archs: at most 1.4e-6 of max|ref| for prefill, naive and flash.
+the six archs: at most 1.4e-6 of max|ref| for prefill, naive and flash.
 The port's own decode-vs-prefill check uses the reference's 5e-4
-(``tests/test_decode_consistency.py``).
+(``tests/test_decode_consistency.py``). The MoE smokes are dropless
+(capacity factor 4.0 = E / K), so a prefill and a token-by-token decode
+route alike.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,11 +23,13 @@ import torch
 from repro.configs import get_smoke as ref_smoke
 from repro.models import build_model as ref_build
 from repro_torch.configs import get_config, get_smoke, list_archs
-from repro_torch.configs.base import MLAConfig, MoEConfig
+from repro_torch.configs.base import MLAConfig, SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.models import build_model, params_from_numpy
 
-ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
+DENSE_ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
+MOE_ARCHS = ["mixtral-8x7b", "granite-moe-1b-a400m"]
+ARCHS = DENSE_ARCHS + MOE_ARCHS
 PARITY = 1e-5
 
 
@@ -50,24 +56,32 @@ def _close(out, ref, tol=PARITY):
 
 
 def test_the_port_has_the_four_dense_archs():
+    """The four dense archs and the two MoE archs; the families still
+    missing (MLA, SSM, hybrid, enc-dec) name the ROADMAP item."""
     assert sorted(list_archs()) == sorted(ARCHS)
     for arch in ARCHS:
         assert get_config(arch) == get_config(arch).with_()
         ref = ref_smoke(arch)
         ours = get_smoke(arch)
-        assert {f: getattr(ours, f) for f in ours.__dataclass_fields__} == \
-            {f: getattr(ref, f) for f in ref.__dataclass_fields__}
-    with pytest.raises(KeyError, match="Queue A item 11"):
-        get_config("mixtral-8x7b")
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    for missing in ("minicpm3-4b", "mamba2-370m", "zamba2-1.2b",
+                    "whisper-medium"):
+        with pytest.raises(KeyError, match="Queue A item 11"):
+            get_config(missing)
+        with pytest.raises(KeyError, match="MLA, SSM, hybrid, enc-dec"):
+            get_smoke(missing)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_full_configs_match_reference(arch):
     from repro.configs import get_config as ref_config
     ref, ours = ref_config(arch), get_config(arch)
-    for f in ref.__dataclass_fields__:
-        assert getattr(ours, f) == getattr(ref, f), f
+    mine = dataclasses.asdict(ours)
+    for f, value in dataclasses.asdict(ref).items():
+        assert mine[f] == value, f
     assert ours.param_count() == ref.param_count()
+    assert ours.param_count(active_only=True) == \
+        ref.param_count(active_only=True)
     assert ours.torch_dtype() == torch.float32
 
 
@@ -163,6 +177,41 @@ def test_decode_past_the_cache_length_matches_reference():
         _close(cache["layers"][name].numpy(), rcache["layers"][name])
 
 
+def test_decode_past_the_window_matches_reference():
+    """A reference defect kept for parity (ROADMAP Queue C): mixtral's
+    cache is allocated window-sized (32 slots in the smoke), and every
+    write at a position past it lands in the last slot, clamped, so
+    decode past the window leaves the prefill. 40 tokens decoded one by
+    one into a cache asked for 64: the port's logits equal the
+    reference's within 1e-5 of their max at every position; both agree
+    with the full prefill through position 31 (5e-4) and leave it from
+    position 32 on (measured: 3.2e-2 of max|logits| at 32, 0.28 at 33,
+    0.77 at 39, in both packages)."""
+    rmodel, rparams, model, params = _pair("mixtral-8x7b")
+    steps = 40
+    tok = _tokens(model.cfg, 1, steps)
+    rcache = rmodel.init_cache(1, 64)
+    cache = model.init_cache(1, 64, "cpu")
+    assert cache["layers"]["k"].shape[2] == model.cfg.sliding_window == 32
+    rdecode = jax.jit(rmodel.decode_step)
+    rfull = np.asarray(rmodel.prefill(rparams, jnp.asarray(tok)))[0]
+    full = model.prefill(params, torch.as_tensor(tok))[0].numpy()
+    rerr, err = [], []
+    for t in range(steps):
+        rlg, rcache = rdecode(rparams, jnp.asarray(tok[:, t:t + 1]), rcache,
+                              jnp.int32(t))
+        lg, cache = model.decode_step(params, torch.as_tensor(
+            tok[:, t:t + 1]), cache, t)
+        _close(lg.numpy(), rlg)
+        scale = float(np.abs(rfull[t]).max())
+        rerr.append(float(np.abs(np.asarray(rlg)[0, 0] - rfull[t]).max())
+                    / scale)
+        err.append(float(np.abs(lg[0, 0].numpy() - full[t]).max()) / scale)
+    for e in (rerr, err):
+        assert max(e[:32]) < 5e-4
+        assert min(e[32:]) > 1e-2, e[32:]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_own_prefill(arch):
     """The port's decode path against its own prefill, token by token,
@@ -181,33 +230,48 @@ def test_decode_matches_own_prefill(arch):
     assert max(errs) < 5e-4, f"{arch}: max err {max(errs)}"
 
 
-def test_cache_specs_match_reference():
-    rcfg, cfg = ref_smoke("qwen3-1.7b"), get_smoke("qwen3-1.7b")
-    rspec = ref_build(rcfg).cache_specs(3, 20)["layers"]
-    spec = build_model(cfg).cache_specs(3, 20)["layers"]
+@pytest.mark.parametrize("max_len", [20, 64])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b"] + MOE_ARCHS)
+def test_cache_specs_match_reference(arch, max_len):
+    """mixtral's cache is its window long (32 slots in the smoke) once
+    max_len passes it, as the reference allocates it."""
+    rcfg, cfg = ref_smoke(arch), get_smoke(arch)
+    rspec = ref_build(rcfg).cache_specs(3, max_len)["layers"]
+    spec = build_model(cfg).cache_specs(3, max_len)["layers"]
     for name in ("k", "v"):
         assert spec[name][0] == rspec[name].shape
         assert spec[name][1] == torch.float32
-    cache = build_model(cfg).init_cache(3, 20, "cpu")
+    cache = build_model(cfg).init_cache(3, max_len, "cpu")
     assert cache["layers"]["k"].shape == rspec["k"].shape
     assert not bool(cache["layers"]["k"].any())
+    if cfg.sliding_window is not None:
+        assert cache["layers"]["k"].shape[2] == min(max_len,
+                                                    cfg.sliding_window)
 
 
 def test_other_families_and_impls_name_the_roadmap_item():
-    cfg = get_smoke("qwen3-1.7b")
+    """The families and impls still missing: MLA, SSM, hybrid, enc-dec,
+    and the ``chunked`` / ``qchunk`` attention impls (on a dense and a
+    MoE arch)."""
     tok = torch.zeros((1, 8), dtype=torch.int64)
-    params = build_model(cfg).init(0, "cpu")
-    for impl in ("chunked", "qchunk"):
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
-            build_model(cfg.with_(attn_impl=impl)).prefill(params, tok)
-    moe = cfg.with_(arch_type="moe", moe=MoEConfig(4, 2, 64))
+    for arch in ("qwen3-1.7b", "mixtral-8x7b"):
+        cfg = get_smoke(arch)
+        params = build_model(cfg).init(0, "cpu")
+        for impl in ("chunked", "qchunk"):
+            with pytest.raises(NotImplementedError, match="Queue A item 11"):
+                build_model(cfg.with_(attn_impl=impl)).prefill(params, tok)
+    cfg = get_smoke("qwen3-1.7b")
     mla = cfg.with_(mla=MLAConfig(32, 32, 16, 16, 16))
-    for other in (moe, mla, cfg.with_(arch_type="ssm"),
+    ssm = cfg.with_(arch_type="ssm", ssm=SSMConfig(16))
+    hybrid = cfg.with_(arch_type="hybrid", ssm=SSMConfig(16),
+                       hybrid_attn_every=2)
+    for other in (mla, ssm, hybrid, cfg.with_(arch_type="audio"),
                   cfg.with_(encoder_layers=2)):
         with pytest.raises(NotImplementedError, match="Queue A item 11"):
             build_model(other).init(0, "cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        build_model(cfg).prefill(params, tok, enc_frames=torch.zeros(1))
+        build_model(cfg).prefill(build_model(cfg).init(0, "cpu"), tok,
+                                 enc_frames=torch.zeros(1))
 
 
 def test_params_from_numpy_checks_the_tree():

@@ -1,7 +1,8 @@
 """The port's serving engine (``repro_torch.serving.Engine``) and serve
 launcher against the reference's, with the reference's params carried
 across: greedy tokens equal the reference engine's on the prompts of
-``tests/test_serving.py``, for each of the four dense archs; plus
+``tests/test_serving.py``, for each of the four dense archs and the
+two MoE archs; plus
 determinism, EOS masking, temperature sampling and the launcher on the
 CPU.
 """
@@ -19,7 +20,8 @@ from repro_torch.launch import serve
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.serving import Engine
 
-ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
+ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b",
+         "mixtral-8x7b", "granite-moe-1b-a400m"]
 # tests/test_serving.py:19 and :31 — (seed, shape, max_len, max_new)
 PROMPTS = [(0, (2, 6), 32, 4), (1, (3, 5), 24, 6)]
 
@@ -113,7 +115,8 @@ def test_enc_frames_wait_for_the_enc_dec_slice():
                    enc_frames=np.zeros((1, 4, cfg.d_model)))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "chameleon-34b",
+                                  "mixtral-8x7b", "granite-moe-1b-a400m"])
 def test_serve_launcher_on_the_cpu(arch, capsys):
     res = serve.main(["--arch", arch, "--device", "cpu"])
     assert res.tokens.shape == (4, 24)

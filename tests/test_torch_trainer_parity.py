@@ -13,6 +13,8 @@ same token batches from a numpy seed, fp32 (the reference jitted):
   each trainer's ``sample_delay_model``: the reference's trainer takes
   no delay model), no minibatch;
 * ``SGDTrainer`` with AdamW for 5 steps;
+* ``train_step`` for 3 steps of the granite-moe smoke (the router's
+  auxiliary loss in the loss) at ``block_fraction=1, max_delay=0``;
 * what the port adds: the spec built once per tree, a step's state
   packed back with no copy, defaults to the card.
 
@@ -86,10 +88,10 @@ def _trainers(models, **kw):
                         num_workers=N, device="cpu"))
 
 
-def _run_and_compare(rt, tt, rparams, params):
+def _run_and_compare(rt, tt, rparams, params, steps=STEPS):
     rs, ts = rt.init(rparams), tt.init(params)
     rstep = jax.jit(rt.train_step)
-    for rb, tb in _batches():
+    for rb, tb in _batches(steps=steps):
         rs, rinfo = rstep(rs, rb)
         ts, tinfo = tt.train_step(ts, tb)
         for name in ("z_hist", "y", "w_cache"):
@@ -101,7 +103,7 @@ def _run_and_compare(rt, tt, rparams, params):
         np.testing.assert_allclose(float(tt.consensus_residual(ts)),
                                    float(rt.consensus_residual(rs)),
                                    rtol=TOL, atol=TOL)
-    assert ts.step == int(rs.step) == STEPS
+    assert ts.step == int(rs.step) == steps
     return ts
 
 
@@ -111,6 +113,21 @@ def test_train_step_matches_reference(models):
     moved = max(float((a - b).abs().max()) for a, b in zip(
         tree_leaves(ts.params), tree_leaves(models[3])))
     assert moved > 0.0
+
+
+def test_moe_train_step_matches_reference():
+    """granite-moe's smoke (the onehot dispatch, the reference's
+    default): its weights carried across, 3 draw-free steps; z, y,
+    w_cache, the loss and the residual at 1e-5."""
+    arch = "granite-moe-1b-a400m"
+    rmodel = ref_build(ref_smoke(arch))
+    rparams = rmodel.init(jax.random.PRNGKey(0))
+    model = build_model(get_smoke(arch))
+    params = stacked_from_numpy(model.cfg, jax.tree.map(np.asarray, rparams),
+                                "cpu")
+    rt, tt = _trainers((rmodel, rparams, model, params), max_delay=0,
+                       block_fraction=1.0)
+    _run_and_compare(rt, tt, rparams, params, steps=3)
 
 
 def _reference_draws(cfg, steps=STEPS):
