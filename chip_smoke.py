@@ -155,6 +155,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    finite. Prints the reckoned peak first (line ``train_moe_plan``),
    then step ms, tokens/s, peaks, the step's parts and the MoE layer's
    (router, dispatch, experts) each timed alone;
+   train_ssm — ``ADMMTrainer`` on mamba2-370m's stacked tree at full
+   width and depth (48 layers, d_model 1024, f32, seed 0) unless its
+   reckoned peak passes 72 GB (the loss's ``vmap(grad)`` peak measured
+   at 2 and 4 layers and extrapolated, beside the tables; then at the
+   most layers under it, the cut printed in line ``train_ssm_plan``
+   with the reckoning), N = 2,
+   M = 2 by LPT, launch/train.py's defaults, 2 x 512 tokens a worker:
+   5 steps on the kernels, before each the plain step from the same
+   state. Gates: z within KERNEL_TOL every step; step 0's loss equals
+   ``Model.loss`` at z0; the gradient at z0 finite; B1 and B2 once a
+   step and held on one more step's inputs; pads 0; losses and z
+   finite. Prints step ms, tokens/s, peaks beside the reckoning and a
+   device split of the step (each part's device busy time alone under
+   the profiler, the step's idle time apart);
 8. serve   — the dense model stack at qwen3-1.7b's full width (28
    layers, d_model 2048, 16 / 8 heads of 128, vocab 151,936, fp32,
    random weights from a seed): ``Model.prefill`` of 4 x 4096 tokens on
@@ -197,6 +211,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    a 2 x 4608 naive prefill past the 4096 window (shown to differ from
    the same prefill without it), ``Engine.generate`` 2 x (16 + 24),
    decode vs prefill on the dropless copy; no kernel launched;
+   serve_ssm — mamba2-370m in full (48 layers, d_model 1024, f32, seed
+   0): the 4 x 4096 prefill through the chunked SSD (no kernel), timed,
+   profiled (the device's idle share), its peak beside the weights and
+   the SSD's reckoned transients, the cumsum along the chunk timed in
+   both layouts; ``Engine.generate`` with launch/serve.py's batch;
+   decode vs prefill within 5e-4 at every prompt position, first tokens
+   the prefill's argmax where decided; the decode cache's bytes the same
+   at max_len 64 and 4096;
+   serve_hybrid — zamba2-1.2b in full (38 layers, d_model 2048, 32 heads
+   of 64, the shared attention block after every 6 SSM layers; f32,
+   seed 0): the 4 x 4096 prefill on the flash path, B7 launched once per
+   application of the shared block (6, at (128, 4096, 128): hd 64 padded
+   to 128), every launch's inputs held to float64 by B5's rule and the
+   first's timed beside its plain version and SDPA with its gate shown
+   to refuse faulty results; the naive path, flash vs naive within
+   2e-3; ``Engine.generate`` (B7 never in decode); decode vs prefill
+   within 5e-4; the SSM layers' decode state the same at max_len 64 and
+   4096;
 9. logreg  — ``ops.logreg_grad`` at the size the repo declares for it
    (m = 2^20 samples, d = 2^14 features, X dense f32, 68.72 GB, filled
    on the card in row chunks): launches B5 twice and B6 once; each pass
@@ -214,8 +246,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    dropped and 3-bit inputs; timed beside ``torch.matmul`` on the bf16
    operands and bf16 autograd; B6 as in ``logreg``;
 10. a ``kernels`` summary line (B5's designs each on a line of their
-   own after B5's; B2 on the PS runtime's commit and B6 in bf16 on
-   lines of their own, with device times per launch where measured),
+   own after B5's; B2 on the PS runtime's commit, B6 in bf16, B7 on
+   zamba2's prefill and B1 and B2 on mamba2's train step on lines of
+   their own, with device times per launch where measured),
    the card's nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -740,6 +773,17 @@ SOURCES = {
     "flash_attention_bf16": (
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:65"),
+    # B7 on zamba2-1.2b's prefill: the shared attention block, hd 64
+    "flash_attention_hybrid": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:65"),
+    # B1 and B2 on mamba2-370m's ADMM train step
+    "admm_worker_select_update_ssm": (
+        "src/repro_torch/csrc/admm_update.cu",
+        "src/repro/kernels/admm_update.py:136"),
+    "server_prox_update_ssm": (
+        "src/repro_torch/csrc/prox_update.cu",
+        "src/repro/kernels/prox_update.py:117"),
 }
 # one PyTorch call for the same function, where there is one
 LIBRARY = {"matmul": lambda a, b, transpose_a: torch.matmul(
@@ -1365,10 +1409,11 @@ def profile_window(run, calls: int, warmup: int = 0):
     t0 = min(e.time_range.start for e in events if e.name == MEASURED)
     by_name = {}
     for e in events:
-        # the profiler also lays the MEASURED range on the device's
-        # timeline; it spans the kernels, it is not one of them
+        # the profiler also lays the MEASURED range (and a step's part
+        # ranges) on the device's timeline; they span the kernels, they
+        # are not among them
         if e.device_type == DeviceType.CUDA and e.time_range.start >= t0 \
-                and e.name != MEASURED:
+                and e.name != MEASURED and not e.name.startswith(RANGE):
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     return sorted(((t, c, k) for k, (t, c) in by_name.items()),
@@ -1391,8 +1436,40 @@ def missed_launches(prof, frag: str) -> dict:
             "kernels_us": [t - t0 for t in kern]}
 
 
+RANGE = "chip_smoke.part."     # a step part's profiler range (step_ranges)
+BACKWARD = "autograd::engine::evaluate_function"
+
+
+def device_ms_by_range(prof, calls: int) -> dict:
+    """Device ms per call of the kernels each part of a step launched:
+    a kernel belongs to the innermost RANGE around the op that launched
+    it, or to the loss's backward when that op ran under the autograd
+    engine (whose CUDA work runs on a thread of its own, outside the
+    caller's ranges); "other" for the rest of the measured calls'
+    kernels that an op launched (B1 and B2, launched through ctypes and
+    not by an op, are not among them)."""
+    from torch.autograd import DeviceType
+    t0 = min(e.time_range.start for e in prof.events() if e.name == MEASURED)
+    parts = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels or \
+                e.time_range.start < t0:
+            continue
+        label, a = "other", e
+        while a is not None:
+            if a.name.startswith(RANGE) or a.name.startswith(BACKWARD):
+                label = a.name[len(RANGE):] if a.name.startswith(RANGE) \
+                    else "loss_backward"
+                break
+            a = a.cpu_parent
+        for k in e.kernels:
+            parts[label] = parts.get(label, 0.0) + k.duration / 1e3 / calls
+    return parts
+
+
 def profile_calls(path: str, run, wall_ms: float, calls: int,
-                  unit: str = "epoch", expect=None):
+                  unit: str = "epoch", expect=None, warmups=PROFILE_WARMUPS,
+                  by_range: bool = False):
     """Device time by kernel over ``calls`` calls of ``run`` (one epoch,
     one prefill, one decode step: a ``unit``) with torch.profiler, and
     the device's idle share of an unprofiled call (``wall_ms``): the
@@ -1401,8 +1478,10 @@ def profile_calls(path: str, run, wall_ms: float, calls: int,
     time over the launches the profiler recorded. ``expect`` maps a
     fragment of a kernel's name to its launches per call: the phase
     fails unless the profiler recorded exactly ``calls`` times that many
-    in one of the windows PROFILE_WARMUPS warms up ever longer, and
-    their times per launch are returned under ``kernels``. The table by kernel goes to
+    in one of the windows ``warmups`` warms up ever longer, and
+    their times per launch are returned under ``kernels``. With
+    ``by_range``, the device ms of each part of the call
+    (``device_ms_by_range``) under ``by_range``. The table by kernel goes to
     ``<path>_profile.json`` in the output directory, with the windows
     that lost launches (and how: ``missed_launches``) where there were
     any."""
@@ -1410,7 +1489,7 @@ def profile_calls(path: str, run, wall_ms: float, calls: int,
     out = HERE / "chiprun_out"
     out.mkdir(exist_ok=True)
     misses = []
-    for warmup in (PROFILE_WARMUPS if expect else (0,)):
+    for warmup in (warmups if expect else (0,)):
         rows, prof = profile_window(run, calls, warmup)
         recorded = {frag: sum(c for _, c, k in rows if frag in k)
                     for frag in expect}
@@ -1423,7 +1502,7 @@ def profile_calls(path: str, run, wall_ms: float, calls: int,
             misses, indent=1))
         fail(f"{path}: the profiler recorded launches "
              f"{[m['recorded'] for m in misses]} over {calls} calls in "
-             f"{len(PROFILE_WARMUPS)} windows, expected "
+             f"{len(warmups)} windows, expected "
              f"{({f: n * calls for f, n in expect.items()})}")
     busy_ms = sum(r[0] for r in rows) / 1e3 / calls
     (out / f"{path}_profile.json").write_text(json.dumps(
@@ -1442,7 +1521,9 @@ def profile_calls(path: str, run, wall_ms: float, calls: int,
             "top": [{"name": k[:80], "device_ms_per_launch": t / 1e3 / c,
                      f"launches_per_{unit}": c / calls}
                     for t, c, k in rows[:8]],
-            **({"kernels": kernels} if expect else {})}
+            **({"kernels": kernels} if expect else {}),
+            **({"by_range": device_ms_by_range(prof, calls)}
+               if by_range else {})}
 
 
 def profile_epochs(path: str, sess, state, epoch_ms: float, epochs: int = 3):
@@ -2777,7 +2858,8 @@ def phase_train_entry_points() -> dict:
     """launch/train.py at its smoke defaults, 6 steps of each trainer and
     3 rounds of ``--runtime ps``, and the training example with
     ``--quick``: B1 and B2 once per ADMM step (per worker compute and
-    block commit under ps), none for AdamW, every loss finite."""
+    block commit under ps), none for AdamW, every loss finite; then
+    ``--arch zamba2-1.2b`` (the hybrid smoke), 6 ADMM steps."""
     import contextlib as _cl
     import io
     from repro_torch.examples import train_transformer_admm as example
@@ -2820,6 +2902,9 @@ def phase_train_entry_points() -> dict:
                 "server_prox_update": commits}
     run("ps", lambda: train.main(["--steps", str(rounds), "--runtime", "ps",
                                   "--log-every", "1"]), ps_counts)
+    # the hybrid tree (its unstacked shared block among the leaves)
+    run("zamba2", lambda: train.main(admm + ["--arch", HYBRID_ARCH]),
+        lambda lines: {k: steps for k in MAIN_KERNELS})
     quick = 30                                       # the example's --quick
     run("example", lambda: example.main(["--quick"]),
         lambda lines: {k: quick for k in MAIN_KERNELS})
@@ -3859,6 +3944,594 @@ def phase_train_moe(bw: float, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the SSM and hybrid families: mamba2-370m served and trained at full
+# width and depth, zamba2-1.2b served at full width with its shared
+# attention block through B7
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-370m"
+HYBRID_ARCH = "zamba2-1.2b"
+TRAIN_SSM_PEAK_LIMIT = 72e9    # the reckoned peak a train phase may reach
+B7_F32_NAME = "flash_tf32_kernel"   # B7's float32 design
+SSD_LIVE = 3                   # decay-sized tensors live at once in a
+                               # prefill's SSD (masked exponent, decay,
+                               # decay x scores)
+
+
+def ssd_decay_bytes(cfg, batch: int, seq: int) -> int:
+    """Bytes of one layer's (b, c, h, Q, Q) float32 decay in the chunked
+    SSD scan at ``batch`` x ``seq`` tokens."""
+    from repro_torch.models import ssm
+    Q = min(cfg.ssm.chunk_size, seq)
+    chunks = -(-seq // Q)
+    return 4 * batch * chunks * ssm._dims(cfg)[1] * Q * Q
+
+
+def stage_clock():
+    """(seconds by stage, mark): ``mark(name)`` books the host seconds
+    since the previous mark under ``name``."""
+    last, out = [time.perf_counter()], {}
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        out[name] = now - last[0]
+        last[0] = now
+
+    return out, mark
+
+
+def cache_bytes(model, batch: int, max_len: int) -> dict:
+    """The decode cache's bytes by part (``init_cache``'s tensors)."""
+    cache = model.init_cache(batch, max_len)
+    out = {part: sum(t.numel() * t.element_size() for t in d.values())
+           for part, d in cache.items()}
+    del cache
+    return out
+
+
+def decode_vs_prefill(path: str, model, params, prompts) -> dict:
+    """``decode_step`` over ``prompts`` token by token, timed step by
+    step, against the prefill's logits at every position (within
+    DECODE_TOL). Returns the report and the decode's last logits."""
+    B, S = prompts.shape
+    cache = model.init_cache(B, S + 8)
+    step_ms, steps = [], []
+    for t in range(S):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, prompts[:, t:t + 1], cache, t)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        steps.append(lg[:, 0])
+    decoded = torch.stack(steps, dim=1)
+    full, _ = timed_prefill(model, params, prompts, "all")
+    err = float((decoded - full).abs().max())
+    if not err < DECODE_TOL:
+        fail(f"{path}: decode and prefill logits differ by {err:.3e} "
+             f"(limit {DECODE_TOL})")
+    step = statistics.median(step_ms[1:])
+    return dict(decode_ms_per_step=step,
+                decode_tokens_per_s=B / (step / 1e3),
+                decode_vs_prefill_max_abs_err=err), decoded[:, -1]
+
+
+def decode_profile(path: str, model, params, prompts, max_len: int,
+                   step_ms: float) -> dict:
+    """The profiler over 3 decode steps past the prompt: the device's
+    idle share of a step."""
+    held = [model.init_cache(prompts.shape[0], max_len), prompts.shape[1]]
+
+    def one_step():
+        _, held[0] = model.decode_step(params, prompts[:, :1], held[0],
+                                       held[1])
+        held[1] += 1
+
+    return profile_calls(path, one_step, step_ms, 3, "decode_step")
+
+
+def serve_common(path: str, model, params, gen) -> tuple:
+    """``Engine.generate`` with launch/serve.py's batch (no kernel), the
+    decode against the prefill at every prompt position, first tokens
+    the prefill's argmax where decided, a decode profile, and the decode
+    cache's bytes at max_len 64 and 4096."""
+    from repro_torch.serving import Engine
+    cfg = model.cfg
+    engine = Engine(model, params, max_len=SERVE_PROMPT + SERVE_NEW + 8)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    stages, mark = stage_clock()
+    res, serve = generate_timed(path, engine, prompts, SERVE_NEW)
+    mark("generate")
+    decode, decoded_last = decode_vs_prefill(path, model, params, prompts)
+    last, _ = timed_prefill(model, params, prompts)
+    serve.update(decode, **first_tokens_decided(path, res.tokens,
+                                                decoded_last, last[:, -1]))
+    mark("decode_vs_prefill")
+    serve["profile"] = decode_profile(f"{path}_decode", model, params,
+                                      prompts, engine.max_len,
+                                      decode["decode_ms_per_step"])
+    mark("decode_profile")
+    serve["cache_bytes"] = {n: cache_bytes(model, SERVE_REQUESTS, n)
+                            for n in (64, 4096)}
+    serve["seconds_by_stage"] = stages
+    return serve
+
+
+def phase_serve_ssm(bw: float, errs) -> dict:
+    """mamba2-370m in full (48 layers, d_model 1024, f32, seed 0): the
+    SERVE_BATCH x SERVE_SEQ prefill through the chunked SSD (no kernel),
+    timed and profiled, its peak beside the weights and the SSD's
+    reckoned transients, the cumsum along the chunk in both layouts;
+    ``Engine.generate`` with launch/serve.py's batch; decode against
+    prefill at every prompt position; first tokens decided; the decode
+    cache's bytes the same at max_len 64 and 4096 (a constant state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    stages, mark = stage_clock()
+    cfg = get_config(SSM_ARCH)
+    model = build_model(cfg)
+    gc.collect()
+    reset_peak()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ),
+                           generator=gen, device="cuda")
+    reset_peak()
+    ops.reset_launch_counts()
+    logits, first_ms = timed_prefill(model, params, tokens)
+    launches = ops.launch_counts()
+    expect_counts("serve_ssm prefill", launches, {})
+    peak = torch.cuda.max_memory_allocated()
+    if logits.shape != (SERVE_BATCH, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"serve_ssm: prefill logits {tuple(logits.shape)} are not "
+             f"finite last-position logits")
+    prefill_ms = [timed_prefill(model, params, tokens)[1] for _ in range(2)]
+    mark("prefills")
+    profile = profile_calls(
+        "serve_ssm_prefill", lambda: model.prefill(params, tokens,
+                                                   logits_mode="last"),
+        statistics.median(prefill_ms), 1, "prefill")
+    mark("prefill_profile")
+    # the cumsum of one layer's dA along the chunk, as ssd_chunked lays
+    # it out (heads outside: the innermost axis) and as the reference's
+    # (b, c, Q, h) lays it (a non-innermost axis)
+    from repro_torch.models import ssm
+    Q, h = cfg.ssm.chunk_size, ssm._dims(cfg)[1]
+    dA = -torch.rand((SERVE_BATCH, SERVE_SEQ // Q, Q, h), generator=gen,
+                     device="cuda")
+    heads_outer = dA.transpose(2, 3).contiguous()
+    cumsum_ms = dict(
+        heads_outer=time_ms(lambda: torch.cumsum(heads_outer, dim=-1)),
+        positions_outer=time_ms(lambda: torch.cumsum(dA, dim=2)))
+    del dA, heads_outer, logits
+    torch.cuda.empty_cache()
+    mark("cumsum")
+    serve = serve_common("serve_ssm", model, params, gen)
+    mark("serve")
+    if serve["cache_bytes"][64] != serve["cache_bytes"][4096]:
+        fail(f"serve_ssm: the decode cache grows with max_len: "
+             f"{serve['cache_bytes']}")
+    decay = ssd_decay_bytes(cfg, SERVE_BATCH, SERVE_SEQ)
+    emit("serve_ssm", arch=cfg.name, layers=cfg.num_layers, params=n_params,
+         weight_bytes=weight_bytes, init_s=init_s,
+         prefill=dict(batch=SERVE_BATCH, seq=SERVE_SEQ, launches=launches,
+                      ms=prefill_ms, first_ms=first_ms, peak_bytes=peak,
+                      peak_over_weights_bytes=peak - weight_bytes,
+                      ssd_decay_bytes_per_layer=decay,
+                      ssd_transient_bytes_reckoned=SSD_LIVE * decay,
+                      tokens_per_s=SERVE_BATCH * SERVE_SEQ
+                      / statistics.median(prefill_ms) * 1e3,
+                      profile=profile, cumsum_ms=cumsum_ms),
+         serve=serve, seconds_by_stage=stages, card=smi_line())
+    del params, model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+def phase_serve_hybrid(bw: float, errs) -> dict:
+    """zamba2-1.2b in full (38 layers, d_model 2048, 32 heads of 64, the
+    shared attention block after every 6 SSM layers; f32, seed 0): the
+    SERVE_BATCH x SERVE_SEQ prefill on the flash path, where B7 launches
+    once per application of the shared block (38 // 6 = 6), each
+    launch's inputs held to float64 by B5's rule, layer 0's also timed
+    beside its plain version and SDPA and its gate shown to refuse
+    faulty results (``b7_on_path``); the naive path (no kernel), flash
+    against naive; ``Engine.generate`` with launch/serve.py's batch (B7
+    never in decode); decode against prefill at every prompt
+    position."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    stages, mark = stage_clock()
+    cfg = get_config(HYBRID_ARCH)
+    naive, flash = build_model(cfg), build_model(cfg.with_(attn_impl="flash"))
+    applications = cfg.num_layers // cfg.hybrid_attn_every
+    gc.collect()
+    reset_peak()
+    t0 = time.perf_counter()
+    params = naive.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ),
+                           generator=gen, device="cuda")
+
+    reset_peak()
+    ops.reset_launch_counts()
+    with capture_inputs(names=("flash_attention",)) as inputs:
+        flash_logits, flash_first_ms = timed_prefill(flash, params, tokens)
+    launches = ops.launch_counts()
+    flash_peak = torch.cuda.max_memory_allocated()
+    expect_counts("serve_hybrid prefill (flash)", launches,
+                  {"flash_attention": applications})
+    flash_ms = [timed_prefill(flash, params, tokens)[1] for _ in range(2)]
+    mark("flash_prefills")
+    flash_profile = profile_calls(
+        "serve_hybrid_prefill", lambda: flash.prefill(params, tokens,
+                                                      logits_mode="last"),
+        statistics.median(flash_ms), 1, "prefill",
+        expect={B7_F32_NAME: applications}, warmups=(0, 1, 2))
+    mark("flash_profile")
+    reset_peak()
+    ops.reset_launch_counts()
+    naive_logits, naive_first_ms = timed_prefill(naive, params, tokens)
+    expect_counts("serve_hybrid prefill (naive)", ops.launch_counts(), {})
+    naive_peak = torch.cuda.max_memory_allocated()
+    naive_ms = [timed_prefill(naive, params, tokens)[1] for _ in range(2)]
+    mark("naive_prefills")
+    for name_, lg in (("flash", flash_logits), ("naive", naive_logits)):
+        if lg.shape != (SERVE_BATCH, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(lg).all()):
+            fail(f"serve_hybrid: {name_} prefill logits {tuple(lg.shape)} "
+                 f"are not finite last-position logits")
+    flash_vs_naive = float((flash_logits - naive_logits).abs().max())
+    if not flash_vs_naive < FLASH_NAIVE_TOL:
+        fail(f"serve_hybrid: flash and naive prefill logits differ by "
+             f"{flash_vs_naive:.3e} (limit {FLASH_NAIVE_TOL})")
+    del flash_logits, naive_logits
+    torch.cuda.empty_cache()
+
+    # every launch's inputs held to float64; the first's timed and its
+    # gate shown to refuse faulty results; half of each head's 128 lanes
+    # are the zero pad of hd 64
+    cases = inputs.pop("flash_attention")
+    own = {"flash_attention": 0.0}
+    held = [check("flash_attention", case, own) for case in cases[1:]]
+    mark("b7_held")
+    row = b7_on_path(cases[0], cfg, torch.float32, bw, own)
+    mark("b7_timed")
+    row["useful_share"] = cfg.resolved_head_dim / cases[0][0].shape[-1]
+    row["launches_held"] = len(cases)
+    row["err_vs_f64_by_launch"] = [row["err_vs_f64"]] + [
+        r["err_vs_f64"] for r in held]
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  own["flash_attention"])
+    errs["flash_attention_hybrid"] = own["flash_attention"]
+    del cases, held, inputs
+    torch.cuda.empty_cache()
+
+    serve = serve_common("serve_hybrid", naive, params, gen)
+    mark("serve")
+    ssm_state = {n: c["layers"] for n, c in serve["cache_bytes"].items()}
+    if ssm_state[64] != ssm_state[4096]:
+        fail(f"serve_hybrid: the SSM layers' decode state grows with "
+             f"max_len: {ssm_state}")
+    decay = ssd_decay_bytes(cfg, SERVE_BATCH, SERVE_SEQ)
+    emit("serve_hybrid", arch=cfg.name, layers=cfg.num_layers,
+         shared_block_applications=applications, params=n_params,
+         weight_bytes=weight_bytes, init_s=init_s,
+         prefill=dict(batch=SERVE_BATCH, seq=SERVE_SEQ, launches=launches,
+                      flash_ms=flash_ms, flash_first_ms=flash_first_ms,
+                      naive_ms=naive_ms, naive_first_ms=naive_first_ms,
+                      flash_peak_bytes=flash_peak,
+                      naive_peak_bytes=naive_peak,
+                      ssd_decay_bytes_per_layer=decay,
+                      ssd_transient_bytes_reckoned=SSD_LIVE * decay,
+                      flash_vs_naive_max_abs_diff=flash_vs_naive,
+                      profile=flash_profile),
+         flash_attention=row, serve=serve, seconds_by_stage=stages,
+         card=smi_line())
+    del params, naive, flash, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches={"flash_attention_hybrid":
+                          launches["flash_attention"]},
+                rows={"flash_attention_hybrid": row})
+
+
+def loss_grad_peak(model_cfg, N: int, batch) -> int:
+    """Bytes the loss's ``vmap(grad)`` (``TreeSpace.worker_grads``'s
+    call) takes at its peak over what was allocated before it, on N
+    workers' copies of ``model_cfg``'s seed-0 stacked tree and
+    ``batch``."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import build_model
+    from repro_torch.models.weights import stacked_params
+    model = build_model(model_cfg)
+    params = stacked_params(model_cfg, 0, "cuda")
+    tree = tree_map(lambda t: t.expand((N,) + t.shape), params)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = torch.func.vmap(torch.func.grad_and_value(model.loss))(tree, batch)
+    peak = torch.cuda.max_memory_allocated() - before
+    del out, tree, params
+    torch.cuda.empty_cache()
+    return peak
+
+
+def train_ssm_plan(full, N: int, M: int, batch) -> dict:
+    """The depth to train at and its reckoned peak. The loss's
+    ``vmap(grad)`` peak is measured at 2 and 4 layers and extrapolated
+    by layer: ``torch.func.grad`` under ``vmap`` keeps far more than the
+    tensors autograd saves. The step's peak is the larger of the state
+    beside the loss (z_hist, y, w_cache, z~ and the params: 4 B x (2T +
+    3NT + P)) plus that peak, and the tables after it (``train_moe``'s
+    4 B x (2T + 6NT + NP + P)). Full depth unless that passes
+    TRAIN_SSM_PEAK_LIMIT; then the most layers under it."""
+    from repro_torch.core.blocks import make_block_layout
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.weights import stacked_params
+    probe = {n: loss_grad_peak(full.with_(num_layers=n), N, batch)
+             for n in (2, 4)}
+    per_layer = (probe[4] - probe[2]) / 2
+    fixed = probe[2] - 2 * per_layer
+
+    def reckon(layers):
+        meta = stacked_params(full.with_(num_layers=layers), 0, "meta")
+        P = sum(int(t.numel()) for t in tree_leaves(meta))
+        T = M * make_block_layout(meta, num_blocks=M).block_dim
+        loss = fixed + layers * per_layer
+        return int(max(4 * (2 * T + 3 * N * T + P) + loss,
+                       4 * (2 * T + 6 * N * T + N * P + P))), loss
+
+    layers = full.num_layers
+    while reckon(layers)[0] > TRAIN_SSM_PEAK_LIMIT and layers > 1:
+        layers -= 1
+    reckoned, loss = reckon(layers)
+    return dict(layers=layers, reckoned_peak_bytes=reckoned,
+                loss_grad_peak_bytes_probed={str(n): b
+                                             for n, b in probe.items()},
+                loss_grad_bytes_per_layer=per_layer,
+                loss_grad_peak_bytes_reckoned=int(loss))
+
+
+@contextlib.contextmanager
+def step_ranges(space):
+    """Inside the block, a train step's parts run in profiler ranges
+    (RANGE + part): the gather of z~ and the push of z, the loss's
+    forward (``transformer.forward``, called inside ``worker_grads``),
+    and the rest of ``worker_grads`` (the unpack of z~ and the pack of
+    g). Wrappers local to this script, on the space's instance and the
+    module: the package runs as it always does."""
+    from torch.profiler import record_function
+    from repro_torch.models import transformer
+    undo = []
+
+    def wrap(obj, name, part, on_instance):
+        real = getattr(obj, name)
+
+        def wrapped(*args, **kwargs):
+            with record_function(RANGE + part):
+                return real(*args, **kwargs)
+
+        if on_instance:          # the space is a frozen dataclass
+            object.__setattr__(obj, name, wrapped)
+            undo.append(lambda: object.__delattr__(obj, name))
+        else:
+            setattr(obj, name, wrapped)
+            undo.append(lambda: setattr(obj, name, real))
+
+    wrap(space, "gather", "gather_and_push", True)
+    wrap(space, "push", "gather_and_push", True)
+    wrap(space, "worker_grads", "pack_and_unpack", True)
+    wrap(transformer, "forward", "loss_forward", False)
+    try:
+        yield
+    finally:
+        for fn in undo:
+            fn()
+
+
+def phase_train_ssm(bw: float, errs) -> dict:
+    """``ADMMTrainer`` on mamba2-370m's stacked tree (f32, seed 0) at
+    full depth unless the reckoned peak passes TRAIN_SSM_PEAK_LIMIT
+    (``train_ssm_plan``; then at the most layers under it, the cut
+    printed in line ``train_ssm_plan``), N = 2, M = 2
+    by LPT, launch/train.py's defaults, ``TokenPipeline`` batches of
+    2 x 512 tokens a worker, 5 steps on the kernels, before each the
+    plain backend's step from the same state: z within KERNEL_TOL.
+    Gates: step 0's loss is ``Model.loss`` at z0; the first gradient
+    finite; B1 and B2 once a step and held on their inputs; pads 0;
+    losses and z finite. Prints step ms, tokens/s, peaks beside the
+    reckoning, and a device split of the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.weights import stacked_params
+    from repro_torch.training import ADMMTrainer
+
+    stages, mark = stage_clock()
+    N, M = TRAIN_WORKERS, TRAIN_BLOCKS
+    full = get_config(SSM_ARCH)
+    gc.collect()
+    reset_peak()
+    pipe = TokenPipeline(vocab_size=full.vocab_size, seq_len=TRAIN_SEQ + 1,
+                         global_batch=N * TRAIN_BATCH, seed=0)
+    batches = [pipe.batch(t, num_workers=N, device="cuda")
+               for t in range(TRAIN_STEPS + 1)]
+    plan = train_ssm_plan(full, N, M, batches[0])
+    mark("plan")
+    layers, reckoned = plan["layers"], plan["reckoned_peak_bytes"]
+    model_cfg = full.with_(num_layers=layers)
+    model = build_model(model_cfg)
+    reset_peak()
+    params = stacked_params(model_cfg, 0, "cuda")
+    P = sum(int(t.numel()) for t in tree_leaves(params))
+    tokens = N * TRAIN_BATCH * TRAIN_SEQ
+
+    def trainer(backend):
+        return ADMMTrainer(loss_fn=model.loss,
+                           admm=train_config(backend=backend),
+                           num_workers=N, device="cuda")
+
+    kern, plain = trainer("auto"), trainer("torch")
+    spec = kern._spec(params)
+    layout = spec.space.layout
+    if spec.space.backend != "cuda":
+        fail(f"train_ssm: 'auto' resolved to {spec.space.backend!r} on the "
+             f"card")
+    T = M * layout.block_dim
+    emit("train_ssm_plan", arch=model_cfg.name,
+         depth_cut=None if layers == full.num_layers
+         else f"{layers} of {full.num_layers} layers",
+         params=P, block_sizes=list(layout.block_sizes),
+         dblk=layout.block_dim, padding=T - P,
+         ssd_decay_bytes_per_layer_per_worker=ssd_decay_bytes(
+             model_cfg, TRAIN_BATCH, TRAIN_SEQ),
+         limit_bytes=TRAIN_SSM_PEAK_LIMIT, **plan)
+    loss0 = direct_loss(model, params, batches[0], N)
+    state = kern.init(params)
+    del params
+    mark("init")
+
+    # the first gradient, finite (the SSD's mask before the exp)
+    # the first gradient, finite (the SSD's mask before the exp), and the
+    # memory the loss's vmap(grad) takes beside the state
+    space = spec.space
+    z_tilde = space.gather(kern._packed(spec, state).z_hist,
+                           torch.ones((N, M), dtype=torch.int64,
+                                      device="cuda"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g_losses, g = space.worker_grads(model.loss, z_tilde, batches[0])
+    grad_peak = torch.cuda.max_memory_allocated() - before
+    if not bool(torch.isfinite(g).all()) or not bool(
+            torch.isfinite(g_losses).all()):
+        fail("train_ssm: the loss or its gradient at z0 is not finite")
+    grad_max = float(g.abs().max())
+    del z_tilde, g, g_losses
+    torch.cuda.empty_cache()
+    mark("grad0")
+
+    times, plain_times, losses, plain_losses, peaks, reserved, diffs = \
+        [], [], [], [], [], [], []
+    launches = {k: 0 for k in PLAIN}
+    for t in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_state, p_info = plain.train_step(state, batches[t])
+        torch.cuda.synchronize()
+        plain_times.append(1e3 * (time.perf_counter() - t0))
+        if any(ops.launch_counts().values()):
+            fail("train_ssm: the torch backend launched a kernel")
+        plain_losses.append(float(p_info["loss"]))
+        z_plain = plain._packed(plain._spec(p_state.params),
+                                p_state).z_hist[0].cpu()
+        del p_state, p_info
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, info = kern.train_step(state, batches[t])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        peaks.append(torch.cuda.max_memory_allocated())
+        reserved.append(torch.cuda.max_memory_reserved())
+        step_launches = ops.launch_counts()
+        expect_launches(f"train_ssm step {t}", step_launches, 1,
+                        MAIN_KERNELS)
+        for k, n in step_launches.items():
+            launches[k] += n
+        losses.append(float(info["loss"]))
+        packed = kern._packed(kern._spec(state.params), state)
+        if not pads_zero(layout, packed.z_hist, packed.y, packed.w_cache):
+            fail(f"train_ssm: a pad lane is not 0 after step {t}")
+        if not math.isfinite(losses[-1]) or not bool(
+                torch.isfinite(packed.z_hist[0]).all()):
+            fail(f"train_ssm: loss or z not finite at step {t}")
+        diffs.append(compare(packed.z_hist[0], z_plain.cuda()))
+        del packed, z_plain
+    mark("steps")
+    loss_rel = same_loss("train_ssm", losses[0], loss0)
+    step_ms = statistics.median(times[1:])
+    own = {k: 0.0 for k in MAIN_KERNELS}
+    own["server_prox_update"] = max(diffs)
+
+    held = [state]
+    del state
+
+    def step():
+        held[0], _ = kern.train_step(held[0], batches[TRAIN_STEPS])
+
+    # one step profiled, its parts in ranges: the step issues ~12,000
+    # launches, and the profiler's own work grows with them
+    with step_ranges(spec.space):
+        profile = profile_calls("train_ssm", step, step_ms, 1,
+                                expect={B1_NAME: 1, B2_NAME: 1},
+                                warmups=(0, 1, 2), by_range=True)
+    by_range = profile.pop("by_range")
+    split = {part: by_range.get(part, 0.0) for part in (
+        "loss_forward", "loss_backward", "pack_and_unpack",
+        "gather_and_push")}
+    split.update(B1=profile["kernels"][B1_NAME]["device_ms_per_launch"],
+                 B2=profile["kernels"][B2_NAME]["device_ms_per_launch"])
+    busy = profile["device_busy_ms_per_epoch"]
+    split.update(rest=busy - sum(split.values()), idle=step_ms - busy)
+    mark("profile")
+    with capture_inputs(copy=False, names=MAIN_KERNELS, keep=1) as inputs:
+        step()
+    del held[0]
+    torch.cuda.empty_cache()
+    rows = check_on_path("train_ssm", inputs, MAIN_KERNELS, bw, own)
+    mark("kernels_on_path")
+    for k in MAIN_KERNELS:
+        errs[k] = max(errs[k], own[k])
+        errs[f"{k}_ssm"] = own[k]
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels = b1_b2_rows(rows, profile)
+    for k in MAIN_KERNELS:
+        rows[k]["device_ms"] = kernels[k]["device_ms_per_launch"]
+    emit("train_ssm", arch=model_cfg.name, layers=layers, N=N, M=M,
+         params=P, block_sizes=list(layout.block_sizes),
+         dblk=layout.block_dim, padding=T - P, steps=TRAIN_STEPS,
+         tokens_per_step=tokens, launches=launches, losses=losses,
+         torch_losses_from_kernel_states=plain_losses, loss0_direct=loss0,
+         loss0_rel_diff=loss_rel, grad0_max_abs=grad_max, step_ms=times,
+         step_ms_median=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+         torch_step_ms=plain_times,
+         torch_step_ms_median=statistics.median(plain_times[1:]),
+         peak_bytes=max(peaks), peak_bytes_by_step=peaks,
+         reserved_peak_bytes=max(reserved), reckoned_peak_bytes=reckoned,
+         loss_grad_peak_over_state_bytes=grad_peak,
+         z_max_abs_diff_vs_torch=diffs,
+         pads_zero=True, device_ms_per_step=split, profile=profile,
+         kernels=kernels, seconds_by_stage=stages, card=smi_line())
+    return dict(launches={f"{k}_ssm": launches[k] for k in MAIN_KERNELS},
+                rows={f"{k}_ssm": rows[k] for k in MAIN_KERNELS})
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the logistic-regression gradient at its declared size
 # ---------------------------------------------------------------------------
 
@@ -4322,9 +4995,12 @@ def main() -> int:
     phase_train(bw, errs)
     phase_train_entry_points()
     phase_train_moe(bw, errs)
+    train_ssm = phase_train_ssm(bw, errs)
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
     phase_serve_moe(bw, errs)
+    phase_serve_ssm(bw, errs)
+    hybrid = phase_serve_hybrid(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)
     logreg16_launches, logreg16_rows = phase_logreg_bf16(bw, errs)
 
@@ -4334,7 +5010,8 @@ def main() -> int:
     # one gradient, summed) and B6 from logreg, B5's gemv16 from the bf16
     # gradient, its tensor-core and tiled designs from the matmul line
     # (the first cell of each: f32 and bf16 with A stored (M, K), and
-    # f32 at 4095^3), B7 from serve's flash prefill
+    # f32 at 4095^3), B7 from serve's flash prefill; and rows of their
+    # own for B7 on zamba2's prefill and B1 and B2 on mamba2's train step
     def passes_summed(rows, library_key):
         passes = [rows["pass1"], rows["pass2"]]
         out = {key: sum(r[key] for r in passes)
@@ -4371,7 +5048,10 @@ def main() -> int:
              "matmul": (logreg_launches, logreg_kernels),
              "margin": (logreg_launches, logreg_kernels),
              "flash_attention": (serve_launches, serve_rows),
-             "flash_attention_bf16": (serve16_launches, serve16_rows)}
+             "flash_attention_bf16": (serve16_launches, serve16_rows),
+             "flash_attention_hybrid": (hybrid["launches"], hybrid["rows"]),
+             **{name_: (train_ssm["launches"], train_ssm["rows"])
+                for name_ in train_ssm["rows"]}}
     kernels = []
     for name_, (source, replaces) in SOURCES.items():
         launches, rows = paths.get(name_, (main_launches, main_rows))

@@ -1,17 +1,17 @@
-"""Batched serving demo across architecture families (dense / MoE):
-prefill + KV-cache decode with ragged request handling, a port of
-``examples/serve_decode.py``:
+"""Batched serving demo across architecture families (dense / MoE / SSM
+/ hybrid): prefill + KV-cache decode with ragged request handling, a
+port of ``examples/serve_decode.py``:
 
     PYTHONPATH=src python -m repro_torch.examples.serve_decode \\
-        [--arch mixtral-8x7b] [--device cpu]
+        [--arch mamba2-370m] [--device cpu]
 
-The default list is the reference's, one arch per family, less
-mamba2-370m and zamba2-1.2b: the SSM and hybrid families wait for their
-slice of the port (ROADMAP Queue A item 11). Each arch runs its smoke
-config with random weights from seed 0 and samples at temperature 0.7
-from seed 1 (a ``torch.Generator``: the sampled tokens differ from the
-reference's threefry draws). On the card unless ``--device cpu``;
-``main`` returns each printed line with its numbers.
+The default list is the reference's, one arch per family: qwen3-1.7b,
+mixtral-8x7b, mamba2-370m (its decode state a constant-size SSM state)
+and zamba2-1.2b (SSM layers and a shared attention block). Each arch
+runs its smoke config with random weights from seed 0 and samples at
+temperature 0.7 from seed 1 (a ``torch.Generator``: the sampled tokens
+differ from the reference's threefry draws). On the card unless
+``--device cpu``; ``main`` returns each printed line with its numbers.
 """
 import argparse
 import time
@@ -22,7 +22,7 @@ from ..configs import get_smoke
 from ..models import build_model
 from ..serving import Engine
 
-DEFAULT_ARCHS = ["qwen3-1.7b", "mixtral-8x7b"]
+DEFAULT_ARCHS = ["qwen3-1.7b", "mixtral-8x7b", "mamba2-370m", "zamba2-1.2b"]
 
 
 def main(argv=None):

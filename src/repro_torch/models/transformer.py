@@ -1,15 +1,19 @@
-"""Transformer stack — the dense and MoE families of
+"""Transformer stack — the dense, MoE, SSM and hybrid families of
 ``repro/models/transformer.py``:
 
-  dense — [attention + MLP] x L  (qwen3, qwen1.5, chatglm3, and
-                                  chameleon, whose image tokens share
-                                  the vocabulary)
-  moe   — [attention + MoE] x L  (mixtral, with its sliding window;
-                                  granite-moe)
+  dense  — [attention + MLP] x L  (qwen3, qwen1.5, chatglm3, and
+                                   chameleon, whose image tokens share
+                                   the vocabulary)
+  moe    — [attention + MoE] x L  (mixtral, with its sliding window;
+                                   granite-moe)
+  ssm    — [mamba2] x L           (mamba2-370m)
+  hybrid — groups of k mamba2 layers, a *shared* attention block
+           (one dense layer's weights, not stacked) applied after each
+           group, then the rest of the layers (zamba2)
 
 A MoE layer returns its output and its auxiliary loss (the router's
 load-balance term); ``forward`` sums the layers' in layer order, as the
-reference's scan carries it (zero for the dense family), and
+reference's scan carries it (zero for the other families), and
 ``decode_step`` drops it.
 
 Two parameter trees, one forward:
@@ -21,15 +25,21 @@ Two parameter trees, one forward:
   gradients;
 * training differentiates the reference's own tree, a nested dict whose
   ``layers`` leaves are stacked on a leading L axis
-  (``weights.stacked_params``). ``forward`` takes each stacked leaf
-  apart once with ``torch.unbind`` (its backward is one ``stack``;
-  indexing ``leaf[i]`` per layer would make each layer's backward
-  write a zeroed (L, ...) tensor) and walks the layers with the same
-  Python loop where the reference scans them. The pass writes nothing
-  in place and reads no value on the host, so it runs under
-  ``torch.func.grad`` and ``vmap``.
+  (``weights.stacked_params``; the hybrid's ``shared_attn`` is not).
+  ``forward`` takes each stacked leaf apart once with ``torch.unbind``
+  (its backward is one ``stack``; indexing ``leaf[i]`` per layer would
+  make each layer's backward write a zeroed (L, ...) tensor) and walks
+  the layers with the same Python loop where the reference scans them.
+  The pass writes nothing in place and reads no value on the host, so
+  it runs under ``torch.func.grad`` and ``vmap``.
 
-The reference's other families (ssm, hybrid, audio) and MLA raise
+The decode cache keeps the reference's layout: ``{"layers": {"k",
+"v"}}`` for the attention families, ``{"layers": {"conv", "ssm"}}`` (a
+constant-size state per layer) for ssm, and for hybrid also
+``{"shared_attn": {"k", "v"}}`` stacked over the shared block's
+applications. ``decode_step`` updates it in place.
+
+The reference's enc-dec family (audio) and MLA raise
 ``NotImplementedError`` (ROADMAP Queue A item 11). ``remat`` changes
 nothing at inference; on the stacked tree it raises: ``torch.func.grad``
 refuses the saved-tensor hooks that ``torch.utils.checkpoint`` needs.
@@ -43,6 +53,7 @@ from torch import nn
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import dense_init, embed_init, init_mlp, mlp, rmsnorm
 
 NOT_PORTED = attn.NOT_PORTED
@@ -71,12 +82,14 @@ class ParamTree(nn.Module):
 
 
 def check_family(cfg) -> None:
-    """The families the port has: dense GQA (dense, vlm) and moe."""
-    if cfg.arch_type not in ("dense", "vlm", "moe") \
-            or cfg.ssm is not None or cfg.is_enc_dec:
+    """The families the port has: dense GQA (dense, vlm), moe, ssm and
+    hybrid."""
+    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid") \
+            or cfg.is_enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
-            f"({NOT_PORTED}); the port has the dense GQA and MoE families")
+            f"({NOT_PORTED}); the port has the dense GQA, MoE, SSM and "
+            f"hybrid families")
     if cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is not ported yet ({NOT_PORTED})")
@@ -101,6 +114,22 @@ def _init_dense_layer(gen, cfg, device):
     return p
 
 
+def _init_ssm_layer(gen, cfg, device):
+    return {
+        "mamba": ssm_mod.init_mamba2(gen, cfg, device),
+        "norm1": torch.ones((cfg.d_model,), dtype=cfg.torch_param_dtype(),
+                            device=device),
+    }
+
+
+def init_layer(gen, cfg, device):
+    """One layer of ``params["layers"]``: an SSM layer for the ssm and
+    hybrid families, else a dense (attention + MLP or MoE) layer."""
+    if cfg.arch_type in ("ssm", "hybrid"):
+        return _init_ssm_layer(gen, cfg, device)
+    return _init_dense_layer(gen, cfg, device)
+
+
 def init_params(gen: Optional[torch.Generator], cfg, device=None) -> ParamTree:
     """The reference's distributions drawn from ``gen`` on ``device``
     (``gen``'s device by default); ``gen=None`` with ``device="meta"``
@@ -116,8 +145,10 @@ def init_params(gen: Optional[torch.Generator], cfg, device=None) -> ParamTree:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
                                        device=device)
-    params["layers"] = [_init_dense_layer(gen, cfg, device)
+    params["layers"] = [init_layer(gen, cfg, device)
                         for _ in range(cfg.num_layers)]
+    if cfg.arch_type == "hybrid":
+        params["shared_attn"] = _init_dense_layer(gen, cfg, device)
     return ParamTree(params)
 
 
@@ -142,6 +173,29 @@ def _dense_layer_fwd(lp, x, cfg, positions):
     return x + y, aux
 
 
+def _ssm_layer_fwd(lp, x, cfg):
+    h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    return x + ssm_mod.mamba2_forward(lp["mamba"], h, cfg)
+
+
+def _hybrid_groups(cfg):
+    """(k, groups): the shared block follows each of the ``groups`` runs
+    of k SSM layers; the layers past the last run follow no block."""
+    k = max(cfg.hybrid_attn_every, 1)
+    return k, cfg.num_layers // k
+
+
+def _hybrid_forward(params, layers, x, cfg, positions):
+    k, n_groups = _hybrid_groups(cfg)
+    for g in range(n_groups):
+        for lp in layers[g * k:(g + 1) * k]:
+            x = _ssm_layer_fwd(lp, x, cfg)
+        x, _ = _dense_layer_fwd(params["shared_attn"], x, cfg, positions)
+    for lp in layers[n_groups * k:]:
+        x = _ssm_layer_fwd(lp, x, cfg)
+    return x
+
+
 def unbind_layers(stacked: Dict[str, Any]):
     """The per-layer trees of a stacked layer tree, each leaf taken apart
     once along its leading L axis (views of the stacked leaves)."""
@@ -160,7 +214,7 @@ def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
     logits_mode="last": project only the final position (serving prefill
     needs one next-token distribution, not S of them). ``aux`` is the
     reference's auxiliary loss: the layers' summed in layer order (the
-    MoE router's load-balance term), zero for the dense family."""
+    MoE router's load-balance term), zero for the other families."""
     check_family(cfg)
     if enc_frames is not None:
         raise NotImplementedError(
@@ -178,10 +232,16 @@ def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
     x = params["embed"][tokens]
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux_total = torch.zeros((), device=x.device)
-    for lp in layers:
-        x, aux = _dense_layer_fwd(lp, x, cfg, positions)
-        if aux is not None:
-            aux_total = aux_total + aux
+    if cfg.arch_type == "ssm":
+        for lp in layers:
+            x = _ssm_layer_fwd(lp, x, cfg)
+    elif cfg.arch_type == "hybrid":
+        x = _hybrid_forward(params, layers, x, cfg, positions)
+    else:
+        for lp in layers:
+            x, aux = _dense_layer_fwd(lp, x, cfg, positions)
+            if aux is not None:
+                aux_total = aux_total + aux
     if logits_mode == "last":
         x = x[:, -1:]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -199,18 +259,50 @@ def _logits(params, x, cfg):
 # ---------------------------------------------------------------------------
 
 def init_cache_specs(cfg, batch: int, max_len: int):
-    """{"layers": {"k", "v"}}: (shape, dtype) of the decode cache, the
-    layers stacked on a leading axis as in the reference."""
+    """(shape, dtype) of each tensor of the decode cache, the layers
+    stacked on a leading axis as in the reference: {"layers": {"k",
+    "v"}}, or {"conv", "ssm"} for the SSM layers; the hybrid adds
+    {"shared_attn": {"k", "v"}}, one cache per application of the
+    shared block."""
     check_family(cfg)
-    return {"layers": {name: ((cfg.num_layers,) + shape, dt) for name,
-                       (shape, dt) in attn.gqa_cache_spec(
-                           cfg, batch, max_len).items()}}
+
+    def stack(spec, n):
+        return {name: ((n,) + shape, dt) for name, (shape, dt) in
+                spec.items()}
+
+    L = cfg.num_layers
+    if cfg.arch_type == "ssm":
+        return {"layers": stack(ssm_mod.mamba2_cache_spec(cfg, batch), L)}
+    if cfg.arch_type == "hybrid":
+        return {"layers": stack(ssm_mod.mamba2_cache_spec(cfg, batch), L),
+                "shared_attn": stack(attn.gqa_cache_spec(cfg, batch, max_len),
+                                     _hybrid_groups(cfg)[1])}
+    return {"layers": stack(attn.gqa_cache_spec(cfg, batch, max_len), L)}
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None):
-    specs = init_cache_specs(cfg, batch, max_len)
-    return {"layers": {name: torch.zeros(shape, dtype=dt, device=device)
-                       for name, (shape, dt) in specs["layers"].items()}}
+    return {part: {name: torch.zeros(shape, dtype=dt, device=device)
+                   for name, (shape, dt) in spec.items()}
+            for part, spec in init_cache_specs(cfg, batch, max_len).items()}
+
+
+def _slot(cache, i):
+    """Layer (or application) i's views of a stacked cache part."""
+    return {name: t[i] for name, t in cache.items()}
+
+
+def _ssm_layer_decode(lp, x, cfg, cache):
+    h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    y, _ = ssm_mod.mamba2_decode(lp["mamba"], h, cfg, cache)
+    return x + y
+
+
+def _dense_layer_decode(lp, x, cfg, cache, pos):
+    h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    a, _ = attn.gqa_decode(lp["attn"], h, cfg, cache, pos)
+    y = x + a
+    z, _ = _ffn(lp, rmsnorm(y, lp["norm2"], cfg.norm_eps), cfg)
+    return y + z
 
 
 def decode_step(params, token, cache, pos, cfg):
@@ -218,13 +310,15 @@ def decode_step(params, token, cache, pos, cfg):
     (logits (B, 1, V), cache), the cache updated in place."""
     check_family(cfg)
     x = params["embed"][token]
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
     for i, lp in enumerate(params["layers"]):
-        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-        a, _ = attn.gqa_decode(lp["attn"], h, cfg, {"k": ck[i], "v": cv[i]},
-                               pos)
-        y = x + a
-        z, _ = _ffn(lp, rmsnorm(y, lp["norm2"], cfg.norm_eps), cfg)
-        x = y + z
+        if cfg.arch_type not in ("ssm", "hybrid"):
+            x = _dense_layer_decode(lp, x, cfg, _slot(cache["layers"], i),
+                                    pos)
+            continue
+        x = _ssm_layer_decode(lp, x, cfg, _slot(cache["layers"], i))
+        k = max(cfg.hybrid_attn_every, 1)
+        if cfg.arch_type == "hybrid" and (i + 1) % k == 0:
+            x = _dense_layer_decode(params["shared_attn"], x, cfg,
+                                    _slot(cache["shared_attn"], i // k), pos)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), cache

@@ -87,10 +87,11 @@ def stacked_params(cfg, seed: int = 0,
                    device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's param pytree for ``cfg`` as a nested dict of
     tensors on ``device`` (``"meta"`` for shapes alone): ``embed``,
-    ``final_norm`` (``lm_head`` if untied), and ``layers`` with every
-    leaf stacked on a leading L axis. The values are ``Model.init(seed,
-    device)``'s, drawn in the same order and written layer by layer into
-    the stacked leaves (one layer beside the stack at a time)."""
+    ``final_norm`` (``lm_head`` if untied), ``layers`` with every leaf
+    stacked on a leading L axis, and for the hybrid family the unstacked
+    ``shared_attn`` layer. The values are ``Model.init(seed, device)``'s,
+    drawn in the same order and written layer by layer into the stacked
+    leaves (one layer beside the stack at a time)."""
     transformer.check_family(cfg)
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else seeded_generator(dev, seed)
@@ -103,11 +104,13 @@ def stacked_params(cfg, seed: int = 0,
                                        device=dev)
     stack: Dict[str, Any] = {}
     for i in range(cfg.num_layers):
-        layer = transformer._init_dense_layer(gen, cfg, dev)
+        layer = transformer.init_layer(gen, cfg, dev)
         if i == 0:
             stack = _stacked_like(layer, cfg.num_layers)
         _stack_into(stack, layer, i)
     params["layers"] = stack
+    if cfg.arch_type == "hybrid":
+        params["shared_attn"] = transformer._init_dense_layer(gen, cfg, dev)
     return params
 
 

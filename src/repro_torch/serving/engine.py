@@ -10,9 +10,12 @@ as JAX's); temperature sampling draws Gumbel noise from a
 ``jax.random.categorical`` is the same Gumbel-max rule on threefry
 draws, so sampled tokens differ between the packages).
 
-The KV cache keeps the reference's layout, (B, max_len, nkv, hd) per
-layer, and each step writes its position in place. ``enc_frames`` (the
-enc-dec family) waits for its slice (ROADMAP Queue A item 11).
+The cache keeps the reference's layout: K/V of (B, max_len, nkv, hd)
+per attention layer, and for the SSM layers a conv state (B, W-1,
+conv_dim) and an SSM state (B, h, n, p) whose size does not depend on
+max_len; each step writes its position, or the new states, in place.
+``enc_frames`` (the enc-dec family) waits for its slice (ROADMAP Queue A
+item 11).
 """
 from __future__ import annotations
 

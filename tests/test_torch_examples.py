@@ -180,21 +180,25 @@ def test_convergence_matches_the_reference(injected, monkeypatch):
 
 def test_serve_decode_matches_the_reference_lines(monkeypatch, capsys):
     """``serve_decode`` at its defaults: one line per arch of the
-    reference's default list less the SSM and hybrid archs, in the
-    reference's format (the mixtral line against the reference script's
-    own); the samples are the port's draws (temperature 0.7, seed 1),
-    the same on a second run."""
-    monkeypatch.setattr(sys, "argv", ["serve_decode.py", "--arch",
-                                      "mixtral-8x7b"])
-    _load("examples/serve_decode.py").main()
-    ref_line = capsys.readouterr().out.splitlines()[-1]
+    reference's default list (one arch per family: dense, MoE, SSM,
+    hybrid), in the reference's format (the mixtral and zamba2 lines
+    against the reference script's own); the samples are the port's
+    draws (temperature 0.7, seed 1), the same on a second run."""
+    ref_lines = {}
+    for arch in ("mixtral-8x7b", "zamba2-1.2b"):
+        monkeypatch.setattr(sys, "argv", ["serve_decode.py", "--arch", arch])
+        _load("examples/serve_decode.py").main()
+        ref_lines[arch] = capsys.readouterr().out.splitlines()[-1]
     rows = serve_decode.main(["--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
-    assert [r["arch"] for r in rows] == ["qwen3-1.7b", "mixtral-8x7b"]
+    assert [r["arch"] for r in rows] == ["qwen3-1.7b", "mixtral-8x7b",
+                                         "mamba2-370m", "zamba2-1.2b"]
+    assert serve_decode.DEFAULT_ARCHS == [r["arch"] for r in rows]
     assert out == [r["line"] for r in rows]
-    assert out[1].split()[:3] == ref_line.split()[:3] == [
-        "mixtral-8x7b", "64", "tokens"]
-    assert out[1].index("sample:") == ref_line.index("sample:")
+    for i, arch in ((1, "mixtral-8x7b"), (3, "zamba2-1.2b")):
+        assert out[i].split()[:3] == ref_lines[arch].split()[:3] == [
+            arch, "64", "tokens"]
+        assert out[i].index("sample:") == ref_lines[arch].index("sample:")
     for row in rows:
         assert row["tokens"].shape == (4, 16)
         assert row["tokens"].min() >= 0 and row["tokens"].max() < 512

@@ -36,7 +36,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "import repro_torch.optim, repro_torch.training\n"
             "import repro_torch.launch.train\n"
             "import repro_torch.examples.train_transformer_admm\n"
-            "import repro_torch.models.moe\n"
+            "import repro_torch.models.moe, repro_torch.models.ssm\n"
             "import repro_torch.examples.serve_decode\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -2,7 +2,8 @@
 ``repro_torch.launch.train.main(argv)`` with both trainers, under the
 PS runtime (its ``--profile-dir`` through ``torch.profiler``) and with
 ``--ckpt``; ``repro_torch.examples.train_transformer_admm.main`` with
-``--quick``; the two MoE archs through ``--arch``. Every JSON line must
+``--quick``; the two MoE archs, the SSM arch and the hybrid arch
+through ``--arch``. Every JSON line must
 parse and every loss be finite; both default to the card."""
 import json
 
@@ -48,6 +49,18 @@ def test_launch_train_runs_both_trainers(trainer, capsys, tmp_path):
 def test_launch_train_runs_the_moe_archs(arch, capsys):
     """``--arch`` takes its choices from ``list_archs()``: both MoE
     smokes train 3 ADMM steps, the router's aux loss in every loss."""
+    losses = train.main(["--arch", arch, "--device", "cpu", "--steps", "3",
+                         "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke" in out
+    assert [r["loss"] for r in _records(out)] == losses
+    assert len(losses) == 3 and np.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_launch_train_runs_the_ssm_and_hybrid_archs(arch, capsys):
+    """mamba2's and zamba2's smokes (zamba2's unstacked shared block
+    among the packed leaves) train 3 ADMM steps through ``--arch``."""
     losses = train.main(["--arch", arch, "--device", "cpu", "--steps", "3",
                          "--log-every", "1"])
     out = capsys.readouterr().out

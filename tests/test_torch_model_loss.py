@@ -10,7 +10,8 @@ max|g|), the port's parity tolerance (the reference's between its own
 backends). Measured on the four dense smokes: loss at most 1.4e-7
 relative, gradients at most 7.4e-7 (1 + max|g|); on the two MoE smokes
 (both dispatches, the router's auxiliary loss in the sum): loss 1.4e-7,
-gradients 5.8e-7.
+gradients 5.8e-7; on the SSM and hybrid smokes: loss 1.5e-7, gradients
+1.7e-7 (mamba2).
 """
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,8 @@ from repro_torch.serving import Engine
 
 DENSE_ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
 MOE_ARCHS = ["mixtral-8x7b", "granite-moe-1b-a400m"]
-ARCHS = DENSE_ARCHS + MOE_ARCHS
+SSM_ARCHS = ["mamba2-370m", "zamba2-1.2b"]
+ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS
 LOSS_TOL = 1e-6
 GRAD_TOL = 1e-5
 
@@ -127,12 +129,14 @@ def test_loss_with_a_label_mask_matches_reference():
     _grad_close(model.grad_fn()(params, tb), rgrad)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
+                                  "zamba2-1.2b"])
 def test_loss_under_vmap_matches_per_worker_losses(arch):
     """``TreeSpace.worker_grads`` calls the loss as
     ``vmap(grad_and_value(loss))`` over a leading worker axis: each
     worker's loss and gradient equal the loss taken on its own (for
-    granite-moe through top-k, the cumsum and the dispatch)."""
+    granite-moe through top-k, the cumsum and the dispatch; for zamba2
+    through the SSD scan and the shared block)."""
     cfg = get_smoke(arch)
     model = build_model(cfg)
     per = [stacked_params(cfg, seed, "cpu") for seed in (0, 1)]
@@ -171,12 +175,14 @@ def test_stacked_forward_matches_paramtree_prefill(arch):
     assert float((last - ref[:, -1:]).abs().max()) <= 1e-6 * scale
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
+                                  "zamba2-1.2b"])
 def test_params_from_stacked_views_the_tree_and_serves_it(arch):
     """``params_from_stacked`` copies no weight: every parameter is a
     view of a stacked leaf (a write to the stacked tree shows through),
     and the ``Engine`` serves it as it serves ``Model.init``'s tree (for
-    granite-moe the (L, E, d, ff) expert stacks too)."""
+    granite-moe the (L, E, d, ff) expert stacks too; for zamba2 the
+    SSM layers and the unstacked shared block)."""
     cfg = get_smoke(arch)
     model = build_model(cfg)
     stacked = stacked_params(cfg, 0, "cpu")
@@ -187,10 +193,14 @@ def test_params_from_stacked_views_the_tree_and_serves_it(arch):
     for (_, a), (_, b) in zip(tree.named_parameters(),
                               init.named_parameters()):
         assert torch.equal(a, b) and not a.requires_grad
-    w = stacked["layers"]["attn"]["w_q"]
-    assert tree["layers"][1]["attn"]["w_q"].data_ptr() == \
-        w[1].data_ptr()
+    group, name = ("mamba", "w_in") if cfg.ssm is not None else \
+        ("attn", "w_q")
+    w = stacked["layers"][group][name]
+    assert tree["layers"][1][group][name].data_ptr() == w[1].data_ptr()
     assert tree["embed"].data_ptr() == stacked["embed"].data_ptr()
+    if cfg.arch_type == "hybrid":
+        assert tree["shared_attn"]["attn"]["w_q"].data_ptr() == \
+            stacked["shared_attn"]["attn"]["w_q"].data_ptr()
     if cfg.moe is not None:
         w_up = stacked["layers"]["moe"]["w_up"]
         assert tree["layers"][1]["moe"]["w_up"].data_ptr() == \
@@ -200,7 +210,7 @@ def test_params_from_stacked_views_the_tree_and_serves_it(arch):
     b = Engine(model, init, max_len=16).generate(prompts, max_new=4)
     np.testing.assert_array_equal(a.tokens, b.tokens)
     w[1].add_(1.0)
-    assert torch.equal(tree["layers"][1]["attn"]["w_q"], w[1])
+    assert torch.equal(tree["layers"][1][group][name], w[1])
     with pytest.raises(ValueError, match="stacked layers"):
         params_from_stacked(cfg.with_(num_layers=3), stacked)
 

@@ -1,12 +1,14 @@
 """The port's model stack (``repro_torch.models``) against the
-reference's (``repro.models``) for each of the four dense archs and the
-two MoE archs at their smoke configs. The reference's params
-(``model.init(PRNGKey(0))``) are carried across by ``params_from_numpy``,
-so both compute the same function on the same seeded tokens.
+reference's (``repro.models``) for each of the four dense archs, the
+two MoE archs, the SSM arch and the hybrid arch at their smoke configs.
+The reference's params (``model.init(PRNGKey(0))``) are carried across
+by ``params_from_numpy``, so both compute the same function on the same
+seeded tokens.
 
 Tolerance: 1e-5 of max|reference logits|, the parity tolerance of the
 port (the reference's between its own backends). Measured max|Δ| on
-the six archs: at most 1.4e-6 of max|ref| for prefill, naive and flash.
+the six dense and MoE archs: at most 1.4e-6 of max|ref| for prefill,
+naive and flash; mamba2 7.7e-7, zamba2 1.3e-6.
 The port's own decode-vs-prefill check uses the reference's 5e-4
 (``tests/test_decode_consistency.py``). The MoE smokes are dropless
 (capacity factor 4.0 = E / K), so a prefill and a token-by-token decode
@@ -29,7 +31,8 @@ from repro_torch.models import build_model, params_from_numpy
 
 DENSE_ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
 MOE_ARCHS = ["mixtral-8x7b", "granite-moe-1b-a400m"]
-ARCHS = DENSE_ARCHS + MOE_ARCHS
+SSM_ARCHS = ["mamba2-370m", "zamba2-1.2b"]
+ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS
 PARITY = 1e-5
 
 
@@ -56,19 +59,19 @@ def _close(out, ref, tol=PARITY):
 
 
 def test_the_port_has_the_four_dense_archs():
-    """The four dense archs and the two MoE archs; the families still
-    missing (MLA, SSM, hybrid, enc-dec) name the ROADMAP item."""
+    """The four dense archs, the two MoE archs, the SSM arch and the
+    hybrid arch; the families still missing (MLA, enc-dec) name the
+    ROADMAP item."""
     assert sorted(list_archs()) == sorted(ARCHS)
     for arch in ARCHS:
         assert get_config(arch) == get_config(arch).with_()
         ref = ref_smoke(arch)
         ours = get_smoke(arch)
         assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
-    for missing in ("minicpm3-4b", "mamba2-370m", "zamba2-1.2b",
-                    "whisper-medium"):
+    for missing in ("minicpm3-4b", "whisper-medium"):
         with pytest.raises(KeyError, match="Queue A item 11"):
             get_config(missing)
-        with pytest.raises(KeyError, match="MLA, SSM, hybrid, enc-dec"):
+        with pytest.raises(KeyError, match="MLA, enc-dec"):
             get_smoke(missing)
 
 
@@ -138,7 +141,8 @@ def test_flash_prefill_matches_naive(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_steps_match_reference(arch):
     """12 ``decode_step`` calls against the reference's, logits at each
-    step and the K/V cache at the end."""
+    step and every cache tensor at the end (K/V; the SSM layers' conv
+    and SSM states; the hybrid's shared-block K/V)."""
     rmodel, rparams, model, params = _pair(arch)
     B, S = 2, 12
     tok = _tokens(model.cfg, B, S)
@@ -152,8 +156,11 @@ def test_decode_steps_match_reference(arch):
             tok[:, t:t + 1]), cache, t)
         assert lg.shape == (B, 1, model.cfg.vocab_size)
         _close(lg.numpy(), rlg)
-    for name in ("k", "v"):
-        _close(cache["layers"][name].numpy(), rcache["layers"][name])
+    assert set(cache) == set(rcache)
+    for part, tensors in cache.items():
+        assert set(tensors) == set(rcache[part])
+        for name, t in tensors.items():
+            _close(t.numpy(), rcache[part][name])
 
 
 def test_decode_past_the_cache_length_matches_reference():
@@ -231,30 +238,37 @@ def test_decode_matches_own_prefill(arch):
 
 
 @pytest.mark.parametrize("max_len", [20, 64])
-@pytest.mark.parametrize("arch", ["qwen3-1.7b"] + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ["qwen3-1.7b"] + MOE_ARCHS + SSM_ARCHS)
 def test_cache_specs_match_reference(arch, max_len):
     """mixtral's cache is its window long (32 slots in the smoke) once
-    max_len passes it, as the reference allocates it."""
+    max_len passes it, as the reference allocates it; the SSM layers'
+    conv and SSM states and the hybrid's shared-block K/V take the
+    reference's shapes and dtypes."""
     rcfg, cfg = ref_smoke(arch), get_smoke(arch)
-    rspec = ref_build(rcfg).cache_specs(3, max_len)["layers"]
-    spec = build_model(cfg).cache_specs(3, max_len)["layers"]
-    for name in ("k", "v"):
-        assert spec[name][0] == rspec[name].shape
-        assert spec[name][1] == torch.float32
+    rspecs = ref_build(rcfg).cache_specs(3, max_len)
+    specs = build_model(cfg).cache_specs(3, max_len)
     cache = build_model(cfg).init_cache(3, max_len, "cpu")
-    assert cache["layers"]["k"].shape == rspec["k"].shape
-    assert not bool(cache["layers"]["k"].any())
+    assert set(specs) == set(rspecs) == set(cache)
+    for part, spec in specs.items():
+        assert set(spec) == set(rspecs[part])
+        for name, (shape, dt) in spec.items():
+            assert shape == rspecs[part][name].shape
+            assert str(dt) == f"torch.{rspecs[part][name].dtype}"
+            assert cache[part][name].shape == shape
+            assert cache[part][name].dtype == dt
+            assert not bool(cache[part][name].any())
     if cfg.sliding_window is not None:
         assert cache["layers"]["k"].shape[2] == min(max_len,
                                                     cfg.sliding_window)
 
 
 def test_other_families_and_impls_name_the_roadmap_item():
-    """The families and impls still missing: MLA, SSM, hybrid, enc-dec,
-    and the ``chunked`` / ``qchunk`` attention impls (on a dense and a
-    MoE arch)."""
+    """The families and impls still missing: MLA, enc-dec (``audio``,
+    ``encoder_layers``), and the ``chunked`` / ``qchunk`` attention
+    impls (on a dense, a MoE and the hybrid arch); an SSM and a hybrid
+    config made from a dense one now build and run."""
     tok = torch.zeros((1, 8), dtype=torch.int64)
-    for arch in ("qwen3-1.7b", "mixtral-8x7b"):
+    for arch in ("qwen3-1.7b", "mixtral-8x7b", "zamba2-1.2b"):
         cfg = get_smoke(arch)
         params = build_model(cfg).init(0, "cpu")
         for impl in ("chunked", "qchunk"):
@@ -265,10 +279,15 @@ def test_other_families_and_impls_name_the_roadmap_item():
     ssm = cfg.with_(arch_type="ssm", ssm=SSMConfig(16))
     hybrid = cfg.with_(arch_type="hybrid", ssm=SSMConfig(16),
                        hybrid_attn_every=2)
-    for other in (mla, ssm, hybrid, cfg.with_(arch_type="audio"),
+    for other in (mla, cfg.with_(arch_type="audio"),
                   cfg.with_(encoder_layers=2)):
         with pytest.raises(NotImplementedError, match="Queue A item 11"):
             build_model(other).init(0, "cpu")
+    for family in (ssm, hybrid):
+        model = build_model(family)
+        out = model.prefill(model.init(0, "cpu"), tok)
+        assert out.shape == (1, 8, cfg.vocab_size)
+        assert bool(torch.isfinite(out).all())
     with pytest.raises(NotImplementedError, match="Queue A item 11"):
         build_model(cfg).prefill(build_model(cfg).init(0, "cpu"), tok,
                                  enc_frames=torch.zeros(1))

@@ -1,8 +1,8 @@
 """The port's serving engine (``repro_torch.serving.Engine``) and serve
 launcher against the reference's, with the reference's params carried
 across: greedy tokens equal the reference engine's on the prompts of
-``tests/test_serving.py``, for each of the four dense archs and the
-two MoE archs; plus
+``tests/test_serving.py``, for each of the four dense archs, the two
+MoE archs, the SSM arch and the hybrid arch; plus
 determinism, EOS masking, temperature sampling and the launcher on the
 CPU.
 """
@@ -21,7 +21,8 @@ from repro_torch.models import build_model, params_from_numpy
 from repro_torch.serving import Engine
 
 ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b",
-         "mixtral-8x7b", "granite-moe-1b-a400m"]
+         "mixtral-8x7b", "granite-moe-1b-a400m", "mamba2-370m",
+         "zamba2-1.2b"]
 # tests/test_serving.py:19 and :31 — (seed, shape, max_len, max_new)
 PROMPTS = [(0, (2, 6), 32, 4), (1, (3, 5), 24, 6)]
 
@@ -116,7 +117,8 @@ def test_enc_frames_wait_for_the_enc_dec_slice():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "chameleon-34b",
-                                  "mixtral-8x7b", "granite-moe-1b-a400m"])
+                                  "mixtral-8x7b", "granite-moe-1b-a400m",
+                                  "mamba2-370m", "zamba2-1.2b"])
 def test_serve_launcher_on_the_cpu(arch, capsys):
     res = serve.main(["--arch", arch, "--device", "cpu"])
     assert res.tokens.shape == (4, 24)

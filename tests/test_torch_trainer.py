@@ -5,7 +5,8 @@ through ``params_from_stacked``), ``tests/test_resume_and_distributed.py
 ::test_admm_state_checkpoint_resume`` through ``repro_torch.checkpoint``
 (here exact: the port's draws follow from the seed and the step), and
 ``tests/test_models_smoke.py::test_one_admm_train_step`` for the four
-dense archs and the two MoE archs the port has. The token stream is the port's
+dense archs, the two MoE archs, the SSM arch and the hybrid arch the
+port has. The token stream is the port's
 ``TokenPipeline``: the reference's bigram language, batches drawn by a
 torch generator, so the losses differ from the reference's runs while
 the thresholds are the reference's own.
@@ -27,6 +28,7 @@ from repro_torch.training import ADMMTrainer, SGDTrainer
 
 DENSE_ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
 MOE_ARCHS = ["mixtral-8x7b", "granite-moe-1b-a400m"]
+SSM_ARCHS = ["mamba2-370m", "zamba2-1.2b"]
 
 
 @pytest.fixture(scope="module")
@@ -236,7 +238,7 @@ def test_admm_state_checkpoint_resume(tmp_path):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS)
 def test_one_admm_train_step(arch):
     cfg = get_smoke(arch)
     model = build_model(cfg)

@@ -15,6 +15,9 @@ same token batches from a numpy seed, fp32 (the reference jitted):
 * ``SGDTrainer`` with AdamW for 5 steps;
 * ``train_step`` for 3 steps of the granite-moe smoke (the router's
   auxiliary loss in the loss) at ``block_fraction=1, max_delay=0``;
+* ``train_step`` for 3 steps of the mamba2 and zamba2 smokes with the
+  reference's draws (``block_fraction=0.5, max_delay=1``): the hybrid's
+  unstacked ``shared_attn`` leaves packed in the reference's leaf order;
 * what the port adds: the spec built once per tree, a step's state
   packed back with no copy, defaults to the card.
 
@@ -156,6 +159,32 @@ def test_train_step_with_the_reference_draws(models, monkeypatch):
         space.make_spec, delay_model=space.TraceDelay(delays),
         selector=lambda ctx: sels[ctx.t] & ctx.edge))
     _run_and_compare(rt, tt, models[1], models[3])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_ssm_train_step_with_the_reference_draws(arch, monkeypatch):
+    """The SSM and hybrid smokes, their weights carried across, 3 steps
+    with the reference's delays and selections: the block layout of
+    their trees is the reference's (zamba2's ``shared_attn`` leaves
+    sorted in among the stacked ones), and z, y, w_cache, the loss and
+    the residual agree at 1e-5."""
+    rmodel = ref_build(ref_smoke(arch))
+    rparams = rmodel.init(jax.random.PRNGKey(0))
+    model = build_model(get_smoke(arch))
+    params = stacked_from_numpy(model.cfg, jax.tree.map(np.asarray, rparams),
+                                "cpu")
+    rt, tt = _trainers((rmodel, rparams, model, params), max_delay=1,
+                       block_fraction=0.5, seed=3)
+    delays, sels = _reference_draws(rt.admm, steps=3)
+    monkeypatch.setattr(trainer_mod, "make_spec", functools.partial(
+        space.make_spec, delay_model=space.TraceDelay(delays),
+        selector=lambda ctx: sels[ctx.t] & ctx.edge))
+    rlayout = rt._spec(rparams).space.layout
+    layout = tt._spec(params).space.layout      # cached: built patched
+    for field in ("block_ids", "leaf_offsets", "leaf_shapes",
+                  "block_sizes", "block_dim"):
+        assert getattr(layout, field) == getattr(rlayout, field), field
+    _run_and_compare(rt, tt, rparams, params, steps=3)
 
 
 def test_train_step_block_matches_reference(models, monkeypatch):

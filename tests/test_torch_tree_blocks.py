@@ -7,8 +7,10 @@ trees, leading batch axes, mixed f32/bf16/f16 leaves (bitwise), the
 structure checks, the block-id contract, lane rounding and inert
 padding. Beyond it: leaf order, ``leaf_block_ids`` and ``leaf_offsets``
 equal to the reference's for dicts inserted in any order, trees with
-``None`` and NamedTuples, and qwen3-1.7b's stacked parameter tree at 12
-and 28 layers (``jax.eval_shape`` on one side, ``meta`` tensors on the
+``None`` and NamedTuples, qwen3-1.7b's stacked parameter tree at 12
+and 28 layers, and mamba2-370m's and zamba2-1.2b's (whose unstacked
+``shared_attn`` subtree sorts in after ``layers`` and ``lm_head``) at
+full width (``jax.eval_shape`` on one side, ``meta`` tensors on the
 other); and the round-trip property under hypothesis, held against the
 reference's table.
 """
@@ -459,6 +461,31 @@ def test_qwen3_stacked_tree_layout_matches_reference(layers, m):
         assert {n for n, j in ids.items() if j == 1} == {
             "['final_norm']", "['layers']['mlp']['w_down']",
             "['layers']['mlp']['w_up']", "['layers']['norm2']"}
+
+
+@pytest.mark.parametrize("arch,m", [("mamba2-370m", 2), ("zamba2-1.2b", 2),
+                                    ("zamba2-1.2b", 8)])
+def test_ssm_and_hybrid_stacked_tree_layout_matches_reference(arch, m):
+    """The SSM and hybrid trees at their full widths and depths (shapes
+    only): the LPT assignment, offsets and block sizes are the
+    reference's, the hybrid's ``shared_attn`` leaves (2-D, not stacked)
+    at the reference's places in the leaf order."""
+    from repro.configs import get_config as ref_config
+    from repro_torch.configs import get_config
+    rshapes = jax.eval_shape(build_model(ref_config(arch)).init,
+                             jax.random.PRNGKey(0))
+    meta = stacked_params(get_config(arch), 0, "meta")
+    layout = blocks.make_block_layout(meta, num_blocks=m)
+    _assert_same_layout(layout,
+                        rblocks.make_block_layout(rshapes, num_blocks=m),
+                        mask=False)
+    names = [jax.tree_util.keystr(p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(rshapes)[0]]
+    assert [tuple(t.shape) for t in tree.tree_leaves(meta)] == \
+        [tuple(x.shape) for x in jax.tree.leaves(rshapes)]
+    if arch == "zamba2-1.2b":
+        assert names[-1] == "['shared_attn']['norm2']"
+        assert layout.leaf_shapes[-1] == (2048,)
 
 
 def test_stacked_params_are_model_init_stacked():
