@@ -140,7 +140,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``train_entry_points``: launch/train.py at its smoke defaults (admm
    and sgd, 6 steps; ``--runtime ps``, 3 rounds) and the training
    example with ``--quick``: B1 and B2 once per ADMM step (per worker
-   compute and per block commit under ps), every loss finite;
+   compute and per block commit under ps), every loss finite; then
+   ``--arch`` zamba2-1.2b, minicpm3-4b and whisper-medium (6 ADMM steps
+   each) and whisper under ``--runtime ps`` (3 rounds);
    train_moe — ``ADMMTrainer`` on granite-moe-1b-a400m's stacked tree at
    its widths (d_model 1024, 32 experts top-8 of ff 512, vocab 49,155),
    8 of 24 layers (528,768,000 f32 parameters, seed 0), the reference's
@@ -169,6 +171,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    finite. Prints step ms, tokens/s, peaks beside the reckoning and a
    device split of the step (each part's device busy time alone under
    the profiler, the step's idle time apart);
+   train_mla, train_encdec — the same on minicpm3-4b's stacked tree
+   (MLA: its materialized scores under ``vmap(grad)``) and on
+   whisper-medium's (its second stack, ``enc_layers``, and the batch's
+   2 x 1500 x 1024 frames a worker), each at its widths in full and at
+   the most layers under the 72 GB reckoning (whisper's two stacks cut
+   alike), the cut printed in lines ``train_mla_plan`` and
+   ``train_encdec_plan``; the reckoning counts the plain step that runs
+   from the same state (its unfused update: 4 B x (2T + 9NT + NP + P));
+   the three run on expandable segments (``expandable_segments``), and
+   cyclic garbage and cached blocks are released before the profiled
+   and the captured step, whose peaks are printed beside the loop's;
 8. serve   — the dense model stack at qwen3-1.7b's full width (28
    layers, d_model 2048, 16 / 8 heads of 128, vocab 151,936, fp32,
    random weights from a seed): ``Model.prefill`` of 4 x 4096 tokens on
@@ -229,6 +242,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    2e-3; ``Engine.generate`` (B7 never in decode); decode vs prefill
    within 5e-4; the SSM layers' decode state the same at max_len 64 and
    4096;
+   serve_mla — minicpm3-4b in full (62 layers, d_model 2560, 40 heads,
+   q rank 768, kv rank 256; f32, seed 0): the 4 x 4096 prefill (its
+   (4, 40, 4096, 4096) scores materialized, as the reference's MLA does
+   under every attn_impl: no kernel), its peak beside the reckoning,
+   profiled; under ``attn_impl="flash"`` no launch and logits bitwise
+   the naive ones; ``Engine.generate`` through the absorbed decode over
+   the latent cache; decode vs prefill within 5e-4; first tokens
+   decided; the latent cache's bytes at max_len 64 and 4096;
+   serve_encdec — whisper-medium in full (24 + 24 layers, d_model 1024,
+   16 heads of 64; f32, seed 0), launch/serve.py's frames (4 x 1500 x
+   1024): the 4 x 448 prefill on the flash path, B7 48 launches (24
+   bidirectional in the encoder at (64, 1536, 128), 24 causal in the
+   decoder at (64, 512, 128)), every launch held to float64 and the
+   first of each kind timed beside its plain version and SDPA with its
+   gate shown to refuse faulty results (a causal mask added to a
+   bidirectional launch among them); the flash prefill within 2e-3 of
+   the same path with B7's plain version; the naive path, and the
+   flash-naive gap printed (ROADMAP Queue C item 3: the zero keys that
+   pad 1500 to 1536 enter the encoder's softmax, so no 2e-3 gate holds
+   between them); the encoder alone timed; ``Engine.generate`` on the
+   flash path (B7 24 times, in the encoder; never in decode); decode vs
+   prefill within 5e-4 under flash on both sides; the cross cache's
+   bytes;
 9. logreg  — ``ops.logreg_grad`` at the size the repo declares for it
    (m = 2^20 samples, d = 2^14 features, X dense f32, 68.72 GB, filled
    on the card in row chunks): launches B5 twice and B6 once; each pass
@@ -247,7 +283,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    operands and bf16 autograd; B6 as in ``logreg``;
 10. a ``kernels`` summary line (B5's designs each on a line of their
    own after B5's; B2 on the PS runtime's commit, B6 in bf16, B7 on
-   zamba2's prefill and B1 and B2 on mamba2's train step on lines of
+   zamba2's prefill and on whisper's encoder and decoder, and B1 and
+   B2 on the train steps of mamba2, minicpm3 and whisper on lines of
    their own, with device times per launch where measured),
    the card's nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -381,6 +418,23 @@ def reset_peak() -> None:
     torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """Inside the block, the caching allocator maps its segments as they
+    grow (``expandable_segments:True``), so a path whose peak lies near
+    the card's memory cannot fail on blocks that are cached but cut to
+    other sizes; the cached blocks are released on entry and exit. The
+    allocated bytes, and so every peak the phases print and gate, are
+    the same either way."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
 
 
 def same_nonfinite(kernel, plain) -> None:
@@ -784,6 +838,27 @@ SOURCES = {
     "server_prox_update_ssm": (
         "src/repro_torch/csrc/prox_update.cu",
         "src/repro/kernels/prox_update.py:117"),
+    # B1 and B2 on minicpm3-4b's and whisper-medium's ADMM train steps
+    "admm_worker_select_update_mla": (
+        "src/repro_torch/csrc/admm_update.cu",
+        "src/repro/kernels/admm_update.py:136"),
+    "server_prox_update_mla": (
+        "src/repro_torch/csrc/prox_update.cu",
+        "src/repro/kernels/prox_update.py:117"),
+    "admm_worker_select_update_encdec": (
+        "src/repro_torch/csrc/admm_update.cu",
+        "src/repro/kernels/admm_update.py:136"),
+    "server_prox_update_encdec": (
+        "src/repro_torch/csrc/prox_update.cu",
+        "src/repro/kernels/prox_update.py:117"),
+    # B7 on whisper-medium's flash prefill, hd 64: its encoder
+    # (bidirectional) and its decoder (causal)
+    "flash_attention_encdec_enc": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:65"),
+    "flash_attention_encdec_dec": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:65"),
 }
 # one PyTorch call for the same function, where there is one
 LIBRARY = {"matmul": lambda a, b, transpose_a: torch.matmul(
@@ -2859,7 +2934,9 @@ def phase_train_entry_points() -> dict:
     3 rounds of ``--runtime ps``, and the training example with
     ``--quick``: B1 and B2 once per ADMM step (per worker compute and
     block commit under ps), none for AdamW, every loss finite; then
-    ``--arch zamba2-1.2b`` (the hybrid smoke), 6 ADMM steps."""
+    ``--arch zamba2-1.2b`` (the hybrid smoke), ``--arch minicpm3-4b``
+    and ``--arch whisper-medium``, 6 ADMM steps each, and whisper's 3
+    rounds of ``--runtime ps``."""
     import contextlib as _cl
     import io
     from repro_torch.examples import train_transformer_admm as example
@@ -2905,6 +2982,13 @@ def phase_train_entry_points() -> dict:
     # the hybrid tree (its unstacked shared block among the leaves)
     run("zamba2", lambda: train.main(admm + ["--arch", HYBRID_ARCH]),
         lambda lines: {k: steps for k in MAIN_KERNELS})
+    # the MLA tree, and the enc-dec tree (its batches carry the frames)
+    for name_, arch in (("minicpm3", MLA_ARCH), ("whisper", ENC_DEC_ARCH)):
+        run(name_, lambda arch=arch: train.main(admm + ["--arch", arch]),
+            lambda lines: {k: steps for k in MAIN_KERNELS})
+    run("whisper_ps", lambda: train.main(
+        ["--steps", str(rounds), "--runtime", "ps", "--log-every", "1",
+         "--arch", ENC_DEC_ARCH]), ps_counts)
     quick = 30                                       # the example's --quick
     run("example", lambda: example.main(["--quick"]),
         lambda lines: {k: quick for k in MAIN_KERNELS})
@@ -2951,12 +3035,15 @@ def commit_on_path(case, rows) -> dict:
 # phase 8: the model stack at qwen3-1.7b's full width, and its serving path
 # ---------------------------------------------------------------------------
 
-def timed_prefill(model, params, tokens, mode="last", **route_kw):
-    """(logits, host ms) of one prefill, under ``routing(**route_kw)``."""
+def timed_prefill(model, params, tokens, mode="last", enc_frames=None,
+                  **route_kw):
+    """(logits, host ms) of one prefill (of an enc-dec arch: with its
+    encoder over ``enc_frames``), under ``routing(**route_kw)``."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with routing(**route_kw):
-        out = model.prefill(params, tokens, logits_mode=mode)
+        out = model.prefill(params, tokens, logits_mode=mode,
+                            enc_frames=enc_frames)
     torch.cuda.synchronize()
     return out, 1e3 * (time.perf_counter() - t0)
 
@@ -2976,18 +3063,21 @@ def first_tokens_decided(path: str, tokens, decoded_last, last) -> dict:
                 first_tokens_decided=int(decided.sum()))
 
 
-def generate_timed(path: str, engine, prompts, max_new: int) -> tuple:
-    """``Engine.generate`` (greedy), timed, its launches counted: none."""
+def generate_timed(path: str, engine, prompts, max_new: int,
+                   enc_frames=None, want=None) -> tuple:
+    """``Engine.generate`` (greedy; an enc-dec arch's encoder over
+    ``enc_frames`` first), timed, its launches counted: ``want`` (none by
+    default)."""
     from repro_torch.kernels import ops
     reset_peak()
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = engine.generate(prompts, max_new=max_new)
+    res = engine.generate(prompts, max_new=max_new, enc_frames=enc_frames)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()
-    expect_counts(f"{path} decode", launches, {})
+    expect_counts(f"{path} decode", launches, want or {})
     vocab = engine.model.cfg.vocab_size
     if res.tokens.shape != (prompts.shape[0], max_new) or \
             res.tokens.min() < 0 or res.tokens.max() >= vocab:
@@ -3003,7 +3093,8 @@ def generate_timed(path: str, engine, prompts, max_new: int) -> tuple:
 
 def refused_attention(case, plain, exact) -> dict:
     """Results a faulty B7 could return for ``case``, which its float64
-    gate must refuse: no causal mask; the last 64 keys dropped; inputs
+    gate must refuse: no causal mask (on a bidirectional case, one
+    added); the last 64 keys dropped; inputs
     with too few mantissa bits (f32 inputs rounded to bf16's 7, 16-bit
     inputs cut to 3); in 16 bits also K and V read one 64-key tile late
     (the first 64 keys dropped). In 16 bits the gate is B5's rule and
@@ -3017,8 +3108,8 @@ def refused_attention(case, plain, exact) -> dict:
     limit, _ = f64_limit(plain, exact)
     T = k.shape[1]
     faulty = {
-        "no_causal_mask": lambda: fa.flash_attention_cuda(
-            q, k, v, False, scale),
+        "no_causal_mask" if causal else "causal_mask_added":
+            lambda: fa.flash_attention_cuda(q, k, v, not causal, scale),
         "last_K_tile_dropped": lambda: fa.flash_attention_cuda(
             q, k[:, :T - 64].contiguous(), v[:, :T - 64].contiguous(),
             causal, scale)}
@@ -3052,15 +3143,17 @@ def refused_attention(case, plain, exact) -> dict:
             **({"faulty_over_limit_by_rule": by_rule} if half else {})}
 
 
-def b7_on_path(case, cfg, dtype, bw, errs) -> dict:
-    """B7 on the inputs the prefill gave it at layer 0: held to float64
-    by B5's rule (in 16 bits row by row too), the gate shown to refuse
-    faulty results (``refused_attention``), timed beside its plain
-    version and SDPA in the same dtype."""
+def b7_on_path(case, cfg, dtype, bw, errs, batch=SERVE_BATCH, seq=SERVE_SEQ,
+               causal=True) -> dict:
+    """B7 on the inputs the prefill gave it at one layer, (batch x heads,
+    seq padded to 128, hd padded to 128): held to float64 by B5's rule
+    (in 16 bits row by row too), the gate shown to refuse faulty results
+    (``refused_attention``), timed beside its plain version and SDPA in
+    the same dtype."""
     hd = max(128, -(-cfg.resolved_head_dim // 128) * 128)   # padded so
     if [list(t.shape) for t in case[:3]] != [
-            [SERVE_BATCH * cfg.num_heads, SERVE_SEQ, hd]] * 3 or \
-            case[3] is not True or case[0].dtype != dtype:
+            [batch * cfg.num_heads, -(-seq // 128) * 128, hd]] * 3 or \
+            case[3] is not causal or case[0].dtype != dtype:
         fail(f"serve: B7 was given {[list(t.shape) for t in case[:3]]} "
              f"{case[0].dtype}, causal={case[3]}")
     row = measure("flash_attention", case, bw, errs, FLASH_REPS,
@@ -3981,20 +4074,39 @@ def stage_clock():
 
 
 def cache_bytes(model, batch: int, max_len: int) -> dict:
-    """The decode cache's bytes by part (``init_cache``'s tensors)."""
+    """The decode cache's bytes by part (``init_cache``'s tensors; a part
+    is a dict of them, or one tensor, as enc-dec's ``cross_k``)."""
     cache = model.init_cache(batch, max_len)
-    out = {part: sum(t.numel() * t.element_size() for t in d.values())
+    out = {part: sum(t.numel() * t.element_size() for t in (
+        d.values() if isinstance(d, dict) else [d]))
            for part, d in cache.items()}
     del cache
     return out
 
 
-def decode_vs_prefill(path: str, model, params, prompts) -> dict:
+def filled_cache(model, params, batch: int, max_len: int, enc_frames=None):
+    """A decode cache; an enc-dec arch's cross K/V filled by its
+    ``Engine`` from ``enc_frames`` (the encoder under the model's
+    ``attn_impl``)."""
+    from repro_torch.serving import Engine
+    cache = model.init_cache(batch, max_len)
+    if enc_frames is not None:
+        cache = Engine(model, params, max_len)._fill_cross_attn(cache,
+                                                                enc_frames)
+    return cache
+
+
+def decode_vs_prefill(path: str, model, params, prompts,
+                      enc_frames=None) -> dict:
     """``decode_step`` over ``prompts`` token by token, timed step by
-    step, against the prefill's logits at every position (within
-    DECODE_TOL). Returns the report and the decode's last logits."""
+    step (no kernel launched), against the prefill's logits at every
+    position (within DECODE_TOL); an enc-dec arch's cross K/V and
+    prefill from ``enc_frames`` under the same ``attn_impl``. Returns
+    the report and the decode's last logits."""
+    from repro_torch.kernels import ops
     B, S = prompts.shape
-    cache = model.init_cache(B, S + 8)
+    cache = filled_cache(model, params, B, S + 8, enc_frames)
+    ops.reset_launch_counts()
     step_ms, steps = [], []
     for t in range(S):
         torch.cuda.synchronize()
@@ -4003,8 +4115,9 @@ def decode_vs_prefill(path: str, model, params, prompts) -> dict:
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         steps.append(lg[:, 0])
+    expect_counts(f"{path} decode steps", ops.launch_counts(), {})
     decoded = torch.stack(steps, dim=1)
-    full, _ = timed_prefill(model, params, prompts, "all")
+    full, _ = timed_prefill(model, params, prompts, "all", enc_frames)
     err = float((decoded - full).abs().max())
     if not err < DECODE_TOL:
         fail(f"{path}: decode and prefill logits differ by {err:.3e} "
@@ -4016,10 +4129,11 @@ def decode_vs_prefill(path: str, model, params, prompts) -> dict:
 
 
 def decode_profile(path: str, model, params, prompts, max_len: int,
-                   step_ms: float) -> dict:
+                   step_ms: float, enc_frames=None) -> dict:
     """The profiler over 3 decode steps past the prompt: the device's
     idle share of a step."""
-    held = [model.init_cache(prompts.shape[0], max_len), prompts.shape[1]]
+    held = [filled_cache(model, params, prompts.shape[0], max_len,
+                         enc_frames), prompts.shape[1]]
 
     def one_step():
         _, held[0] = model.decode_step(params, prompts[:, :1], held[0],
@@ -4029,27 +4143,35 @@ def decode_profile(path: str, model, params, prompts, max_len: int,
     return profile_calls(path, one_step, step_ms, 3, "decode_step")
 
 
-def serve_common(path: str, model, params, gen) -> tuple:
-    """``Engine.generate`` with launch/serve.py's batch (no kernel), the
+def serve_common(path: str, model, params, gen, prompts=None,
+                 enc_frames=None, generate_launches=None) -> tuple:
+    """``Engine.generate`` with launch/serve.py's batch (no kernel unless
+    ``generate_launches`` says, as an enc-dec encoder's under flash), the
     decode against the prefill at every prompt position, first tokens
     the prefill's argmax where decided, a decode profile, and the decode
-    cache's bytes at max_len 64 and 4096."""
+    cache's bytes at max_len 64 and 4096. An enc-dec arch's encoder runs
+    over ``enc_frames`` in each."""
     from repro_torch.serving import Engine
     cfg = model.cfg
     engine = Engine(model, params, max_len=SERVE_PROMPT + SERVE_NEW + 8)
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT),
-                            generator=gen, device="cuda")
+    if prompts is None:
+        prompts = torch.randint(0, cfg.vocab_size,
+                                (SERVE_REQUESTS, SERVE_PROMPT),
+                                generator=gen, device="cuda")
     stages, mark = stage_clock()
-    res, serve = generate_timed(path, engine, prompts, SERVE_NEW)
+    res, serve = generate_timed(path, engine, prompts, SERVE_NEW, enc_frames,
+                                generate_launches)
     mark("generate")
-    decode, decoded_last = decode_vs_prefill(path, model, params, prompts)
-    last, _ = timed_prefill(model, params, prompts)
+    decode, decoded_last = decode_vs_prefill(path, model, params, prompts,
+                                             enc_frames)
+    last, _ = timed_prefill(model, params, prompts, enc_frames=enc_frames)
     serve.update(decode, **first_tokens_decided(path, res.tokens,
                                                 decoded_last, last[:, -1]))
     mark("decode_vs_prefill")
     serve["profile"] = decode_profile(f"{path}_decode", model, params,
                                       prompts, engine.max_len,
-                                      decode["decode_ms_per_step"])
+                                      decode["decode_ms_per_step"],
+                                      enc_frames)
     mark("decode_profile")
     serve["cache_bytes"] = {n: cache_bytes(model, SERVE_REQUESTS, n)
                             for n in (64, 4096)}
@@ -4253,6 +4375,327 @@ def phase_serve_hybrid(bw: float, errs) -> dict:
                 rows={"flash_attention_hybrid": row})
 
 
+# ---------------------------------------------------------------------------
+# the MLA and enc-dec families: minicpm3-4b and whisper-medium in full
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "minicpm3-4b"
+ENC_DEC_ARCH = "whisper-medium"
+ENC_DEC_SEQ = 448              # whisper's decoder context: openai/whisper-
+                               # medium's max_target_positions
+SERVE_PEAK_LIMIT = 72e9        # the reckoned peak a serve phase may reach
+
+
+def mla_prefill_reckoning(cfg, weight_bytes: int, batch: int,
+                          seq: int) -> dict:
+    """The peak of MLA's prefill at batch x seq: the weights, two (batch,
+    heads, seq, seq) float32 score tensors live at once (the scores, and
+    the softmax's output; the second product is added in place, so it
+    is the second at its moment), and the MLP's three (batch, seq, d_ff)
+    tensors."""
+    scores = 4 * batch * cfg.num_heads * seq * seq
+    mlp = 3 * 4 * batch * seq * cfg.d_ff
+    return dict(batch=batch, weight_bytes=weight_bytes,
+                score_bytes_per_tensor=scores, mlp_bytes=mlp,
+                reckoned_peak_bytes=weight_bytes + 2 * scores + mlp)
+
+
+def phase_serve_mla(bw: float, errs) -> dict:
+    """minicpm3-4b in full (62 layers, d_model 2560, 40 heads, q rank
+    768, kv rank 256, d_ff 6400; f32, seed 0): the SERVE_BATCH x
+    SERVE_SEQ prefill (MLA materializes its (B, 40, S, S) scores as the
+    reference does: no kernel), its peak beside the reckoning (which
+    must stay under SERVE_PEAK_LIMIT), timed and profiled; the same prefill under ``attn_impl="flash"``: no launch,
+    logits bitwise the naive ones; ``Engine.generate`` with
+    launch/serve.py's batch through the absorbed decode over the latent
+    cache; decode against prefill at every prompt position; first tokens
+    decided; the latent cache's bytes at max_len 64 and 4096, 62 x B x
+    max_len x (256 + 32) x 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    stages, mark = stage_clock()
+    cfg = get_config(MLA_ARCH)
+    naive, flash = build_model(cfg), build_model(cfg.with_(attn_impl="flash"))
+    gc.collect()
+    reset_peak()
+    t0 = time.perf_counter()
+    params = naive.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    batch = SERVE_BATCH
+    reckoning = mla_prefill_reckoning(cfg, weight_bytes, batch, SERVE_SEQ)
+    if reckoning["reckoned_peak_bytes"] > SERVE_PEAK_LIMIT:
+        fail(f"serve_mla: the prefill's reckoned peak {reckoning} passes "
+             f"{SERVE_PEAK_LIMIT:.0f} B")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, SERVE_SEQ),
+                           generator=gen, device="cuda")
+    mark("init")
+    reset_peak()
+    ops.reset_launch_counts()
+    logits, first_ms = timed_prefill(naive, params, tokens)
+    launches = ops.launch_counts()
+    expect_counts("serve_mla prefill", launches, {})
+    peak = torch.cuda.max_memory_allocated()
+    if logits.shape != (batch, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"serve_mla: prefill logits {tuple(logits.shape)} are not "
+             f"finite last-position logits")
+    prefill_ms = [timed_prefill(naive, params, tokens)[1] for _ in range(2)]
+    mark("prefills")
+    ops.reset_launch_counts()
+    flash_logits, flash_ms = timed_prefill(flash, params, tokens)
+    expect_counts("serve_mla prefill (flash)", ops.launch_counts(), {})
+    if not bitwise(flash_logits, logits):
+        fail(f"serve_mla: the flash prefill's logits are not the naive "
+             f"ones bit for bit (max|diff| "
+             f"{float((flash_logits - logits).abs().max()):.3e})")
+    del flash_logits, logits
+    mark("flash_prefill")
+    profile = profile_calls(
+        "serve_mla_prefill", lambda: naive.prefill(params, tokens,
+                                                   logits_mode="last"),
+        statistics.median(prefill_ms), 1, "prefill")
+    del tokens
+    torch.cuda.empty_cache()
+    mark("prefill_profile")
+    serve = serve_common("serve_mla", naive, params, gen)
+    mark("serve")
+    m = cfg.mla
+    latent = {n: {"layers": cfg.num_layers * SERVE_REQUESTS * n * 4
+                  * (m.kv_lora_rank + m.qk_rope_head_dim)} for n in (64, 4096)}
+    if serve["cache_bytes"] != latent:
+        fail(f"serve_mla: latent cache bytes {serve['cache_bytes']}, "
+             f"expected {latent}")
+    emit("serve_mla", arch=cfg.name, layers=cfg.num_layers, params=n_params,
+         weight_bytes=weight_bytes, init_s=init_s,
+         prefill=dict(batch=batch, seq=SERVE_SEQ, launches=launches,
+                      ms=prefill_ms, first_ms=first_ms, flash_ms=flash_ms,
+                      flash_bitwise_naive=True, peak_bytes=peak,
+                      reckoning=reckoning,
+                      tokens_per_s=batch * SERVE_SEQ
+                      / statistics.median(prefill_ms) * 1e3,
+                      profile=profile),
+         serve=serve, seconds_by_stage=stages, card=smi_line())
+    del params, naive, flash
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+@contextlib.contextmanager
+def b7_plain():
+    """Inside the block, B7's wrapper runs its plain version (a wrapper
+    local to this script; no launch counted): the path as it runs, with
+    the kernel replaced."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa.flash_attention_cuda
+
+    def plain(q, k, v, causal=True, scale=None):
+        return fa.flash_attention_torch(q, k, v, causal, scale)
+
+    fa.flash_attention_cuda = plain
+    try:
+        yield
+    finally:
+        fa.flash_attention_cuda = real
+
+
+def b7_launch_row(path: str, case, cfg, real_seq: int, bw, own,
+                  **shape) -> dict:
+    """``b7_on_path`` on one launch's inputs, with its device time per
+    launch (``kernel_device_ms``) and the share of its work that is not
+    padding: hd over the padded hd, times the needed (query, key) pairs
+    of ``real_seq`` over those of the padded length."""
+    row = b7_on_path(case, cfg, torch.float32, bw, own, **shape)
+    fa = kernel_module("flash_attention")
+    row.update(kernel_device_ms(path, B7_F32_NAME,
+                                lambda: fa.flash_attention_cuda(*case),
+                                row["ms"]))
+    q, k, _, causal = case[:4]
+    row["useful_share"] = (cfg.resolved_head_dim / q.shape[-1]
+                           * attention_pairs(real_seq, real_seq, causal)
+                           / attention_pairs(q.shape[1], k.shape[1], causal))
+    return row
+
+
+def phase_serve_encdec(bw: float, errs) -> dict:
+    """whisper-medium in full (24 encoder + 24 decoder layers, d_model
+    1024, 16 heads of 64, gelu MLP of 4096; f32, seed 0), frames of 4 x
+    1500 x 1024 drawn as launch/serve.py draws them: the 4 x ENC_DEC_SEQ
+    prefill on the flash path, where B7 launches 48 times (24 in the
+    encoder, bidirectional, at (64, 1536, 128), then 24 causal in the
+    decoder at (64, 512, 128); hd 64 and S padded to 128), every
+    launch's inputs held to float64 by B5's rule, the first of each kind
+    timed beside its plain version and SDPA (on the same padded,
+    unmasked inputs) with its gate shown to refuse faulty results and
+    its device time per launch; the flash prefill against the same path
+    with B7's plain version (2e-3); the naive path (no kernel) and the
+    flash-naive gap, ROADMAP Queue C item 3 (the 36 zero keys of the pad
+    enter every encoder row's softmax); the encoder alone
+    (``Engine._fill_cross_attn``) timed; ``Engine.generate`` with
+    launch/serve.py's batch on the flash path (B7 24 times, in the
+    encoder, and never in decode); decode against prefill at every
+    prompt position under flash on both sides; the cross cache's bytes,
+    the same at max_len 64 and 4096."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine
+
+    stages, mark = stage_clock()
+    cfg = get_config(ENC_DEC_ARCH)
+    naive, flash = build_model(cfg), build_model(cfg.with_(attn_impl="flash"))
+    n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+    gc.collect()
+    reset_peak()
+    t0 = time.perf_counter()
+    params = naive.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    rng = np.random.RandomState(0)            # launch/serve.py at seed 0
+    prompts = torch.as_tensor(rng.randint(
+        0, cfg.vocab_size, size=(SERVE_REQUESTS, SERVE_PROMPT)),
+        device="cuda")
+    frames = (torch.as_tensor(rng.randn(SERVE_REQUESTS, cfg.encoder_seq_len,
+                                        cfg.d_model), dtype=torch.float32)
+              * 0.1).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, ENC_DEC_SEQ),
+                           generator=gen, device="cuda")
+
+    def prefill(model, **kw):
+        return timed_prefill(model, params, tokens, enc_frames=frames, **kw)
+
+    reset_peak()
+    ops.reset_launch_counts()
+    with capture_inputs(names=("flash_attention",)) as inputs:
+        flash_logits, flash_first_ms = prefill(flash)
+    launches = ops.launch_counts()
+    flash_peak = torch.cuda.max_memory_allocated()
+    expect_counts("serve_encdec prefill (flash)", launches,
+                  {"flash_attention": n_enc + n_dec})
+    flash_ms = [prefill(flash)[1] for _ in range(2)]
+    mark("flash_prefills")
+    flash_profile = profile_calls(
+        "serve_encdec_prefill", lambda: flash.prefill(
+            params, tokens, logits_mode="last", enc_frames=frames),
+        statistics.median(flash_ms), 1, "prefill",
+        expect={B7_F32_NAME: n_enc + n_dec}, warmups=(0, 1, 2))
+    mark("flash_profile")
+    with b7_plain():
+        plain_logits, plain_ms = prefill(flash)
+    flash_vs_plain = float((flash_logits - plain_logits).abs().max())
+    if not flash_vs_plain < FLASH_NAIVE_TOL:
+        fail(f"serve_encdec: the flash prefill and the same path with B7's "
+             f"plain version differ by {flash_vs_plain:.3e} (limit "
+             f"{FLASH_NAIVE_TOL})")
+    del plain_logits
+    reset_peak()
+    ops.reset_launch_counts()
+    naive_logits, naive_first_ms = prefill(naive)
+    expect_counts("serve_encdec prefill (naive)", ops.launch_counts(), {})
+    naive_peak = torch.cuda.max_memory_allocated()
+    naive_ms = [prefill(naive)[1] for _ in range(2)]
+    mark("naive_prefills")
+    for name_, lg in (("flash", flash_logits), ("naive", naive_logits)):
+        if lg.shape != (SERVE_REQUESTS, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(lg).all()):
+            fail(f"serve_encdec: {name_} prefill logits {tuple(lg.shape)} "
+                 f"are not finite last-position logits")
+    # ROADMAP Queue C item 3: not gated, its size printed
+    gap = float((flash_logits - naive_logits).abs().max())
+    gap_rel = gap / float(naive_logits.abs().max())
+    del flash_logits, naive_logits
+    torch.cuda.empty_cache()
+
+    # every launch held to float64: the encoder's 24 first
+    # (bidirectional), then the decoder's 24 (causal)
+    cases = inputs.pop("flash_attention")
+    if [c[3] for c in cases] != [False] * n_enc + [True] * n_dec:
+        fail(f"serve_encdec: B7's causal flags by launch "
+             f"{[c[3] for c in cases]}")
+    rows = {}
+    for kind, part, real, shape in (
+            ("enc", cases[:n_enc], cfg.encoder_seq_len,
+             dict(seq=cfg.encoder_seq_len, causal=False)),
+            ("dec", cases[n_enc:], ENC_DEC_SEQ,
+             dict(seq=ENC_DEC_SEQ, causal=True))):
+        own = {"flash_attention": 0.0}
+        held = [check("flash_attention", case, own) for case in part[1:]]
+        row = b7_launch_row(f"serve_encdec_{kind}", part[0], cfg, real, bw,
+                            own, **shape)
+        row["launches_held"] = len(part)
+        row["err_vs_f64_by_launch"] = [row["err_vs_f64"]] + [
+            r["err_vs_f64"] for r in held]
+        name_ = f"flash_attention_encdec_{kind}"
+        rows[name_], errs[name_] = row, own["flash_attention"]
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      own["flash_attention"])
+        mark(f"b7_{kind}")
+    del cases, part, held, inputs
+    torch.cuda.empty_cache()
+
+    # the encoder alone, as Engine.generate runs it once per batch
+    max_len = SERVE_PROMPT + SERVE_NEW + 8
+    encoder_ms = {}
+    for name_, model in (("flash", flash), ("naive", naive)):
+        engine, cache = Engine(model, params, max_len), None
+        times = []
+        for _ in range(3):
+            cache = model.init_cache(SERVE_REQUESTS, max_len)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine._fill_cross_attn(cache, frames)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        encoder_ms[name_] = times
+        del engine, cache
+    mark("encoder")
+    serve = serve_common("serve_encdec", flash, params, gen, prompts=prompts,
+                         enc_frames=frames,
+                         generate_launches={"flash_attention": n_enc})
+    mark("serve")
+    cross = 2 * n_dec * SERVE_REQUESTS * cfg.encoder_seq_len * \
+        cfg.num_kv_heads * cfg.resolved_head_dim * 4
+    for n, parts in serve["cache_bytes"].items():
+        if parts["cross_k"] + parts["cross_v"] != cross:
+            fail(f"serve_encdec: cross cache bytes {parts} at max_len {n}, "
+                 f"expected {cross} in all")
+    emit("serve_encdec", arch=cfg.name, encoder_layers=n_enc,
+         decoder_layers=n_dec, params=n_params, weight_bytes=weight_bytes,
+         init_s=init_s, frames=list(frames.shape),
+         prefill=dict(batch=SERVE_REQUESTS, seq=ENC_DEC_SEQ,
+                      launches=launches, flash_ms=flash_ms,
+                      flash_first_ms=flash_first_ms,
+                      b7_plain_ms=plain_ms, naive_ms=naive_ms,
+                      naive_first_ms=naive_first_ms,
+                      flash_peak_bytes=flash_peak,
+                      naive_peak_bytes=naive_peak,
+                      flash_vs_b7_plain_max_abs_diff=flash_vs_plain,
+                      flash_vs_naive_max_abs_diff=gap,
+                      flash_vs_naive_rel_to_max_logit=gap_rel,
+                      profile=flash_profile),
+         encoder_ms=encoder_ms, cross_cache_bytes=cross,
+         flash_attention=rows, serve=serve, seconds_by_stage=stages,
+         card=smi_line())
+    del params, naive, flash, tokens, frames, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches={"flash_attention_encdec_enc": n_enc,
+                          "flash_attention_encdec_dec": n_dec},
+                rows=rows)
+
+
 def loss_grad_peak(model_cfg, N: int, batch) -> int:
     """Bytes the loss's ``vmap(grad)`` (``TreeSpace.worker_grads``'s
     call) takes at its peak over what was allocated before it, on N
@@ -4274,30 +4717,42 @@ def loss_grad_peak(model_cfg, N: int, batch) -> int:
     return peak
 
 
-def train_ssm_plan(full, N: int, M: int, batch) -> dict:
+def at_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers: the decoder's, and an enc-dec
+    arch's encoder alike."""
+    if cfg.is_enc_dec:
+        return cfg.with_(num_layers=layers, encoder_layers=layers)
+    return cfg.with_(num_layers=layers)
+
+
+def train_depth_plan(full, N: int, M: int, batch) -> dict:
     """The depth to train at and its reckoned peak. The loss's
     ``vmap(grad)`` peak is measured at 2 and 4 layers and extrapolated
-    by layer: ``torch.func.grad`` under ``vmap`` keeps far more than the
+    by layer (an enc-dec arch's stacks cut alike, ``at_depth``):
+    ``torch.func.grad`` under ``vmap`` keeps far more than the
     tensors autograd saves. The step's peak is the larger of the state
     beside the loss (z_hist, y, w_cache, z~ and the params: 4 B x (2T +
-    3NT + P)) plus that peak, and the tables after it (``train_moe``'s
-    4 B x (2T + 6NT + NP + P)). Full depth unless that passes
-    TRAIN_SSM_PEAK_LIMIT; then the most layers under it."""
+    3NT + P)) plus that peak, and the tables after it, in the plain
+    step that runs from the same state as each kernel step: beside the
+    state's y and w_cache, g and z~, its update's x, y and w and the
+    two selected merges, 4 B x (2T + 9NT + NP + P) (the kernel step's
+    fused update, ``train_moe``'s 4 B x (2T + 6NT + NP + P)). Full
+    depth unless that passes TRAIN_SSM_PEAK_LIMIT; then the most layers
+    under it."""
     from repro_torch.core.blocks import make_block_layout
     from repro_torch.core.tree import tree_leaves
     from repro_torch.models.weights import stacked_params
-    probe = {n: loss_grad_peak(full.with_(num_layers=n), N, batch)
-             for n in (2, 4)}
+    probe = {n: loss_grad_peak(at_depth(full, n), N, batch) for n in (2, 4)}
     per_layer = (probe[4] - probe[2]) / 2
     fixed = probe[2] - 2 * per_layer
 
     def reckon(layers):
-        meta = stacked_params(full.with_(num_layers=layers), 0, "meta")
+        meta = stacked_params(at_depth(full, layers), 0, "meta")
         P = sum(int(t.numel()) for t in tree_leaves(meta))
         T = M * make_block_layout(meta, num_blocks=M).block_dim
         loss = fixed + layers * per_layer
         return int(max(4 * (2 * T + 3 * N * T + P) + loss,
-                       4 * (2 * T + 6 * N * T + N * P + P))), loss
+                       4 * (2 * T + 9 * N * T + N * P + P))), loss
 
     layers = full.num_layers
     while reckon(layers)[0] > TRAIN_SSM_PEAK_LIMIT and layers > 1:
@@ -4348,17 +4803,24 @@ def step_ranges(space):
 
 
 def phase_train_ssm(bw: float, errs) -> dict:
-    """``ADMMTrainer`` on mamba2-370m's stacked tree (f32, seed 0) at
+    """``phase_train_stacked`` on mamba2-370m (line ``train_ssm``)."""
+    return phase_train_stacked("train_ssm", SSM_ARCH, bw, errs)
+
+
+def phase_train_stacked(path: str, arch: str, bw: float, errs) -> dict:
+    """``ADMMTrainer`` on ``arch``'s stacked tree (f32, seed 0) at
     full depth unless the reckoned peak passes TRAIN_SSM_PEAK_LIMIT
-    (``train_ssm_plan``; then at the most layers under it, the cut
-    printed in line ``train_ssm_plan``), N = 2, M = 2
-    by LPT, launch/train.py's defaults, ``TokenPipeline`` batches of
-    2 x 512 tokens a worker, 5 steps on the kernels, before each the
-    plain backend's step from the same state: z within KERNEL_TOL.
-    Gates: step 0's loss is ``Model.loss`` at z0; the first gradient
-    finite; B1 and B2 once a step and held on their inputs; pads 0;
-    losses and z finite. Prints step ms, tokens/s, peaks beside the
-    reckoning, and a device split of the step."""
+    (``train_depth_plan``; then at the most layers under it, an enc-dec
+    arch's two stacks alike, the cut printed in line ``<path>_plan``),
+    N = 2, M = 2 by LPT, launch/train.py's defaults, ``TokenPipeline``
+    batches of 2 x 512 tokens a worker (and an enc-dec arch's 2 x T_enc
+    frames), 5 steps on the kernels, before each the plain backend's
+    step from the same state: z within KERNEL_TOL. Gates: step 0's loss
+    is ``Model.loss`` at z0; the first gradient finite; B1 and B2 once
+    a step and held on their inputs; pads 0; losses and z finite.
+    Prints step ms, tokens/s, peaks beside the reckoning, and a device
+    split of the step. Returns B1's and B2's launches and rows under
+    ``<kernel>_<path's family>`` (``train_ssm`` -> ``_ssm``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data import TokenPipeline
@@ -4368,18 +4830,21 @@ def phase_train_ssm(bw: float, errs) -> dict:
     from repro_torch.training import ADMMTrainer
 
     stages, mark = stage_clock()
+    family = path[len("train_"):]
     N, M = TRAIN_WORKERS, TRAIN_BLOCKS
-    full = get_config(SSM_ARCH)
+    full = get_config(arch)
     gc.collect()
     reset_peak()
     pipe = TokenPipeline(vocab_size=full.vocab_size, seq_len=TRAIN_SEQ + 1,
                          global_batch=N * TRAIN_BATCH, seed=0)
-    batches = [pipe.batch(t, num_workers=N, device="cuda")
+    enc_kw = dict(enc_frames_dim=full.d_model,
+                  enc_seq_len=full.encoder_seq_len) if full.is_enc_dec else {}
+    batches = [pipe.batch(t, num_workers=N, device="cuda", **enc_kw)
                for t in range(TRAIN_STEPS + 1)]
-    plan = train_ssm_plan(full, N, M, batches[0])
+    plan = train_depth_plan(full, N, M, batches[0])
     mark("plan")
     layers, reckoned = plan["layers"], plan["reckoned_peak_bytes"]
-    model_cfg = full.with_(num_layers=layers)
+    model_cfg = at_depth(full, layers)
     model = build_model(model_cfg)
     reset_peak()
     params = stacked_params(model_cfg, 0, "cuda")
@@ -4395,16 +4860,17 @@ def phase_train_ssm(bw: float, errs) -> dict:
     spec = kern._spec(params)
     layout = spec.space.layout
     if spec.space.backend != "cuda":
-        fail(f"train_ssm: 'auto' resolved to {spec.space.backend!r} on the "
+        fail(f"{path}: 'auto' resolved to {spec.space.backend!r} on the "
              f"card")
     T = M * layout.block_dim
-    emit("train_ssm_plan", arch=model_cfg.name,
+    stacks = "each stack's " if full.is_enc_dec else ""
+    emit(f"{path}_plan", arch=model_cfg.name,
          depth_cut=None if layers == full.num_layers
-         else f"{layers} of {full.num_layers} layers",
+         else f"{layers} of {stacks}{full.num_layers} layers",
          params=P, block_sizes=list(layout.block_sizes),
          dblk=layout.block_dim, padding=T - P,
-         ssd_decay_bytes_per_layer_per_worker=ssd_decay_bytes(
-             model_cfg, TRAIN_BATCH, TRAIN_SEQ),
+         **({"ssd_decay_bytes_per_layer_per_worker": ssd_decay_bytes(
+             model_cfg, TRAIN_BATCH, TRAIN_SEQ)} if full.ssm else {}),
          limit_bytes=TRAIN_SSM_PEAK_LIMIT, **plan)
     loss0 = direct_loss(model, params, batches[0], N)
     state = kern.init(params)
@@ -4425,7 +4891,7 @@ def phase_train_ssm(bw: float, errs) -> dict:
     grad_peak = torch.cuda.max_memory_allocated() - before
     if not bool(torch.isfinite(g).all()) or not bool(
             torch.isfinite(g_losses).all()):
-        fail("train_ssm: the loss or its gradient at z0 is not finite")
+        fail(f"{path}: the loss or its gradient at z0 is not finite")
     grad_max = float(g.abs().max())
     del z_tilde, g, g_losses
     torch.cuda.empty_cache()
@@ -4442,7 +4908,7 @@ def phase_train_ssm(bw: float, errs) -> dict:
         torch.cuda.synchronize()
         plain_times.append(1e3 * (time.perf_counter() - t0))
         if any(ops.launch_counts().values()):
-            fail("train_ssm: the torch backend launched a kernel")
+            fail(f"{path}: the torch backend launched a kernel")
         plain_losses.append(float(p_info["loss"]))
         z_plain = plain._packed(plain._spec(p_state.params),
                                 p_state).z_hist[0].cpu()
@@ -4456,37 +4922,46 @@ def phase_train_ssm(bw: float, errs) -> dict:
         peaks.append(torch.cuda.max_memory_allocated())
         reserved.append(torch.cuda.max_memory_reserved())
         step_launches = ops.launch_counts()
-        expect_launches(f"train_ssm step {t}", step_launches, 1,
-                        MAIN_KERNELS)
+        expect_launches(f"{path} step {t}", step_launches, 1, MAIN_KERNELS)
         for k, n in step_launches.items():
             launches[k] += n
         losses.append(float(info["loss"]))
         packed = kern._packed(kern._spec(state.params), state)
         if not pads_zero(layout, packed.z_hist, packed.y, packed.w_cache):
-            fail(f"train_ssm: a pad lane is not 0 after step {t}")
+            fail(f"{path}: a pad lane is not 0 after step {t}")
         if not math.isfinite(losses[-1]) or not bool(
                 torch.isfinite(packed.z_hist[0]).all()):
-            fail(f"train_ssm: loss or z not finite at step {t}")
+            fail(f"{path}: loss or z not finite at step {t}")
         diffs.append(compare(packed.z_hist[0], z_plain.cuda()))
         del packed, z_plain
     mark("steps")
-    loss_rel = same_loss("train_ssm", losses[0], loss0)
+    loss_rel = same_loss(path, losses[0], loss0)
     step_ms = statistics.median(times[1:])
     own = {k: 0.0 for k in MAIN_KERNELS}
     own["server_prox_update"] = max(diffs)
 
     held = [state]
-    del state
+    del state, info
 
     def step():
         held[0], _ = kern.train_step(held[0], batches[TRAIN_STEPS])
 
+    def release() -> int:
+        """Cyclic garbage and cached blocks freed before one more step;
+        the bytes still allocated (the state and the batches)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
     # one step profiled, its parts in ranges: the step issues ~12,000
     # launches, and the profiler's own work grows with them
+    extra = {"profile": {"allocated_before_bytes": release()}}
     with step_ranges(spec.space):
-        profile = profile_calls("train_ssm", step, step_ms, 1,
+        profile = profile_calls(path, step, step_ms, 1,
                                 expect={B1_NAME: 1, B2_NAME: 1},
                                 warmups=(0, 1, 2), by_range=True)
+    extra["profile"]["peak_bytes"] = torch.cuda.max_memory_allocated()
     by_range = profile.pop("by_range")
     split = {part: by_range.get(part, 0.0) for part in (
         "loss_forward", "loss_backward", "pack_and_unpack",
@@ -4496,15 +4971,17 @@ def phase_train_ssm(bw: float, errs) -> dict:
     busy = profile["device_busy_ms_per_epoch"]
     split.update(rest=busy - sum(split.values()), idle=step_ms - busy)
     mark("profile")
+    extra["capture"] = {"allocated_before_bytes": release()}
     with capture_inputs(copy=False, names=MAIN_KERNELS, keep=1) as inputs:
         step()
+    extra["capture"]["peak_bytes"] = torch.cuda.max_memory_allocated()
     del held[0]
     torch.cuda.empty_cache()
-    rows = check_on_path("train_ssm", inputs, MAIN_KERNELS, bw, own)
+    rows = check_on_path(path, inputs, MAIN_KERNELS, bw, own)
     mark("kernels_on_path")
     for k in MAIN_KERNELS:
         errs[k] = max(errs[k], own[k])
-        errs[f"{k}_ssm"] = own[k]
+        errs[f"{k}_{family}"] = own[k]
     del batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4512,7 +4989,7 @@ def phase_train_ssm(bw: float, errs) -> dict:
     kernels = b1_b2_rows(rows, profile)
     for k in MAIN_KERNELS:
         rows[k]["device_ms"] = kernels[k]["device_ms_per_launch"]
-    emit("train_ssm", arch=model_cfg.name, layers=layers, N=N, M=M,
+    emit(path, arch=model_cfg.name, layers=layers, N=N, M=M,
          params=P, block_sizes=list(layout.block_sizes),
          dblk=layout.block_dim, padding=T - P, steps=TRAIN_STEPS,
          tokens_per_step=tokens, launches=launches, losses=losses,
@@ -4523,12 +5000,12 @@ def phase_train_ssm(bw: float, errs) -> dict:
          torch_step_ms_median=statistics.median(plain_times[1:]),
          peak_bytes=max(peaks), peak_bytes_by_step=peaks,
          reserved_peak_bytes=max(reserved), reckoned_peak_bytes=reckoned,
-         loss_grad_peak_over_state_bytes=grad_peak,
+         extra_steps_bytes=extra, loss_grad_peak_over_state_bytes=grad_peak,
          z_max_abs_diff_vs_torch=diffs,
          pads_zero=True, device_ms_per_step=split, profile=profile,
          kernels=kernels, seconds_by_stage=stages, card=smi_line())
-    return dict(launches={f"{k}_ssm": launches[k] for k in MAIN_KERNELS},
-                rows={f"{k}_ssm": rows[k] for k in MAIN_KERNELS})
+    return dict(launches={f"{k}_{family}": launches[k] for k in MAIN_KERNELS},
+                rows={f"{k}_{family}": rows[k] for k in MAIN_KERNELS})
 
 
 # ---------------------------------------------------------------------------
@@ -4995,12 +5472,18 @@ def main() -> int:
     phase_train(bw, errs)
     phase_train_entry_points()
     phase_train_moe(bw, errs)
-    train_ssm = phase_train_ssm(bw, errs)
+    with expandable_segments():
+        train_ssm = phase_train_ssm(bw, errs)
+        train_mla = phase_train_stacked("train_mla", MLA_ARCH, bw, errs)
+        train_encdec = phase_train_stacked("train_encdec", ENC_DEC_ARCH,
+                                           bw, errs)
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
     phase_serve_moe(bw, errs)
     phase_serve_ssm(bw, errs)
     hybrid = phase_serve_hybrid(bw, errs)
+    phase_serve_mla(bw, errs)
+    encdec = phase_serve_encdec(bw, errs)
     logreg_launches, logreg_rows = phase_logreg(bw, errs)
     logreg16_launches, logreg16_rows = phase_logreg_bf16(bw, errs)
 
@@ -5011,7 +5494,8 @@ def main() -> int:
     # gradient, its tensor-core and tiled designs from the matmul line
     # (the first cell of each: f32 and bf16 with A stored (M, K), and
     # f32 at 4095^3), B7 from serve's flash prefill; and rows of their
-    # own for B7 on zamba2's prefill and B1 and B2 on mamba2's train step
+    # own for B7 on zamba2's and whisper's prefills and B1 and B2 on the
+    # train steps of mamba2, minicpm3 and whisper
     def passes_summed(rows, library_key):
         passes = [rows["pass1"], rows["pass2"]]
         out = {key: sum(r[key] for r in passes)
@@ -5050,8 +5534,9 @@ def main() -> int:
              "flash_attention": (serve_launches, serve_rows),
              "flash_attention_bf16": (serve16_launches, serve16_rows),
              "flash_attention_hybrid": (hybrid["launches"], hybrid["rows"]),
-             **{name_: (train_ssm["launches"], train_ssm["rows"])
-                for name_ in train_ssm["rows"]}}
+             **{name_: (part["launches"], part["rows"])
+                for part in (train_ssm, train_mla, train_encdec, encdec)
+                for name_ in part["rows"]}}
     kernels = []
     for name_, (source, replaces) in SOURCES.items():
         launches, rows = paths.get(name_, (main_launches, main_rows))

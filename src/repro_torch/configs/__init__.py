@@ -6,18 +6,22 @@ chameleon (qk-norm, early-fusion VLM); the MoE family: mixtral (8
 experts top-2, sliding-window attention) and granite-moe (32 experts
 top-8); the SSM family: mamba2 (SSD, attention-free); and the hybrid
 family: zamba2 (Mamba2 layers, one shared attention block after every
-6). Each module is a copy of the reference's
-(``repro/configs/<arch>.py``) and cites its source. The reference's
-other families (MLA, enc-dec) wait for their slice of the port
-(ROADMAP Queue A item 11).
+6); MLA: minicpm3 (Multi-head Latent Attention, the absorbed decode over
+a latent cache); and the encoder-decoder family: whisper (a
+bidirectional encoder over stub frame embeddings, a decoder with
+cross-attention). These are all ten of the reference's archs. Each
+module is a copy of the reference's (``repro/configs/<arch>.py``) and
+cites its source.
 """
 from . import (chameleon_34b, chatglm3_6b, granite_moe_1b, mamba2_370m,
-               mixtral_8x7b, qwen1p5_32b, qwen3_1p7b, zamba2_1p2b)
+               minicpm3_4b, mixtral_8x7b, qwen1p5_32b, qwen3_1p7b,
+               whisper_medium, zamba2_1p2b)
 from .base import (ADMMConfig, INPUT_SHAPES, InputShape, MLAConfig,
                    ModelConfig, MoEConfig, SSMConfig)
 
-_MODULES = [zamba2_1p2b, qwen1p5_32b, qwen3_1p7b, mixtral_8x7b,
-            granite_moe_1b, mamba2_370m, chameleon_34b, chatglm3_6b]
+_MODULES = [zamba2_1p2b, minicpm3_4b, qwen1p5_32b, whisper_medium,
+            qwen3_1p7b, mixtral_8x7b, granite_moe_1b, mamba2_370m,
+            chameleon_34b, chatglm3_6b]
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 
@@ -28,10 +32,8 @@ def list_archs():
 
 def _module(arch_id: str):
     if arch_id not in REGISTRY:
-        raise KeyError(
-            f"arch {arch_id!r} is not in the port; it has {list_archs()}. "
-            f"The other model families (MLA, enc-dec) wait "
-            f"for ROADMAP Queue A item 11")
+        raise KeyError(f"unknown arch {arch_id!r}; the port has "
+                       f"{list_archs()}")
     return REGISTRY[arch_id]
 
 

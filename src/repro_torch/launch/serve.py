@@ -4,13 +4,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --requests 4 --prompt-len 16 --max-new 24 [--device cpu]
 
-Runs the arch's smoke config with random weights from ``--seed``;
-``main`` returns the ``ServeResult``.
+Runs the arch's smoke config with random weights from ``--seed``; an
+enc-dec arch (whisper-medium) also takes frame embeddings drawn from the
+seed, as the reference draws them. ``main`` returns the
+``ServeResult``.
 """
 import argparse
 import time
 
 import numpy as np
+import torch
 
 from ..configs import get_smoke
 from ..models import build_model
@@ -38,10 +41,16 @@ def main(argv=None):
     rng = np.random.RandomState(args.seed)
     prompts = rng.randint(0, cfg.vocab_size,
                           size=(args.requests, args.prompt_len))
+    enc = None
+    if cfg.is_enc_dec:
+        enc = torch.as_tensor(
+            rng.randn(args.requests, cfg.encoder_seq_len, cfg.d_model),
+            dtype=torch.float32) * 0.1
 
     t0 = time.time()
     res = engine.generate(prompts, max_new=args.max_new,
-                          temperature=args.temperature, seed=args.seed)
+                          temperature=args.temperature, enc_frames=enc,
+                          seed=args.seed)
     dt = time.time() - t0
     toks = args.requests * args.max_new
     print(f"generated {toks} tokens in {dt:.2f}s "

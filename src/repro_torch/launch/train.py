@@ -289,6 +289,10 @@ def main(argv=None):
 
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq + 1,
                          global_batch=args.batch, seed=args.seed)
+    enc_kw = {}
+    if cfg.is_enc_dec:               # the encoder's frames, in every batch
+        enc_kw = dict(enc_frames_dim=cfg.d_model,
+                      enc_seq_len=cfg.encoder_seq_len)
 
     if args.trainer == "admm":
         acfg = ADMMConfig(rho=args.rho, gamma=args.gamma,
@@ -317,7 +321,8 @@ def main(argv=None):
                                           device=device)
 
         def batches(t):
-            return pipe.batch(t, num_workers=args.workers, device=device)
+            return pipe.batch(t, num_workers=args.workers, device=device,
+                              **enc_kw)
 
         if args.runtime == "ps":
             return run_ps_training(session, args, batches)
@@ -332,7 +337,7 @@ def main(argv=None):
         get_params = lambda st: st.params          # noqa: E731
 
         def batches(t):
-            return pipe.batch(t, device=device)
+            return pipe.batch(t, device=device, **enc_kw)
     del params
     losses = []
     t0 = time.time()

@@ -1,15 +1,19 @@
-"""Transformer stack — the dense, MoE, SSM and hybrid families of
-``repro/models/transformer.py``:
+"""Transformer stack — the families of ``repro/models/transformer.py``:
 
-  dense  — [attention + MLP] x L  (qwen3, qwen1.5, chatglm3, and
-                                   chameleon, whose image tokens share
-                                   the vocabulary)
+  dense  — [attention + MLP] x L  (qwen3, qwen1.5, chatglm3, chameleon,
+                                   whose image tokens share the
+                                   vocabulary, and minicpm3, whose
+                                   attention is MLA)
   moe    — [attention + MoE] x L  (mixtral, with its sliding window;
                                    granite-moe)
   ssm    — [mamba2] x L           (mamba2-370m)
   hybrid — groups of k mamba2 layers, a *shared* attention block
            (one dense layer's weights, not stacked) applied after each
            group, then the rest of the layers (zamba2)
+  audio  — an encoder of bidirectional dense layers over frame
+           embeddings (the conv frontend stubbed, as in the reference),
+           then a decoder whose layers add cross-attention to the
+           encoder's output (whisper)
 
 A MoE layer returns its output and its auxiliary loss (the router's
 load-balance term); ``forward`` sums the layers' in layer order, as the
@@ -21,28 +25,31 @@ Two parameter trees, one forward:
 * inference holds a tree of ``ParamTree`` modules that keeps the
   reference's names and (in, out) layouts: ``params["layers"][i]["attn"]
   ["w_q"]`` is the reference's ``params["layers"]["attn"]["w_q"][i]``,
-  the layer stack an ``nn.ModuleList``; its parameters do not require
-  gradients;
+  each layer stack (``layers``, and the encoder's ``enc_layers``) an
+  ``nn.ModuleList``; its parameters do not require gradients;
 * training differentiates the reference's own tree, a nested dict whose
-  ``layers`` leaves are stacked on a leading L axis
+  ``layers`` and ``enc_layers`` leaves are stacked on a leading axis
   (``weights.stacked_params``; the hybrid's ``shared_attn`` is not).
   ``forward`` takes each stacked leaf apart once with ``torch.unbind``
   (its backward is one ``stack``; indexing ``leaf[i]`` per layer would
   make each layer's backward write a zeroed (L, ...) tensor) and walks
   the layers with the same Python loop where the reference scans them.
-  The pass writes nothing in place and reads no value on the host, so
+  The pass writes in place only into tensors it made (MLA's scores),
+  in steps autograd differentiates, and reads no value on the host, so
   it runs under ``torch.func.grad`` and ``vmap``.
 
 The decode cache keeps the reference's layout: ``{"layers": {"k",
-"v"}}`` for the attention families, ``{"layers": {"conv", "ssm"}}`` (a
-constant-size state per layer) for ssm, and for hybrid also
-``{"shared_attn": {"k", "v"}}`` stacked over the shared block's
-applications. ``decode_step`` updates it in place.
+"v"}}`` for the GQA families, ``{"layers": {"c_kv", "k_rope"}}`` (the
+latent) for MLA, ``{"layers": {"conv", "ssm"}}`` (a constant-size state
+per layer) for ssm; the hybrid adds ``{"shared_attn": {"k", "v"}}``
+stacked over the shared block's applications, and enc-dec the
+top-level ``cross_k`` and ``cross_v`` of (L, B, T_enc, nkv, hd), filled
+once from the encoder (``Engine``) and read by every decode step.
+``decode_step`` updates the cache in place.
 
-The reference's enc-dec family (audio) and MLA raise
-``NotImplementedError`` (ROADMAP Queue A item 11). ``remat`` changes
-nothing at inference; on the stacked tree it raises: ``torch.func.grad``
-refuses the saved-tensor hooks that ``torch.utils.checkpoint`` needs.
+``remat`` changes nothing at inference; on the stacked tree it raises:
+``torch.func.grad`` refuses the saved-tensor hooks that
+``torch.utils.checkpoint`` needs.
 """
 from __future__ import annotations
 
@@ -55,8 +62,6 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import dense_init, embed_init, init_mlp, mlp, rmsnorm
-
-NOT_PORTED = attn.NOT_PORTED
 
 
 class ParamTree(nn.Module):
@@ -81,25 +86,22 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+
+
 def check_family(cfg) -> None:
-    """The families the port has: dense GQA (dense, vlm), moe, ssm and
-    hybrid."""
-    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid") \
-            or cfg.is_enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
-            f"({NOT_PORTED}); the port has the dense GQA, MoE, SSM and "
-            f"hybrid families")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet ({NOT_PORTED})")
+    """The reference's arch types: dense (GQA or MLA), vlm, moe, ssm,
+    hybrid and audio (enc-dec: ``encoder_layers`` > 0)."""
+    if cfg.arch_type not in FAMILIES:
+        raise ValueError(f"{cfg.name}: arch_type {cfg.arch_type!r} is not "
+                         f"one of {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_dense_layer(gen, cfg, device):
+def _init_dense_layer(gen, cfg, device, *, cross: bool = False):
     dt = cfg.torch_param_dtype()
     p = {
         "attn": attn.init_attention(gen, cfg, device=device),
@@ -111,6 +113,9 @@ def _init_dense_layer(gen, cfg, device):
     else:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt,
                             device=device)
+    if cross:
+        p["cross"] = attn.init_attention(gen, cfg, cross=True, device=device)
+        p["norm_cross"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     return p
 
 
@@ -124,9 +129,15 @@ def _init_ssm_layer(gen, cfg, device):
 
 def init_layer(gen, cfg, device):
     """One layer of ``params["layers"]``: an SSM layer for the ssm and
-    hybrid families, else a dense (attention + MLP or MoE) layer."""
+    hybrid families, else a dense (attention + MLP or MoE) layer, with
+    cross-attention in an enc-dec decoder."""
     if cfg.arch_type in ("ssm", "hybrid"):
         return _init_ssm_layer(gen, cfg, device)
+    return _init_dense_layer(gen, cfg, device, cross=cfg.is_enc_dec)
+
+
+def init_encoder_layer(gen, cfg, device):
+    """One layer of an enc-dec model's ``params["enc_layers"]``."""
     return _init_dense_layer(gen, cfg, device)
 
 
@@ -149,6 +160,11 @@ def init_params(gen: Optional[torch.Generator], cfg, device=None) -> ParamTree:
                         for _ in range(cfg.num_layers)]
     if cfg.arch_type == "hybrid":
         params["shared_attn"] = _init_dense_layer(gen, cfg, device)
+    elif cfg.is_enc_dec:
+        params["enc_layers"] = [init_encoder_layer(gen, cfg, device)
+                                for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dt,
+                                        device=device)
     return ParamTree(params)
 
 
@@ -164,11 +180,22 @@ def _ffn(lp, h, cfg):
     return mlp(lp["mlp"], h, cfg.act), None
 
 
-def _dense_layer_fwd(lp, x, cfg, positions):
+def _cross(lp, x, enc_kv, cfg):
+    """The decoder layer's cross-attention on ``x``, added to it."""
+    return x + attn.cross_attn_forward(
+        lp["cross"], rmsnorm(x, lp["norm_cross"], cfg.norm_eps), enc_kv, cfg)
+
+
+def _dense_layer_fwd(lp, x, cfg, positions, *, causal=True, enc_kv=None):
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    a = attn.gqa_forward(lp["attn"], h, cfg, positions,
-                         window=cfg.sliding_window)
+    if cfg.mla is not None:
+        a = attn.mla_forward(lp["attn"], h, cfg, positions)
+    else:
+        a = attn.gqa_forward(lp["attn"], h, cfg, positions,
+                             window=cfg.sliding_window, causal=causal)
     x = x + a
+    if enc_kv is not None:
+        x = _cross(lp, x, enc_kv, cfg)
     y, aux = _ffn(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
     return x + y, aux
 
@@ -206,20 +233,10 @@ def unbind_layers(stacked: Dict[str, Any]):
             for i in range(num_layers)]
 
 
-def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
-    """tokens: (B, S) integers -> (logits (B, S, V), aux), on a
-    ``ParamTree`` or on the stacked tree (``params["layers"]`` a dict of
-    (L, ...) leaves).
-
-    logits_mode="last": project only the final position (serving prefill
-    needs one next-token distribution, not S of them). ``aux`` is the
-    reference's auxiliary loss: the layers' summed in layer order (the
-    MoE router's load-balance term), zero for the other families."""
-    check_family(cfg)
-    if enc_frames is not None:
-        raise NotImplementedError(
-            f"enc_frames belong to the enc-dec family ({NOT_PORTED})")
-    layers = params["layers"]
+def _layer_list(params, name: str, cfg):
+    """``params[name]``'s layers: a ``ParamTree``'s modules, or the
+    stacked tree's leaves unbound once."""
+    layers = params[name]
     if isinstance(layers, dict):
         if cfg.remat:
             raise NotImplementedError(
@@ -227,7 +244,44 @@ def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
                 f"supported on the stacked tree: torch.func.grad refuses "
                 f"the saved-tensor hooks torch.utils.checkpoint needs; set "
                 f"remat=False")
-        layers = unbind_layers(layers)
+        return unbind_layers(layers)
+    return layers
+
+
+def check_enc_frames(cfg, enc_frames) -> None:
+    if not cfg.is_enc_dec and enc_frames is not None:
+        raise ValueError(f"{cfg.name}: enc_frames are the encoder's input; "
+                         f"this arch has no encoder (encoder_layers=0)")
+
+
+def encode(params, frames, cfg):
+    """The enc-dec encoder: its layers over ``frames`` (B, T_enc, d) at
+    positions 0..T_enc-1, bidirectional (under ``attn_impl="flash"``, B7
+    without the causal mask), then ``enc_norm``."""
+    B, T = frames.shape[:2]
+    positions = torch.arange(T, device=frames.device).expand(B, T)
+    x = frames
+    for lp in _layer_list(params, "enc_layers", cfg):
+        x, _ = _dense_layer_fwd(lp, x, cfg, positions, causal=False)
+    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
+    """tokens: (B, S) integers -> (logits (B, S, V), aux), on a
+    ``ParamTree`` or on the stacked tree (``params["layers"]`` a dict of
+    (L, ...) leaves). ``enc_frames``: (B, T_enc, d_model) frame
+    embeddings, the encoder's input, for an enc-dec arch only (cast to
+    the embedding's dtype).
+
+    logits_mode="last": project only the final position (serving prefill
+    needs one next-token distribution, not S of them). ``aux`` is the
+    reference's auxiliary loss: the layers' summed in layer order (the
+    MoE router's load-balance term), zero for the other families."""
+    check_family(cfg)
+    check_enc_frames(cfg, enc_frames)
+    if cfg.is_enc_dec and enc_frames is None:
+        raise ValueError(f"{cfg.name}: an enc-dec forward needs enc_frames")
+    layers = _layer_list(params, "layers", cfg)
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -237,6 +291,12 @@ def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
             x = _ssm_layer_fwd(lp, x, cfg)
     elif cfg.arch_type == "hybrid":
         x = _hybrid_forward(params, layers, x, cfg, positions)
+    elif cfg.is_enc_dec:
+        enc = encode(params, enc_frames.to(x.dtype), cfg)
+        for lp in layers:
+            x, _ = _dense_layer_fwd(
+                lp, x, cfg, positions,
+                enc_kv=attn.encode_cross_kv(lp["cross"], enc, cfg))
     else:
         for lp in layers:
             x, aux = _dense_layer_fwd(lp, x, cfg, positions)
@@ -261,9 +321,10 @@ def _logits(params, x, cfg):
 def init_cache_specs(cfg, batch: int, max_len: int):
     """(shape, dtype) of each tensor of the decode cache, the layers
     stacked on a leading axis as in the reference: {"layers": {"k",
-    "v"}}, or {"conv", "ssm"} for the SSM layers; the hybrid adds
-    {"shared_attn": {"k", "v"}}, one cache per application of the
-    shared block."""
+    "v"}}, {"c_kv", "k_rope"} for MLA, or {"conv", "ssm"} for the SSM
+    layers; the hybrid adds {"shared_attn": {"k", "v"}}, one cache per
+    application of the shared block; enc-dec adds the top-level
+    "cross_k" and "cross_v", (L, batch, T_enc, nkv, hd) each."""
     check_family(cfg)
 
     def stack(spec, n):
@@ -277,13 +338,24 @@ def init_cache_specs(cfg, batch: int, max_len: int):
         return {"layers": stack(ssm_mod.mamba2_cache_spec(cfg, batch), L),
                 "shared_attn": stack(attn.gqa_cache_spec(cfg, batch, max_len),
                                      _hybrid_groups(cfg)[1])}
-    return {"layers": stack(attn.gqa_cache_spec(cfg, batch, max_len), L)}
+    if cfg.mla is not None:
+        return {"layers": stack(attn.mla_cache_spec(cfg, batch, max_len), L)}
+    cache = {"layers": stack(attn.gqa_cache_spec(cfg, batch, max_len), L)}
+    if cfg.is_enc_dec:
+        shape = (L, batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        cache["cross_k"] = cache["cross_v"] = (shape, cfg.torch_dtype())
+    return cache
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None):
-    return {part: {name: torch.zeros(shape, dtype=dt, device=device)
-                   for name, (shape, dt) in spec.items()}
-            for part, spec in init_cache_specs(cfg, batch, max_len).items()}
+    def zeros(spec):
+        if isinstance(spec, dict):
+            return {name: zeros(s) for name, s in spec.items()}
+        shape, dt = spec
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return zeros(init_cache_specs(cfg, batch, max_len))
 
 
 def _slot(cache, i):
@@ -297,10 +369,13 @@ def _ssm_layer_decode(lp, x, cfg, cache):
     return x + y
 
 
-def _dense_layer_decode(lp, x, cfg, cache, pos):
+def _dense_layer_decode(lp, x, cfg, cache, pos, enc_kv=None):
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    a, _ = attn.gqa_decode(lp["attn"], h, cfg, cache, pos)
+    decode = attn.mla_decode if cfg.mla is not None else attn.gqa_decode
+    a, _ = decode(lp["attn"], h, cfg, cache, pos)
     y = x + a
+    if enc_kv is not None:
+        y = _cross(lp, y, enc_kv, cfg)
     z, _ = _ffn(lp, rmsnorm(y, lp["norm2"], cfg.norm_eps), cfg)
     return y + z
 
@@ -312,8 +387,10 @@ def decode_step(params, token, cache, pos, cfg):
     x = params["embed"][token]
     for i, lp in enumerate(params["layers"]):
         if cfg.arch_type not in ("ssm", "hybrid"):
+            enc_kv = (cache["cross_k"][i], cache["cross_v"][i]) \
+                if cfg.is_enc_dec else None
             x = _dense_layer_decode(lp, x, cfg, _slot(cache["layers"], i),
-                                    pos)
+                                    pos, enc_kv)
             continue
         x = _ssm_layer_decode(lp, x, cfg, _slot(cache["layers"], i))
         k = max(cfg.hybrid_attn_every, 1)

@@ -2,9 +2,10 @@
 
 Two trees hold one model's weights: the port's inference tree
 (``ParamTree``, one module per layer) and the reference's nested dict
-with ``layers`` stacked on a leading L axis, the tree training
-differentiates and pytree-mode consensus packs (its leaf order and
-block assignment are the reference's).
+with ``layers`` (and an enc-dec model's ``enc_layers``) stacked on a
+leading axis, the tree training differentiates and pytree-mode
+consensus packs (its leaf order and block assignment are the
+reference's).
 
 * ``params_from_numpy`` fills a ``ParamTree`` from the reference's
   param pytree as numpy arrays; ``stacked_from_numpy`` carries the same
@@ -44,22 +45,32 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
             yield f"{prefix}{name}", value
 
 
+def stack_depths(cfg) -> Dict[str, int]:
+    """The stacked subtrees of ``cfg``'s tree and their depths: ``layers``,
+    and an enc-dec model's ``enc_layers``."""
+    depths = {"layers": cfg.num_layers}
+    if cfg.is_enc_dec:
+        depths["enc_layers"] = cfg.encoder_layers
+    return depths
+
+
 def params_from_numpy(cfg, tree: Dict[str, Any],
                       device: DeviceLike = None) -> transformer.ParamTree:
     """The port's ``ParamTree`` holding the reference tree's arrays on
     ``device``; every name and shape must match the port's tree for
     ``cfg`` (``load_state_dict(strict=True)``)."""
     dev = resolve_device(device)
+    depths = stack_depths(cfg)
     state = {}
     for name, value in _flatten(tree):
         value = np.asarray(value)
-        if name.startswith("layers."):
-            if value.shape[0] != cfg.num_layers:
+        stack, _, rest = name.partition(".")
+        if stack in depths and rest:
+            if value.shape[0] != depths[stack]:
                 raise ValueError(f"{name}: {value.shape[0]} stacked layers, "
-                                 f"the config has {cfg.num_layers}")
-            rest = name[len("layers."):]
-            for i in range(cfg.num_layers):
-                state[f"layers.{i}.{rest}"] = torch.tensor(value[i])
+                                 f"the config has {depths[stack]}")
+            for i in range(depths[stack]):
+                state[f"{stack}.{i}.{rest}"] = torch.tensor(value[i])
         else:
             state[name] = torch.tensor(value)
     params = transformer.init_params(None, cfg, "meta")
@@ -83,15 +94,28 @@ def _stacked_like(layer: Dict[str, Any], num_layers: int):
             for name, value in layer.items()}
 
 
+def _stacked_layers(make, num_layers: int) -> Dict[str, Any]:
+    """``num_layers`` layers drawn by ``make()`` in turn, written into
+    leaves stacked on a leading axis (one layer beside the stack at a
+    time)."""
+    stack: Dict[str, Any] = {}
+    for i in range(num_layers):
+        layer = make()
+        if i == 0:
+            stack = _stacked_like(layer, num_layers)
+        _stack_into(stack, layer, i)
+    return stack
+
+
 def stacked_params(cfg, seed: int = 0,
                    device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's param pytree for ``cfg`` as a nested dict of
     tensors on ``device`` (``"meta"`` for shapes alone): ``embed``,
     ``final_norm`` (``lm_head`` if untied), ``layers`` with every leaf
-    stacked on a leading L axis, and for the hybrid family the unstacked
-    ``shared_attn`` layer. The values are ``Model.init(seed, device)``'s,
-    drawn in the same order and written layer by layer into the stacked
-    leaves (one layer beside the stack at a time)."""
+    stacked on a leading L axis, for the hybrid family the unstacked
+    ``shared_attn`` layer, and for enc-dec ``enc_layers`` (stacked on
+    ``encoder_layers``) and ``enc_norm``. The values are
+    ``Model.init(seed, device)``'s, drawn in the same order."""
     transformer.check_family(cfg)
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else seeded_generator(dev, seed)
@@ -102,15 +126,15 @@ def stacked_params(cfg, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
                                        device=dev)
-    stack: Dict[str, Any] = {}
-    for i in range(cfg.num_layers):
-        layer = transformer.init_layer(gen, cfg, dev)
-        if i == 0:
-            stack = _stacked_like(layer, cfg.num_layers)
-        _stack_into(stack, layer, i)
-    params["layers"] = stack
+    params["layers"] = _stacked_layers(
+        lambda: transformer.init_layer(gen, cfg, dev), cfg.num_layers)
     if cfg.arch_type == "hybrid":
         params["shared_attn"] = transformer._init_dense_layer(gen, cfg, dev)
+    elif cfg.is_enc_dec:
+        params["enc_layers"] = _stacked_layers(
+            lambda: transformer.init_encoder_layer(gen, cfg, dev),
+            cfg.encoder_layers)
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
     return params
 
 
@@ -150,8 +174,10 @@ def params_from_stacked(cfg, stacked: Dict[str, Any]
     leaves (layer i's are the leaves' slices at i): no weight is copied,
     so the tree serves what the stacked tree holds."""
     transformer.check_family(cfg)
-    tree = dict(stacked, layers=transformer.unbind_layers(stacked["layers"]))
-    if len(tree["layers"]) != cfg.num_layers:
-        raise ValueError(f"{len(tree['layers'])} stacked layers, the "
-                         f"config has {cfg.num_layers}")
+    tree = dict(stacked)
+    for name, depth in stack_depths(cfg).items():
+        tree[name] = transformer.unbind_layers(stacked[name])
+        if len(tree[name]) != depth:
+            raise ValueError(f"{name}: {len(tree[name])} stacked layers, "
+                             f"the config has {depth}")
     return transformer.ParamTree(tree)

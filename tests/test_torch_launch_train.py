@@ -2,9 +2,10 @@
 ``repro_torch.launch.train.main(argv)`` with both trainers, under the
 PS runtime (its ``--profile-dir`` through ``torch.profiler``) and with
 ``--ckpt``; ``repro_torch.examples.train_transformer_admm.main`` with
-``--quick``; the two MoE archs, the SSM arch and the hybrid arch
-through ``--arch``. Every JSON line must
-parse and every loss be finite; both default to the card."""
+``--quick``; the two MoE archs, the SSM arch, the hybrid arch, MLA
+and enc-dec (whose batches carry the encoder's frames) through
+``--arch``. Every JSON line must parse and every loss be finite; both
+default to the card."""
 import json
 
 import numpy as np
@@ -66,6 +67,24 @@ def test_launch_train_runs_the_ssm_and_hybrid_archs(arch, capsys):
     out = capsys.readouterr().out
     assert f"arch={arch}-smoke" in out
     assert [r["loss"] for r in _records(out)] == losses
+    assert len(losses) == 3 and np.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("arch,trainer,runtime", [
+    ("minicpm3-4b", "admm", "epoch"), ("whisper-medium", "admm", "epoch"),
+    ("whisper-medium", "sgd", "epoch"), ("whisper-medium", "admm", "ps")])
+def test_launch_train_runs_the_mla_and_enc_dec_archs(arch, trainer, runtime,
+                                                     capsys):
+    """minicpm3's and whisper's smokes train 3 steps (or PS rounds)
+    through ``--arch``; whisper's batches carry (B, T_enc, d) frames
+    drawn by ``TokenPipeline``, which its loss needs (it raises
+    without them)."""
+    losses = train.main(["--arch", arch, "--device", "cpu", "--steps", "3",
+                         "--log-every", "1", "--trainer", trainer,
+                         "--runtime", runtime])
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke" in out
+    assert [r["loss"] for r in _records(out)[:3]] == losses
     assert len(losses) == 3 and np.isfinite(losses).all()
 
 

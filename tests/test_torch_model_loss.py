@@ -11,7 +11,9 @@ backends). Measured on the four dense smokes: loss at most 1.4e-7
 relative, gradients at most 7.4e-7 (1 + max|g|); on the two MoE smokes
 (both dispatches, the router's auxiliary loss in the sum): loss 1.4e-7,
 gradients 5.8e-7; on the SSM and hybrid smokes: loss 1.5e-7, gradients
-1.7e-7 (mamba2).
+1.7e-7 (mamba2); on minicpm3 (MLA): loss 0 relative, gradients 6.8e-7;
+on whisper (enc-dec, the batch's ``enc_frames`` through the encoder):
+loss 7.0e-8, gradients 1.7e-7.
 """
 import jax
 import jax.numpy as jnp
@@ -35,7 +37,8 @@ from repro_torch.serving import Engine
 DENSE_ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
 MOE_ARCHS = ["mixtral-8x7b", "granite-moe-1b-a400m"]
 SSM_ARCHS = ["mamba2-370m", "zamba2-1.2b"]
-ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS
+ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS + ["minicpm3-4b",
+                                                "whisper-medium"]
 LOSS_TOL = 1e-6
 GRAD_TOL = 1e-5
 
@@ -50,12 +53,17 @@ def _pair(arch, **overrides):
     return rmodel, rparams, model, params
 
 
-def _batch(cfg, B=2, S=24, seed=1, mask=False):
+def _batch(cfg, B=2, S=24, seed=1, mask=False, lead=()):
+    """A numpy-seeded batch of (*lead, B, S) tokens as both packages'
+    arrays, with an enc-dec arch's ``enc_frames`` (*lead, B, T_enc, d)."""
     r = np.random.RandomState(seed)
-    tok = r.randint(0, cfg.vocab_size, (B, S + 1))
-    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    tok = r.randint(0, cfg.vocab_size, lead + (B, S + 1))
+    batch = {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
     if mask:
         batch["label_mask"] = (r.rand(B, S) < 0.7).astype(np.float32)
+    if cfg.is_enc_dec:
+        batch["enc_frames"] = (r.randn(*lead, B, cfg.encoder_seq_len,
+                                       cfg.d_model) * 0.1).astype(np.float32)
     return ({k: jnp.asarray(v) for k, v in batch.items()},
             {k: torch.as_tensor(v) for k, v in batch.items()})
 
@@ -130,22 +138,23 @@ def test_loss_with_a_label_mask_matches_reference():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "minicpm3-4b",
+                                  "whisper-medium"])
 def test_loss_under_vmap_matches_per_worker_losses(arch):
     """``TreeSpace.worker_grads`` calls the loss as
     ``vmap(grad_and_value(loss))`` over a leading worker axis: each
     worker's loss and gradient equal the loss taken on its own (for
     granite-moe through top-k, the cumsum and the dispatch; for zamba2
-    through the SSD scan and the shared block)."""
+    through the SSD scan and the shared block; for minicpm3 through
+    MLA's in-place scale and mask; for whisper with each worker's own
+    ``enc_frames`` through the encoder and ``enc_layers``)."""
     cfg = get_smoke(arch)
     model = build_model(cfg)
     per = [stacked_params(cfg, seed, "cpu") for seed in (0, 1)]
     leaves, treedef = tree_flatten(per[0])
     both = tree_unflatten(treedef, [torch.stack(pair) for pair in zip(
         leaves, tree_leaves(per[1]))])
-    tok = torch.as_tensor(np.random.RandomState(4).randint(
-        0, cfg.vocab_size, (2, 2, 17)))
-    batch = {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
+    _, batch = _batch(cfg, B=2, S=16, seed=4, lead=(2,))
     g, losses = torch.func.vmap(torch.func.grad_and_value(model.loss))(
         both, batch)
     for i in range(2):
@@ -165,24 +174,27 @@ def test_stacked_forward_matches_paramtree_prefill(arch):
     _, rparams, model, stacked = _pair(arch)
     tree = params_from_numpy(model.cfg, jax.tree.map(np.asarray, rparams),
                              "cpu")
-    tok = torch.as_tensor(np.random.RandomState(5).randint(
-        0, model.cfg.vocab_size, (2, 20)))
-    ref = model.prefill(tree, tok)
-    out = model.prefill(stacked, tok)
+    _, tb = _batch(model.cfg, S=20, seed=5)
+    tok, enc = tb["tokens"], tb.get("enc_frames")
+    ref = model.prefill(tree, tok, enc_frames=enc)
+    out = model.prefill(stacked, tok, enc_frames=enc)
     scale = float(ref.abs().max())
     assert float((out - ref).abs().max()) <= 1e-6 * scale
-    last = model.prefill(stacked, tok, logits_mode="last")
+    last = model.prefill(stacked, tok, enc_frames=enc, logits_mode="last")
     assert float((last - ref[:, -1:]).abs().max()) <= 1e-6 * scale
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "minicpm3-4b",
+                                  "whisper-medium"])
 def test_params_from_stacked_views_the_tree_and_serves_it(arch):
     """``params_from_stacked`` copies no weight: every parameter is a
     view of a stacked leaf (a write to the stacked tree shows through),
     and the ``Engine`` serves it as it serves ``Model.init``'s tree (for
     granite-moe the (L, E, d, ff) expert stacks too; for zamba2 the
-    SSM layers and the unstacked shared block)."""
+    SSM layers and the unstacked shared block; for minicpm3 the MLA
+    weights; for whisper the encoder's ``enc_layers`` too, served with
+    frames)."""
     cfg = get_smoke(arch)
     model = build_model(cfg)
     stacked = stacked_params(cfg, 0, "cpu")
@@ -194,7 +206,7 @@ def test_params_from_stacked_views_the_tree_and_serves_it(arch):
                               init.named_parameters()):
         assert torch.equal(a, b) and not a.requires_grad
     group, name = ("mamba", "w_in") if cfg.ssm is not None else \
-        ("attn", "w_q")
+        ("attn", "w_uk") if cfg.mla is not None else ("attn", "w_q")
     w = stacked["layers"][group][name]
     assert tree["layers"][1][group][name].data_ptr() == w[1].data_ptr()
     assert tree["embed"].data_ptr() == stacked["embed"].data_ptr()
@@ -205,9 +217,19 @@ def test_params_from_stacked_views_the_tree_and_serves_it(arch):
         w_up = stacked["layers"]["moe"]["w_up"]
         assert tree["layers"][1]["moe"]["w_up"].data_ptr() == \
             w_up[1].data_ptr()
+    if cfg.is_enc_dec:
+        for stack, sub in (("enc_layers", "attn"), ("layers", "cross")):
+            w_k = stacked[stack][sub]["w_k"]
+            assert tree[stack][1][sub]["w_k"].data_ptr() == \
+                w_k[1].data_ptr()
+        with pytest.raises(ValueError, match="enc_layers: 2 stacked"):
+            params_from_stacked(cfg.with_(encoder_layers=3), stacked)
     prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 4))
-    a = Engine(model, tree, max_len=16).generate(prompts, max_new=4)
-    b = Engine(model, init, max_len=16).generate(prompts, max_new=4)
+    enc = _batch(cfg, B=2, seed=6)[1].get("enc_frames")
+    a = Engine(model, tree, max_len=16).generate(prompts, max_new=4,
+                                                 enc_frames=enc)
+    b = Engine(model, init, max_len=16).generate(prompts, max_new=4,
+                                                 enc_frames=enc)
     np.testing.assert_array_equal(a.tokens, b.tokens)
     w[1].add_(1.0)
     assert torch.equal(tree["layers"][1][group][name], w[1])

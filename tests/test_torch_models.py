@@ -1,6 +1,8 @@
 """The port's model stack (``repro_torch.models``) against the
-reference's (``repro.models``) for each of the four dense archs, the
-two MoE archs, the SSM arch and the hybrid arch at their smoke configs.
+reference's (``repro.models``) for each of the reference's ten archs at
+their smoke configs: the four dense GQA archs, the two MoE archs, the
+SSM arch, the hybrid arch, MLA (minicpm3-4b) and enc-dec
+(whisper-medium, its encoder fed the same seeded frame embeddings).
 The reference's params (``model.init(PRNGKey(0))``) are carried across
 by ``params_from_numpy``, so both compute the same function on the same
 seeded tokens.
@@ -8,7 +10,9 @@ seeded tokens.
 Tolerance: 1e-5 of max|reference logits|, the parity tolerance of the
 port (the reference's between its own backends). Measured max|Δ| on
 the six dense and MoE archs: at most 1.4e-6 of max|ref| for prefill,
-naive and flash; mamba2 7.7e-7, zamba2 1.3e-6.
+naive and flash; mamba2 7.7e-7, zamba2 1.3e-6; minicpm3 and whisper
+(naive and flash) within 1e-6 (``test_torch_mla.py``,
+``test_torch_encdec.py``).
 The port's own decode-vs-prefill check uses the reference's 5e-4
 (``tests/test_decode_consistency.py``). The MoE smokes are dropless
 (capacity factor 4.0 = E / K), so a prefill and a token-by-token decode
@@ -23,16 +27,21 @@ import pytest
 import torch
 
 from repro.configs import get_smoke as ref_smoke
+from repro.configs import list_archs as ref_archs
 from repro.models import build_model as ref_build
+from repro.serving import Engine as RefEngine
 from repro_torch.configs import get_config, get_smoke, list_archs
 from repro_torch.configs.base import MLAConfig, SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.models import build_model, params_from_numpy
+from repro_torch.serving import Engine
 
 DENSE_ARCHS = ["qwen3-1.7b", "chatglm3-6b", "qwen1.5-32b", "chameleon-34b"]
 MOE_ARCHS = ["mixtral-8x7b", "granite-moe-1b-a400m"]
 SSM_ARCHS = ["mamba2-370m", "zamba2-1.2b"]
-ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS
+MLA_ARCHS = ["minicpm3-4b"]
+ENC_DEC_ARCHS = ["whisper-medium"]
+ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS + MLA_ARCHS + ENC_DEC_ARCHS
 PARITY = 1e-5
 
 
@@ -52,6 +61,44 @@ def _tokens(cfg, B=2, S=40, seed=1):
                                          cfg.vocab_size))
 
 
+def _enc(cfg, B=2, seed=2):
+    """An enc-dec arch's frame embeddings (B, T_enc, d_model) as
+    ``tests/test_decode_consistency.py`` scales them; None otherwise."""
+    if not cfg.is_enc_dec:
+        return None
+    return (np.random.RandomState(seed).randn(
+        B, cfg.encoder_seq_len, cfg.d_model) * 0.1).astype(np.float32)
+
+
+def _both(enc):
+    """(the frames for the reference, for the port)."""
+    if enc is None:
+        return None, None
+    return jnp.asarray(enc), torch.as_tensor(enc)
+
+
+def _filled_caches(rmodel, rparams, model, params, B, T, enc):
+    """Both packages' decode caches of (B, T), an enc-dec arch's cross
+    K/V filled from ``enc`` by its ``Engine``."""
+    rcache, cache = rmodel.init_cache(B, T), model.init_cache(B, T, "cpu")
+    if enc is not None:
+        renc, tenc = _both(enc)
+        rcache = RefEngine(rmodel, rparams, T)._fill_cross_attn(rcache, renc)
+        cache = Engine(model, params, T)._fill_cross_attn(cache, tenc)
+    return rcache, cache
+
+
+def _cache_tensors(cache, prefix=""):
+    """A cache's tensors by dotted name (parts of specs or tensors)."""
+    out = {}
+    for name, value in cache.items():
+        if isinstance(value, dict):
+            out.update(_cache_tensors(value, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = value
+    return out
+
+
 def _close(out, ref, tol=PARITY):
     ref = np.asarray(ref)
     err = float(np.abs(np.asarray(out) - ref).max())
@@ -59,20 +106,20 @@ def _close(out, ref, tol=PARITY):
 
 
 def test_the_port_has_the_four_dense_archs():
-    """The four dense archs, the two MoE archs, the SSM arch and the
-    hybrid arch; the families still missing (MLA, enc-dec) name the
-    ROADMAP item."""
+    """All ten of the reference's archs, in its order: the four dense
+    archs, the two MoE archs, the SSM arch, the hybrid arch, MLA and
+    enc-dec, each smoke config equal to the reference's field by field;
+    an unknown arch names the port's list."""
+    assert list_archs() == ref_archs()
     assert sorted(list_archs()) == sorted(ARCHS)
     for arch in ARCHS:
         assert get_config(arch) == get_config(arch).with_()
         ref = ref_smoke(arch)
         ours = get_smoke(arch)
         assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
-    for missing in ("minicpm3-4b", "whisper-medium"):
-        with pytest.raises(KeyError, match="Queue A item 11"):
-            get_config(missing)
-        with pytest.raises(KeyError, match="MLA, enc-dec"):
-            get_smoke(missing)
+    for get in (get_config, get_smoke):
+        with pytest.raises(KeyError, match="whisper-medium"):
+            get("whisper-large")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -93,12 +140,14 @@ def test_init_has_the_reference_tree(arch):
     """``Model.init`` draws a tree of the reference's names and shapes."""
     rcfg, cfg = ref_smoke(arch), get_smoke(arch)
     rparams = ref_build(rcfg).init(jax.random.PRNGKey(0))
+    depths = {"layers": cfg.num_layers, "enc_layers": cfg.encoder_layers}
     ref_shapes = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(rparams)[0]:
         name = ".".join(p.key for p in path)
-        if name.startswith("layers."):
-            for i in range(cfg.num_layers):
-                ref_shapes[f"layers.{i}.{name[7:]}"] = leaf.shape[1:]
+        stack, _, rest = name.partition(".")
+        if stack in depths and rest:
+            for i in range(depths[stack]):
+                ref_shapes[f"{stack}.{i}.{rest}"] = leaf.shape[1:]
         else:
             ref_shapes[name] = leaf.shape
     params = build_model(cfg).init(0, "cpu")
@@ -115,21 +164,28 @@ def test_init_has_the_reference_tree(arch):
 def test_prefill_matches_reference(arch, attn_impl):
     rmodel, rparams, model, params = _pair(arch, attn_impl=attn_impl)
     tok = _tokens(model.cfg)
+    renc, enc = _both(_enc(model.cfg))
     ops.reset_launch_counts()
-    out = model.prefill(params, torch.as_tensor(tok))
+    tok = torch.as_tensor(tok.copy())
+    out = model.prefill(params, tok, enc_frames=enc)
     assert ops.launch_counts()["flash_attention"] == 0    # CPU: plain
     assert out.shape == (2, 40, model.cfg.vocab_size)
-    _close(out.numpy(), rmodel.prefill(rparams, jnp.asarray(tok)))
-    last = model.prefill(params, torch.as_tensor(tok), logits_mode="last")
+    _close(out.numpy(), rmodel.prefill(rparams, jnp.asarray(tok.numpy()),
+                                       enc_frames=renc))
+    last = model.prefill(params, tok, enc_frames=enc, logits_mode="last")
     assert last.shape == (2, 1, model.cfg.vocab_size)
-    _close(last.numpy(), rmodel.prefill(rparams, jnp.asarray(tok),
-                                        logits_mode="last"))
+    _close(last.numpy(), rmodel.prefill(rparams, jnp.asarray(tok.numpy()),
+                                        enc_frames=renc, logits_mode="last"))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if a not in ENC_DEC_ARCHS])
 def test_flash_prefill_matches_naive(arch):
     """The reference's own bound between the two paths
-    (``tests/test_flash_attention.py``): 2e-3."""
+    (``tests/test_flash_attention.py``): 2e-3. Not on whisper, whose
+    flash encoder lets the zero keys that pad T_enc to 128 into its
+    softmax (ROADMAP Queue C item 3): ``test_torch_encdec.py`` holds
+    that gap to the reference's."""
     _, _, model, params = _pair(arch)
     tok = torch.as_tensor(_tokens(model.cfg))
     naive = model.prefill(params, tok)
@@ -141,13 +197,15 @@ def test_flash_prefill_matches_naive(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_steps_match_reference(arch):
     """12 ``decode_step`` calls against the reference's, logits at each
-    step and every cache tensor at the end (K/V; the SSM layers' conv
-    and SSM states; the hybrid's shared-block K/V)."""
+    step and every cache tensor at the end (K/V; MLA's latent c_kv and
+    k_rope; the SSM layers' conv and SSM states; the hybrid's
+    shared-block K/V; whisper's cross K/V, filled from its encoder by
+    each package's ``Engine``)."""
     rmodel, rparams, model, params = _pair(arch)
     B, S = 2, 12
     tok = _tokens(model.cfg, B, S)
-    rcache = rmodel.init_cache(B, S + 4)
-    cache = model.init_cache(B, S + 4, "cpu")
+    rcache, cache = _filled_caches(rmodel, rparams, model, params, B, S + 4,
+                                   _enc(model.cfg, B))
     rdecode = jax.jit(rmodel.decode_step)
     for t in range(S):
         rlg, rcache = rdecode(rparams, jnp.asarray(tok[:, t:t + 1]), rcache,
@@ -156,11 +214,10 @@ def test_decode_steps_match_reference(arch):
             tok[:, t:t + 1]), cache, t)
         assert lg.shape == (B, 1, model.cfg.vocab_size)
         _close(lg.numpy(), rlg)
-    assert set(cache) == set(rcache)
-    for part, tensors in cache.items():
-        assert set(tensors) == set(rcache[part])
-        for name, t in tensors.items():
-            _close(t.numpy(), rcache[part][name])
+    tensors, rtensors = _cache_tensors(cache), _cache_tensors(rcache)
+    assert set(tensors) == set(rtensors)
+    for name, t in tensors.items():
+        _close(t.numpy(), rtensors[name])
 
 
 def test_decode_past_the_cache_length_matches_reference():
@@ -228,8 +285,11 @@ def test_decode_matches_own_prefill(arch):
     params = model.init(0, "cpu")
     B, S = 2, 12
     tok = torch.as_tensor(_tokens(cfg, B, S))
-    ref = model.prefill(params, tok)
+    enc = _both(_enc(cfg, B))[1]
+    ref = model.prefill(params, tok, enc_frames=enc)
     cache = model.init_cache(B, S + 4, "cpu")
+    if enc is not None:
+        cache = Engine(model, params, S + 4)._fill_cross_attn(cache, enc)
     errs = []
     for t in range(S):
         lg, cache = model.decode_step(params, tok[:, t:t + 1], cache, t)
@@ -238,59 +298,77 @@ def test_decode_matches_own_prefill(arch):
 
 
 @pytest.mark.parametrize("max_len", [20, 64])
-@pytest.mark.parametrize("arch", ["qwen3-1.7b"] + MOE_ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", ["qwen3-1.7b"] + MOE_ARCHS + SSM_ARCHS
+                         + MLA_ARCHS + ENC_DEC_ARCHS)
 def test_cache_specs_match_reference(arch, max_len):
     """mixtral's cache is its window long (32 slots in the smoke) once
     max_len passes it, as the reference allocates it; the SSM layers'
-    conv and SSM states and the hybrid's shared-block K/V take the
-    reference's shapes and dtypes."""
+    conv and SSM states, the hybrid's shared-block K/V, MLA's latent
+    cache and whisper's top-level cross K/V (T_enc long whatever
+    max_len) take the reference's shapes and dtypes."""
     rcfg, cfg = ref_smoke(arch), get_smoke(arch)
-    rspecs = ref_build(rcfg).cache_specs(3, max_len)
-    specs = build_model(cfg).cache_specs(3, max_len)
-    cache = build_model(cfg).init_cache(3, max_len, "cpu")
+    rspecs = _cache_tensors(ref_build(rcfg).cache_specs(3, max_len))
+    specs = _cache_tensors(build_model(cfg).cache_specs(3, max_len))
+    cache = _cache_tensors(build_model(cfg).init_cache(3, max_len, "cpu"))
     assert set(specs) == set(rspecs) == set(cache)
-    for part, spec in specs.items():
-        assert set(spec) == set(rspecs[part])
-        for name, (shape, dt) in spec.items():
-            assert shape == rspecs[part][name].shape
-            assert str(dt) == f"torch.{rspecs[part][name].dtype}"
-            assert cache[part][name].shape == shape
-            assert cache[part][name].dtype == dt
-            assert not bool(cache[part][name].any())
+    for name, (shape, dt) in specs.items():
+        assert shape == rspecs[name].shape
+        assert str(dt) == f"torch.{rspecs[name].dtype}"
+        assert cache[name].shape == shape and cache[name].dtype == dt
+        assert not bool(cache[name].any())
     if cfg.sliding_window is not None:
-        assert cache["layers"]["k"].shape[2] == min(max_len,
-                                                    cfg.sliding_window)
+        assert cache["layers.k"].shape[2] == min(max_len, cfg.sliding_window)
 
 
 def test_other_families_and_impls_name_the_roadmap_item():
-    """The families and impls still missing: MLA, enc-dec (``audio``,
-    ``encoder_layers``), and the ``chunked`` / ``qchunk`` attention
-    impls (on a dense, a MoE and the hybrid arch); an SSM and a hybrid
-    config made from a dense one now build and run."""
+    """The impls still missing, ``chunked`` / ``qchunk`` (on a dense, a
+    MoE, the hybrid and the enc-dec arch), name ROADMAP Queue A item 11
+    step 6; MLA takes no attention impl (the reference's ``mla_forward``
+    reads none), so under them it computes the naive logits. SSM,
+    hybrid, MLA and enc-dec configs made from a dense one build and
+    run, enc-dec with its frames (and not without them); frames given to
+    an arch with no encoder are refused."""
     tok = torch.zeros((1, 8), dtype=torch.int64)
-    for arch in ("qwen3-1.7b", "mixtral-8x7b", "zamba2-1.2b"):
+    frames = torch.zeros((1, 16, 128))
+    cfg = get_smoke("minicpm3-4b")
+    params = build_model(cfg).init(0, "cpu")
+    naive = build_model(cfg).prefill(params, tok)
+    for impl in ("chunked", "qchunk"):
+        assert torch.equal(build_model(cfg.with_(attn_impl=impl)).prefill(
+            params, tok), naive)
+    for arch in ("qwen3-1.7b", "mixtral-8x7b", "zamba2-1.2b",
+                 "whisper-medium"):
         cfg = get_smoke(arch)
         params = build_model(cfg).init(0, "cpu")
+        enc = frames if cfg.is_enc_dec else None
         for impl in ("chunked", "qchunk"):
-            with pytest.raises(NotImplementedError, match="Queue A item 11"):
-                build_model(cfg.with_(attn_impl=impl)).prefill(params, tok)
+            with pytest.raises(NotImplementedError,
+                               match="Queue A item 11 step 6"):
+                build_model(cfg.with_(attn_impl=impl)).prefill(
+                    params, tok, enc_frames=enc)
     cfg = get_smoke("qwen3-1.7b")
     mla = cfg.with_(mla=MLAConfig(32, 32, 16, 16, 16))
     ssm = cfg.with_(arch_type="ssm", ssm=SSMConfig(16))
     hybrid = cfg.with_(arch_type="hybrid", ssm=SSMConfig(16),
                        hybrid_attn_every=2)
-    for other in (mla, cfg.with_(arch_type="audio"),
-                  cfg.with_(encoder_layers=2)):
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
-            build_model(other).init(0, "cpu")
-    for family in (ssm, hybrid):
+    enc_dec = cfg.with_(arch_type="audio", encoder_layers=2,
+                        encoder_seq_len=16)
+    for family in (ssm, hybrid, mla, enc_dec):
         model = build_model(family)
-        out = model.prefill(model.init(0, "cpu"), tok)
+        params = model.init(0, "cpu")
+        enc = frames if family.is_enc_dec else None
+        out = model.prefill(params, tok, enc_frames=enc)
         assert out.shape == (1, 8, cfg.vocab_size)
         assert bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    assert len(build_model(mla).init(0, "cpu")["layers"][0]["attn"]
+               ["w_uk"].shape) == 2
+    with pytest.raises(ValueError, match="needs enc_frames"):
+        build_model(enc_dec).prefill(build_model(enc_dec).init(0, "cpu"), tok)
+    with pytest.raises(ValueError, match="no encoder"):
         build_model(cfg).prefill(build_model(cfg).init(0, "cpu"), tok,
-                                 enc_frames=torch.zeros(1))
+                                 enc_frames=frames)
+    with pytest.raises(ValueError, match="arch_type"):
+        build_model(cfg.with_(arch_type="retnet")).init(0, "cpu")
 
 
 def test_params_from_numpy_checks_the_tree():

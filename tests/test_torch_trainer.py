@@ -238,7 +238,8 @@ def test_admm_state_checkpoint_resume(tmp_path):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS
+                         + ["minicpm3-4b", "whisper-medium"])
 def test_one_admm_train_step(arch):
     cfg = get_smoke(arch)
     model = build_model(cfg)
@@ -248,7 +249,10 @@ def test_one_admm_train_step(arch):
     state = tr.init(params)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=17,
                          global_batch=4, seed=0)
-    state, info = tr.train_step(state, _batch(pipe, 0, 2))
+    enc_kw = dict(enc_frames_dim=cfg.d_model,
+                  enc_seq_len=cfg.encoder_seq_len) if cfg.is_enc_dec else {}
+    state, info = tr.train_step(state, pipe.batch(0, num_workers=2,
+                                                  device="cpu", **enc_kw))
     assert np.isfinite(float(info["loss"]))
     for leaf in tree_leaves(state.params):
         assert bool(torch.isfinite(leaf).all()), arch

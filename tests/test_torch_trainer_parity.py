@@ -18,6 +18,8 @@ same token batches from a numpy seed, fp32 (the reference jitted):
 * ``train_step`` for 3 steps of the mamba2 and zamba2 smokes with the
   reference's draws (``block_fraction=0.5, max_delay=1``): the hybrid's
   unstacked ``shared_attn`` leaves packed in the reference's leaf order;
+  and of the minicpm3 (MLA) and whisper (enc-dec: its second stack,
+  ``enc_layers``, and the batch's ``enc_frames`` per worker) smokes;
 * what the port adds: the spec built once per tree, a step's state
   packed back with no copy, defaults to the card.
 
@@ -75,6 +77,20 @@ def _batches(workers=N, per=2, S=16, steps=STEPS, seed=2):
                {k: torch.as_tensor(v) for k, v in b.items()})
 
 
+def _arch_batches(cfg, steps, seed=2):
+    """``_batches`` for ``cfg``: (N, 2, 16) tokens from its vocabulary,
+    and an enc-dec arch's (N, 2, T_enc, d) ``enc_frames``."""
+    r = np.random.RandomState(seed)
+    for _ in range(steps):
+        tok = r.randint(0, cfg.vocab_size, (N, 2, 17))
+        b = {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
+        if cfg.is_enc_dec:
+            b["enc_frames"] = (r.randn(N, 2, cfg.encoder_seq_len, cfg.d_model)
+                               * 0.1).astype(np.float32)
+        yield ({k: jnp.asarray(v) for k, v in b.items()},
+               {k: torch.as_tensor(v) for k, v in b.items()})
+
+
 def _close(out, ref, tol=TOL):
     for a, b in zip(tree_leaves(out), jax.tree.leaves(ref)):
         b = np.asarray(b)
@@ -91,10 +107,10 @@ def _trainers(models, **kw):
                         num_workers=N, device="cpu"))
 
 
-def _run_and_compare(rt, tt, rparams, params, steps=STEPS):
+def _run_and_compare(rt, tt, rparams, params, steps=STEPS, batches=None):
     rs, ts = rt.init(rparams), tt.init(params)
     rstep = jax.jit(rt.train_step)
-    for rb, tb in _batches(steps=steps):
+    for rb, tb in batches or _batches(steps=steps):
         rs, rinfo = rstep(rs, rb)
         ts, tinfo = tt.train_step(ts, tb)
         for name in ("z_hist", "y", "w_cache"):
@@ -185,6 +201,35 @@ def test_ssm_train_step_with_the_reference_draws(arch, monkeypatch):
                   "block_sizes", "block_dim"):
         assert getattr(layout, field) == getattr(rlayout, field), field
     _run_and_compare(rt, tt, rparams, params, steps=3)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-medium"])
+def test_mla_and_encdec_train_step_with_the_reference_draws(arch,
+                                                            monkeypatch):
+    """The MLA and enc-dec smokes, their weights carried across, 3 steps
+    with the reference's delays and selections: the block layout of
+    their trees is the reference's (whisper's ``enc_layers`` and
+    ``enc_norm`` sorted in after ``embed``), each worker's
+    ``enc_frames`` reach its loss under ``vmap``, and z, y, w_cache, the
+    loss and the residual agree at 1e-5."""
+    rmodel = ref_build(ref_smoke(arch))
+    rparams = rmodel.init(jax.random.PRNGKey(0))
+    model = build_model(get_smoke(arch))
+    params = stacked_from_numpy(model.cfg, jax.tree.map(np.asarray, rparams),
+                                "cpu")
+    rt, tt = _trainers((rmodel, rparams, model, params), max_delay=1,
+                       block_fraction=0.5, seed=3)
+    delays, sels = _reference_draws(rt.admm, steps=3)
+    monkeypatch.setattr(trainer_mod, "make_spec", functools.partial(
+        space.make_spec, delay_model=space.TraceDelay(delays),
+        selector=lambda ctx: sels[ctx.t] & ctx.edge))
+    rlayout = rt._spec(rparams).space.layout
+    layout = tt._spec(params).space.layout
+    for field in ("block_ids", "leaf_offsets", "leaf_shapes",
+                  "block_sizes", "block_dim"):
+        assert getattr(layout, field) == getattr(rlayout, field), field
+    _run_and_compare(rt, tt, rparams, params, steps=3,
+                     batches=_arch_batches(model.cfg, 3))
 
 
 def test_train_step_block_matches_reference(models, monkeypatch):
