@@ -43,6 +43,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    each kernel must have launched once per epoch; B2 on the epoch's
    inputs also by its device time per launch (line
    ``main_server_prox``);
+   autotune — B1's and B2's launches (``kernels/autotune.py``: 128-1024
+   threads a block x 1, 2, 4, 8 or the occupancy API's most blocks an
+   SM) swept at the kdda_like shape (8, 64, 315,904) and the pytree /
+   train shape (2, 2, 311,164,928): every candidate timed by CUDA-event
+   windows and its output bitwise the default launch's; each winner
+   printed with its ms, the default's and the bound; the winners kept
+   in memory (written to ``chiprun_out/autotune_entries.json``, never
+   to the package's table); then phase 4's epochs under
+   ``autotune="cached"``: z bitwise phase 4's, B1 and B2 once an epoch;
 5. paper   — the paper's entry points on the card: the
    "AsyBADMM (D=2, 50% blocks)" variant of
    ``repro_torch.examples.sparse_logreg_admm`` for 600 epochs on both
@@ -86,7 +95,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    those costs (p in 1, 4, 8, 16, 32, k = 320, both disciplines), the
    locked/lockfree gate at 8 workers and the skew, heavy_tail, churn,
    lossy and server_crash scenarios with their gates
-   (``ps_baseline.json``);
+   (``ps_baseline.json``); churn's, lossy's and server_crash's traces
+   also replayed through the SPMD epoch on 8 gloo ranks spawned on the
+   card (data 4 x model 2; ``benchmarks/spmd_replay.py``), each within
+   1e-5 of the runtime's z at every round, B1 and B3 once a round on
+   every rank (``ps_spmd_replays``);
    ps_durable — the runtime's durability layer at the same width,
    lockfree, 6 rounds, z recorded. Line ``ps_server_crash``: block
    servers 2 and 9 crash at sim times 2.0 and 4.0 (each after a
@@ -204,6 +217,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    past it), with a profile; layer 0's bf16 B7 inputs checked (row by
    row too), gated against four faulty results and timed the same way,
    and the same inputs in f16;
+   serve_chunked — between them, the same 4 x 4096 prefill under
+   ``attn_impl="chunked"`` (chunk 1024) and ``"qchunk"`` (2048), no
+   kernel launched, each one's last logits within 2e-3 of the naive
+   prefill's, a chunked with its causal mask dropped shown to read past
+   that; then 1 x 32768 tokens (the reference's prefill_32k, its batch
+   cut to 1) at 14 of the 28 layers through flash (B7 once a layer at
+   (16, 32768, 128), layer 0's held to float64 on its first head),
+   qchunk and chunked (naive's 68.7 GB scores a layer are printed as
+   the reason it is not run): each one's first run at a 2-layer cut,
+   then its timed run, its peak beside the reckoning printed first
+   (line ``serve_chunked_plan``), and the device's idle share of the
+   2-layer cut from the profiler; chunked's and qchunk's last logits
+   within 2e-3 of flash's;
    serve_moe — granite-moe-1b-a400m at full width (24 layers, f32, seed
    0, ``moe_impl="scatter"``): the 4 x 4096 prefill on the flash path (B7
    once per layer: 24, the (64, 4096, 128) launch of hd 64 padded to
@@ -223,7 +249,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    mixtral-8x7b at its widths, 2 of 32 layers (f32, seed 0, onehot),
    a 2 x 4608 naive prefill past the 4096 window (shown to differ from
    the same prefill without it), ``Engine.generate`` 2 x (16 + 24),
-   decode vs prefill on the dropless copy; no kernel launched;
+   decode vs prefill on the dropless copy; no kernel launched. Line
+   ``serve_chunked_window``: the same prefill under chunked and qchunk
+   with the window, the naive prefill's routing replayed, within 2e-3
+   of naive; a qchunk without its window mask shown to read past it;
    serve_ssm — mamba2-370m in full (48 layers, d_model 1024, f32, seed
    0): the 4 x 4096 prefill through the chunked SSD (no kernel), timed,
    profiled (the device's idle share), its peak beside the weights and
@@ -264,7 +293,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    between them); the encoder alone timed; ``Engine.generate`` on the
    flash path (B7 24 times, in the encoder; never in decode); decode vs
    prefill within 5e-4 under flash on both sides; the cross cache's
-   bytes;
+   bytes. Line ``serve_chunked_encdec``: the prefill under chunked
+   (the 1500 frames' keys padded to 2048 and masked) and qchunk within
+   2e-3 of naive, printed beside flash's gap; a chunked whose padded
+   keys are not masked shown to read past it;
 9. logreg  — ``ops.logreg_grad`` at the size the repo declares for it
    (m = 2^20 samples, d = 2^14 features, X dense f32, 68.72 GB, filled
    on the card in row chunks): launches B5 twice and B6 once; each pass
@@ -1308,13 +1340,13 @@ def capture_inputs(copy: bool = True, names=None, keep=None):
         mod = kernel_module(name)
         real = getattr(mod, f"{name}_cuda")
 
-        def wrapped(*args, _real=real, _name=name):
+        def wrapped(*args, _real=real, _name=name, **kw):
             kept = inputs.setdefault(_name, [])
             if keep is None or len(kept) < keep:
                 kept.append(tuple(
                     a.clone() if copy and isinstance(a, torch.Tensor) else a
                     for a in args))
-            return _real(*args)
+            return _real(*args, **kw)
 
         setattr(mod, f"{name}_cuda", wrapped)
         restore.append((mod, f"{name}_cuda", real))
@@ -1450,6 +1482,96 @@ def phase_main(bw: float, errs):
     del epoch_case
     torch.cuda.empty_cache()
     return launches, rows, z_kernel
+
+
+# ---------------------------------------------------------------------------
+# phase autotune: B1's and B2's launches swept on the card, then main's
+# epochs under autotune="cached"
+# ---------------------------------------------------------------------------
+
+# PERF.md section 6's bounds of B1 and B2 on their paths' own inputs (main:
+# half the rows selected, x tracked; pytree: no x), beside this phase's
+AUTOTUNE_PATH_BOUND_MS = {
+    ("worker_select_update", (8, 64, 315_904)): 1.159,
+    ("worker_select_update", (2, 2, 311_164_928)): 6.688,
+    ("server_prox_fused", (8, 64, 315_904)): 0.241,
+    ("server_prox_fused", (2, 2, 311_164_928)): 2.972}
+
+
+def phase_autotune(bw: float, z_main) -> None:
+    """Both ops swept at both benchmark shapes (``autotune.SHAPES``) on
+    the card: every candidate launch timed by CUDA-event windows, its
+    output bitwise the default launch's (``autotune.events_scores``
+    fails otherwise); each winner printed with its time, the default's,
+    the bound on the sweep's inputs (every row selected, no x) and the
+    path's from PERF.md; the winners kept in memory (the table file is
+    not written) and beside them the kept table's entry for this card.
+    Then main's kdda_like epochs under ``autotune="cached"``: z bitwise
+    phase main's ("off"), B1 and B2 once an epoch."""
+    import dataclasses
+    from repro_torch.api import ConsensusSession
+    from repro_torch.kernels import autotune, ops
+
+    t0 = time.perf_counter()
+    kind = autotune.device_kind("cuda")
+    kept = {k: dict(v) for k, v in autotune.load_table(refresh=True).items()}
+    entries, rows = {}, []
+    for shape in autotune.SHAPES:
+        for op in autotune.OPS:
+            reset_peak()
+            scores, default_us = autotune.events_scores(op, *shape, "cuda")
+            t, b = autotune.best_launch(scores)
+            key = autotune.table_key(kind, op, *shape)
+            entries[key] = autotune.entry(autotune.LaunchConfig(
+                t, b, scores[(t, b)], "cuda_events"))
+            rows.append(dict(
+                op=op, shape=list(shape), candidates=len(scores),
+                bitwise=True, winner=[t, b], winner_ms=scores[(t, b)] / 1e3,
+                default_ms=default_us / 1e3,
+                gain=1.0 - scores[(t, b)] / default_us,
+                bound_ms=1e3 * autotune.op_bytes(op, *shape) / bw,
+                path_bound_ms=AUTOTUNE_PATH_BOUND_MS[(op, shape)],
+                kept=kept.get(key),
+                ms_by_launch={f"{lt}x{lb}": us / 1e3
+                              for (lt, lb), us in sorted(scores.items())},
+                peak_bytes=torch.cuda.max_memory_allocated()))
+            torch.cuda.empty_cache()
+    autotune.remember(entries, persist=False)
+    (HERE / "chiprun_out").mkdir(exist_ok=True)
+    (HERE / "chiprun_out" / "autotune_entries.json").write_text(
+        json.dumps(entries, indent=2))
+    sweep_s = time.perf_counter() - t0
+
+    cfg, centers = kdda_problem()
+    sess = ConsensusSession.flat(quad_loss, centers, dim=KDDA_DIM,
+                                 cfg=dataclasses.replace(cfg,
+                                                         autotune="cached"))
+    if sess.spec.space.autotune != "cached":
+        fail(f"autotune: the session runs {sess.spec.space.autotune!r}")
+    launch = {op: sess.spec.space._launch(op, torch.empty(
+        (KDDA_WORKERS, KDDA_BLOCKS, sess.spec.space.blocks.block_dim),
+        device="cuda")) for op in autotune.OPS}
+    if any(v is None for v in launch.values()):
+        fail(f"autotune: the cached session's lookups missed: {launch}")
+    ops.reset_launch_counts()
+    state, times = run_epochs(sess, MAIN_EPOCHS)
+    launches = ops.launch_counts()
+    expect_launches("autotune (main, cached)", launches, MAIN_EPOCHS,
+                    MAIN_KERNELS)
+    z = sess.z(state)
+    if not torch.equal(z.view(torch.int32), z_main.view(torch.int32)):
+        fail(f"autotune: main's z under 'cached' differs from 'off' by "
+             f"{float((z - z_main).abs().max()):.3e}")
+    ADDED_S["autotune"] = time.perf_counter() - t0
+    emit("autotune", device_kind=kind, sweep=rows, sweep_s=sweep_s,
+         seconds=ADDED_S["autotune"],
+         main_cached=dict(launch=launch, epochs=MAIN_EPOCHS,
+                          launches=launches, z_bitwise_off=True,
+                          epoch_ms_median=statistics.median(times[1:]),
+                          epoch_ms=times),
+         card=smi_line())
+    del state, sess, centers, z
+    torch.cuda.empty_cache()
 
 
 # The profiler drops the device records of the first few launches in a
@@ -1965,6 +2087,43 @@ def ps_replay(sess_cfg, res) -> list:
     return times
 
 
+PS_SPMD_SCENARIOS = ("churn", "lossy", "server_crash")
+
+
+def ps_spmd_replays(lines) -> dict:
+    """The scenarios' 8-rank SPMD replays from their lines: each error
+    within 1e-5 on the (data 4, model 2) mesh, and on every rank B1 and
+    B3 launched once a round, nothing else."""
+    from repro_torch.benchmarks.speedup import SPMD_TOL
+    found = {}
+    for line in lines:
+        name, first, rest = (line.split(",", 2) + [""])[:3]
+        for sc in PS_SPMD_SCENARIOS:
+            if name == f"{sc}_replay_err_spmd":
+                found.setdefault(sc, {}).update(err=float(first), mesh=rest)
+            elif name == f"{sc}_replay_spmd_launches":
+                *parts, spawn = rest.split("|")
+                counts = {k: [int(n) for n in v.split("/")] for k, v in (
+                    part.split("=") for part in parts)}
+                found.setdefault(sc, {}).update(
+                    rounds=int(first), launches_per_rank=counts,
+                    spawn_s=float(spawn.split("=")[1]))
+    for sc in PS_SPMD_SCENARIOS:
+        r = found.get(sc, {})
+        if "err" not in r or "rounds" not in r:
+            fail(f"ps_table1: no SPMD replay lines for {sc}: {r}")
+        if not r["err"] <= SPMD_TOL or r["mesh"] != "mesh=data4xmodel2":
+            fail(f"ps_table1: {sc}'s SPMD replay error {r['err']} "
+                 f"({r['mesh']}) past {SPMD_TOL}")
+        want = {k: [r["rounds"]] * 8 for k in SPMD_KERNELS}
+        if r["launches_per_rank"] != want:
+            fail(f"ps_table1: {sc}'s ranks launched "
+                 f"{r['launches_per_rank']}, expected {want}")
+    ADDED_S["ps_spmd_replays"] = sum(found[sc]["spawn_s"]
+                                     for sc in PS_SPMD_SCENARIOS)
+    return found
+
+
 def phase_ps(bw: float, errs):
     """``ConsensusSession.run_ps`` at the kdda_like width and config, 6
     rounds under each of lockfree and locked with lognormal service
@@ -2065,9 +2224,10 @@ def phase_ps(bw: float, errs):
     for name in PS_SCENARIOS:
         gates[name] = speedup.SCENARIOS[name](collect, smoke=True,
                                               device="cuda")
+    spmd = ps_spmd_replays(lines)
     emit("ps_table1", t_worker_us=1e6 * costs["t_worker"],
          t_server_block_us=1e6 * costs["t_server_block"],
-         k=speedup.K_ITERS, rows=table, gates=gates,
+         k=speedup.K_ITERS, rows=table, gates=gates, spmd_replay=spmd,
          lines=[ln for ln in lines if "_hist," not in ln])
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
@@ -3270,6 +3430,229 @@ def serve_bf16(cfg, tokens, bw, errs) -> tuple:
         flash_attention_f16=row_f16)
 
 
+# ---------------------------------------------------------------------------
+# the chunked / qchunk attention impls: phase serve_chunked (qwen3-1.7b at
+# 4 x 4096 and at 1 x 32768), lines serve_chunked_window (mixtral past
+# its window) and serve_chunked_encdec (whisper's padded encoder keys)
+# ---------------------------------------------------------------------------
+
+CHUNKED_IMPLS = (("chunked", 1024), ("qchunk", 2048))   # (impl, attn_chunk)
+# wall seconds of the phases and lines the chunked impls, the autotuner
+# and the SPMD replays added, by name (printed in line ``timing``)
+ADDED_S = {}
+LONG_BATCH, LONG_SEQ = 1, 32_768   # the reference's prefill_32k
+                                   # (configs/base.py:204), its batch of 32
+                                   # cut to 1 for one card
+LONG_LAYERS = 14                   # of 28: cut to keep the phases this
+                                   # slice adds near 150 s (at 28 the 32k
+                                   # runs take ~50 s of them)
+LONG_PROFILE_LAYERS = 2            # the first run and the idle share's
+                                   # profile: a cut of the stack
+
+
+class DepthCut:
+    """A ``ParamTree`` seen with only its first ``layers`` layers (every
+    other part shared): the same widths and weights at a cut depth."""
+
+    def __init__(self, params, layers: int):
+        self.params, self.layers = params, layers
+
+    def __getitem__(self, name):
+        part = self.params[name]
+        return part[:self.layers] if name == "layers" else part
+
+
+@contextlib.contextmanager
+def patched(module, name: str, make):
+    """Inside the block ``module.name`` is ``make(the real one)``: a
+    fault this script injects to show a gate refuses it."""
+    real = getattr(module, name)
+    setattr(module, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def forcing(**forced):
+    """``make`` for ``patched``: the real function with ``forced``
+    keyword arguments."""
+    def make(real):
+        return lambda *a, **kw: real(*a, **{**kw, **forced})
+    return make
+
+
+# a fault of each impl's masks, the attention function it patches
+IMPL_FAULTS = {
+    "no_causal_mask": ("_sdpa_chunked", forcing(causal=False)),
+    "window_mask_dropped": ("_sdpa_qchunk", forcing(window=None)),
+    "pad_keys_unmasked": ("_tile_valid", forcing(keys_padded=False)),
+}
+
+
+def last_logits_gap(path: str, logits, ref, cfg, batch: int) -> float:
+    """max|logits - ref| of two last-position prefills, the first's shape
+    and finiteness checked."""
+    if logits.shape != (batch, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"{path}: prefill logits {tuple(logits.shape)} are not finite "
+             f"last-position logits")
+    return float((logits - ref).abs().max())
+
+
+def impl_prefills(path: str, cfg, prefill, ref, batch: int,
+                  faults=()) -> dict:
+    """Each of CHUNKED_IMPLS through ``prefill(model)`` (-> logits, host
+    ms): no kernel launched, its last logits within FLASH_NAIVE_TOL of
+    ``ref``; a first run and a timed one, its peak; then each fault of
+    ``faults`` ((impl, fault) pairs) injected, whose logits must read
+    past FLASH_NAIVE_TOL."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, build_model
+    out = {}
+    for impl, chunk in CHUNKED_IMPLS:
+        model = build_model(cfg.with_(attn_impl=impl, attn_chunk=chunk))
+        reset_peak()
+        ops.reset_launch_counts()
+        logits, first_ms = prefill(model)
+        expect_counts(f"{path} ({impl})", ops.launch_counts(), {})
+        peak = torch.cuda.max_memory_allocated()
+        _, ms = prefill(model)
+        gap = last_logits_gap(path, logits, ref, cfg, batch)
+        if not gap < FLASH_NAIVE_TOL:
+            fail(f"{path}: the {impl} prefill's last logits differ from the "
+                 f"reference path's by {gap:.3e} (limit {FLASH_NAIVE_TOL})")
+        out[impl] = dict(chunk=chunk, first_ms=first_ms, ms=ms,
+                         peak_bytes=peak, max_abs_diff=gap)
+        del logits
+    for impl, fault in faults:
+        name, make = IMPL_FAULTS[fault]
+        model = build_model(cfg.with_(attn_impl=impl,
+                                      attn_chunk=dict(CHUNKED_IMPLS)[impl]))
+        with patched(attention, name, make):
+            logits, _ = prefill(model)
+        gap = float((logits - ref).abs().max())
+        if not gap > FLASH_NAIVE_TOL:
+            fail(f"{path}: the 2e-3 gate let a {impl} prefill with its "
+                 f"fault {fault} through ({gap:.3e})")
+        out[impl].setdefault("faulty_max_abs_diff", {})[fault] = gap
+        del logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_prefill_reckoning(cfg, weight_bytes: int) -> dict:
+    """Peak bytes reckoned for a LONG_BATCH x LONG_SEQ f32 prefill under
+    each impl: the weights, one layer's activations (the residual and its
+    norm, q, k, v and the attention output, the MLP's gate, up and
+    product), and the impl's own: flash's GQA-expanded K/V, the three
+    padded operands and B7's output; qchunk's two live (qc, T) score
+    tiles (the scaled scores and the masked or softmaxed ones); chunked's
+    four (1024, 1024) tiles and its running out. Naive's (S, S) scores
+    alone are printed as the reason it is not run."""
+    f, S = 4, LONG_BATCH * LONG_SEQ
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    base = weight_bytes + f * S * (2 * d + (nq + 2 * nkv) * hd + nq * hd
+                                   + 3 * ff)
+    head = f * S * nq * hd
+    return {
+        "flash": base + 6 * head,
+        "qchunk": base + 2 * f * LONG_BATCH * nq * 2048 * LONG_SEQ + head,
+        "chunked": base + 4 * f * LONG_BATCH * nq * 1024 * 1024 + 2 * head,
+        "naive_scores_bytes": f * LONG_BATCH * nq * LONG_SEQ * LONG_SEQ}
+
+
+def serve_long(cfg, params, weight_bytes: int, bw, errs) -> dict:
+    """LONG_BATCH x LONG_SEQ tokens (the reference's prefill_32k, batch
+    cut to 1) at LONG_LAYERS layers through flash (B7 once a layer at
+    (16, 32768, 128); layer 0's launch held to float64 on its first
+    head), qchunk and chunked. Each impl: a first run at a
+    LONG_PROFILE_LAYERS-layer cut (its first use of the length; flash's
+    B7 inputs captured there), then the timed run at LONG_LAYERS with
+    its peak beside ``long_prefill_reckoning`` (printed first), then the
+    device's idle share of the cut from the profiler; chunked's and
+    qchunk's last logits within FLASH_NAIVE_TOL of flash's."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    reckoned = long_prefill_reckoning(cfg, weight_bytes)
+    emit("serve_chunked_plan", batch=LONG_BATCH, seq=LONG_SEQ,
+         layers=LONG_LAYERS, reckoned_peak_bytes=reckoned,
+         naive=f"not run: its ({LONG_BATCH}, {cfg.num_heads}, {LONG_SEQ}, "
+               f"{LONG_SEQ}) f32 scores take "
+               f"{reckoned['naive_scores_bytes']} bytes a layer")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (LONG_BATCH, LONG_SEQ),
+                           generator=gen, device="cuda")
+    view = params if LONG_LAYERS == cfg.num_layers \
+        else DepthCut(params, LONG_LAYERS)
+    cut = DepthCut(params, LONG_PROFILE_LAYERS)
+    out, flash_logits = {}, None
+    for impl, chunk in (("flash", cfg.attn_chunk),) + CHUNKED_IMPLS:
+        model = build_model(cfg.with_(attn_impl=impl, attn_chunk=chunk))
+        with capture_inputs(names=("flash_attention",), keep=1) as inputs:
+            _, first_cut_ms = timed_prefill(model, cut, tokens)
+        reset_peak()
+        ops.reset_launch_counts()
+        logits, ms = timed_prefill(model, view, tokens)
+        launches = ops.launch_counts()
+        expect_counts(f"serve_chunked 32k ({impl})", launches,
+                      {"flash_attention": LONG_LAYERS} if impl == "flash"
+                      else {})
+        peak = torch.cuda.max_memory_allocated()
+        _, cut_ms = timed_prefill(model, cut, tokens)
+        profile = profile_calls(
+            f"serve_chunked_{impl}_32k", lambda: model.prefill(
+                cut, tokens, logits_mode="last"), cut_ms, 1, "prefill")
+        row = dict(chunk=chunk if impl != "flash" else None, ms=ms,
+                   peak_bytes=peak, reckoned_peak_bytes=reckoned[impl],
+                   launches=launches, cut_layers=LONG_PROFILE_LAYERS,
+                   cut_first_ms=first_cut_ms, cut_ms=cut_ms,
+                   profile=profile)
+        if impl == "flash":
+            flash_logits = logits
+            last_logits_gap("serve_chunked 32k", logits, logits, cfg,
+                            LONG_BATCH)
+            (case,) = inputs.pop("flash_attention")
+            one = tuple(t[:1].contiguous() if isinstance(t, torch.Tensor)
+                        else t for t in case)
+            del case
+            row["b7_head0_vs_f64"] = check("flash_attention", one, errs)
+            row["b7_shape"] = [cfg.num_heads * LONG_BATCH, LONG_SEQ, 128]
+            del one
+        else:
+            gap = last_logits_gap("serve_chunked 32k", logits, flash_logits,
+                                  cfg, LONG_BATCH)
+            if not gap < FLASH_NAIVE_TOL:
+                fail(f"serve_chunked: the 32k {impl} prefill's last logits "
+                     f"differ from flash's by {gap:.3e} (limit "
+                     f"{FLASH_NAIVE_TOL})")
+            row["max_abs_diff_vs_flash"] = gap
+        out[impl] = row
+        del logits, inputs
+        torch.cuda.empty_cache()
+    del flash_logits, tokens
+    return out
+
+
+def phase_serve_chunked(cfg, params, tokens, naive_logits,
+                        weight_bytes: int, bw, errs) -> None:
+    """Phase serve's 4 x 4096 prefill under ``chunked`` (chunk 1024) and
+    ``qchunk`` (2048), each held to the naive prefill's last logits at
+    2e-3, a chunked without its causal mask refused; then the 1 x 32768
+    prefill (``serve_long``)."""
+    t0 = time.perf_counter()
+    serve = impl_prefills(
+        "serve_chunked", cfg, lambda m: timed_prefill(m, params, tokens),
+        naive_logits, SERVE_BATCH, faults=(("chunked", "no_causal_mask"),))
+    long = serve_long(cfg, params, weight_bytes, bw, errs)
+    ADDED_S["serve_chunked"] = time.perf_counter() - t0
+    emit("serve_chunked", arch=cfg.name, batch=SERVE_BATCH, seq=SERVE_SEQ,
+         impls=serve, long=dict(batch=LONG_BATCH, seq=LONG_SEQ,
+                                layers=LONG_LAYERS, impls=long),
+         seconds=ADDED_S["serve_chunked"], card=smi_line())
+
+
 def phase_serve(bw: float, errs):
     """The dense model stack at qwen3-1.7b's full width with random
     weights: ``Model.prefill`` of SERVE_BATCH x SERVE_SEQ tokens on the
@@ -3326,7 +3709,11 @@ def phase_serve(bw: float, errs):
     if not flash_vs_naive < FLASH_NAIVE_TOL:
         fail(f"serve: flash and naive prefill logits differ by "
              f"{flash_vs_naive:.3e} (limit {FLASH_NAIVE_TOL})")
-    del flash_logits, naive_logits
+    del flash_logits
+    torch.cuda.empty_cache()
+    phase_serve_chunked(cfg, params, tokens, naive_logits, 4 * n_params,
+                        bw, errs)
+    del naive_logits
 
     # B7 on the path's own inputs: float64, faulty results, times
     (case,) = inputs["flash_attention"]
@@ -3791,6 +4178,7 @@ def serve_mixtral() -> dict:
     peak = torch.cuda.max_memory_allocated()
     prefill_ms = [timed_prefill(model, params, tokens)[1] for _ in range(2)]
     dropped = [dropped_share(e, cfg) for _, e in route]
+    replay = [e for _, e in route]
     del route
     if logits.shape != (MIXTRAL_BATCH, 1, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
@@ -3802,7 +4190,20 @@ def serve_mixtral() -> dict:
     if not window_effect > 0.0:
         fail("serve_mixtral: the prefill past the window equals the one "
              "without it")
-    del logits, unwindowed
+    del unwindowed
+    # line serve_chunked_window: the loop impls with the window, the
+    # naive prefill's routing replayed (a near-tie need not route alike)
+    t0 = time.perf_counter()
+    impls = impl_prefills(
+        "serve_chunked_window", cfg,
+        lambda m: timed_prefill(m, params, tokens, replay=replay), logits,
+        MIXTRAL_BATCH, faults=(("qchunk", "window_mask_dropped"),))
+    ADDED_S["serve_chunked_window"] = time.perf_counter() - t0
+    emit("serve_chunked_window", arch=cfg.name, layers=cfg.num_layers,
+         batch=MIXTRAL_BATCH, seq=MIXTRAL_SEQ, window=cfg.sliding_window,
+         impls=impls, window_effect_max_abs_diff=window_effect,
+         seconds=ADDED_S["serve_chunked_window"], card=smi_line())
+    del logits, replay
     torch.cuda.empty_cache()
     engine = Engine(model, params, max_len=SERVE_PROMPT + SERVE_NEW + 8)
     prompts = torch.randint(0, cfg.vocab_size,
@@ -4615,7 +5016,20 @@ def phase_serve_encdec(bw: float, errs) -> dict:
     # ROADMAP Queue C item 3: not gated, its size printed
     gap = float((flash_logits - naive_logits).abs().max())
     gap_rel = gap / float(naive_logits.abs().max())
-    del flash_logits, naive_logits
+    del flash_logits
+    # line serve_chunked_encdec: chunked masks the keys that pad the
+    # 1500 frames to 2048, so it computes naive's function
+    t0 = time.perf_counter()
+    impls = impl_prefills("serve_chunked_encdec", cfg, prefill, naive_logits,
+                          SERVE_REQUESTS,
+                          faults=(("chunked", "pad_keys_unmasked"),))
+    ADDED_S["serve_chunked_encdec"] = time.perf_counter() - t0
+    emit("serve_chunked_encdec", arch=cfg.name, frames=list(frames.shape),
+         batch=SERVE_REQUESTS, seq=ENC_DEC_SEQ, impls=impls,
+         flash_vs_naive_max_abs_diff=gap,
+         seconds=ADDED_S["serve_chunked_encdec"], card=smi_line())
+    del naive_logits
+    mark("chunked_prefills")
     torch.cuda.empty_cache()
 
     # every launch held to float64: the encoder's 24 first
@@ -5435,6 +5849,7 @@ def phase_logreg_bf16(bw: float, errs):
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -5460,6 +5875,7 @@ def main() -> int:
     wu_launches, wu_row = phase_worker_update(bw, errs)
     mm_launches, mm_designs, mm_rows = phase_matmul(bw, errs)
     main_launches, main_rows, z_main = phase_main(bw, errs)
+    phase_autotune(bw, z_main)
     phase_paper(bw, errs)
     spmd_launches, spmd_rows = phase_spmd(bw, errs, z_main)
     del z_main
@@ -5558,6 +5974,8 @@ def main() -> int:
                     launches=n, max_abs_err=errs[design_name], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    emit("timing", script_s=time.perf_counter() - start, added_s=ADDED_S,
+         added_total_s=sum(ADDED_S.values()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

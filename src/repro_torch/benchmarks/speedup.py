@@ -47,10 +47,14 @@ then a reduced Table 1.
   ``max_server_crash_rounds_ratio`` and replay parity of the crash
   trace.
 
-Each scenario replays its trace on one device. The reference also
-replays on an 8-device SPMD mesh when one process sees 8 devices; the
-port's SPMD epoch runs one process per rank, so its ``*_spmd`` lines
-say skipped (ROADMAP Queue A item 1).
+Each of churn, lossy and server_crash replays its trace on one device
+and on the SPMD epoch over a data 4 x model 2 mesh: the reference's
+8-device mesh is 8 gloo ranks here, one process each, which
+``spmd_replay.replay_spmd`` spawns once per scenario on the session's
+device (all on the one card, or on the CPU). Its ``*_replay_err_spmd``
+line is the reference's; ``*_replay_spmd_launches`` counts each rank's
+kernel launches (B1 and B3, once a round on the card; none on the CPU)
+and the spawn's wall seconds.
 
 The gates are virtual-time figures of the simulation (the reference's
 values, ``benchmarks/kernels_baseline.json``), so they hold for the
@@ -72,6 +76,7 @@ from ..data import make_sparse_logreg
 from ..device import DeviceLike
 from ..ps import (ConstantService, CostProfile, FaultPlan, LognormalService,
                   ParetoService, PSRuntime, Transport, measure_costs)
+from .spmd_replay import MESH_NAME, replay_spmd, trace_job
 
 K_ITERS = 320
 WORKERS = [1, 4, 8, 16, 32]
@@ -80,8 +85,10 @@ GATE_WORKERS = 8
 GATE_ROUNDS = 12
 BASELINE = pathlib.Path(__file__).parent / "ps_baseline.json"
 CHURN_DIM = M_BLOCKS * 16
-SPMD_SKIPPED = ("skipped,need 8 devices (the port's SPMD epoch runs one "
-                "process per rank; this benchmark is one process)")
+SPMD_TOL = 1e-5
+# the scenarios' session (build_session's arguments) and their rounds
+REPLAY_SESSION = {"num_workers": GATE_WORKERS, "dim": CHURN_DIM,
+                  "samples": 4}
 
 Emit = Callable[[str], None]
 
@@ -97,9 +104,10 @@ def loss_fn(z, d):
 
 def build_session(num_workers: int, dim: int = 2048, samples: int = 64,
                   seed: int = 0, *, block_selection: str = "random",
-                  zipf_a: float = 1.1, delay_model=None,
+                  zipf_a: float = 1.1, delay_model=None, mesh=None,
                   device: DeviceLike = None) -> ConsensusSession:
-    """The paper's sparse-logreg workload (eq. 22) on the session API."""
+    """The paper's sparse-logreg workload (eq. 22) on the session API
+    (SPMD over ``mesh`` when one is given)."""
     data = make_sparse_logreg(num_workers=num_workers,
                               samples_per_worker=samples, dim=dim,
                               density=0.1, seed=seed)
@@ -108,7 +116,7 @@ def build_session(num_workers: int, dim: int = 2048, samples: int = 64,
                      block_selection=block_selection, zipf_a=zipf_a)
     return ConsensusSession.flat(loss_fn, (data.X, data.y), dim=dim,
                                  cfg=cfg, delay_model=delay_model,
-                                 device=device)
+                                 mesh=mesh, device=device)
 
 
 def measured_costs(dim: int = 2048, samples: int = 64,
@@ -205,6 +213,66 @@ def _replay_max_err(res, sess: ConsensusSession) -> float:
     return err
 
 
+def spmd_replay_err(emit: Emit, prefix: str, res,
+                    device: DeviceLike = None) -> float:
+    """Replay ``res``'s trace on the 8-rank SPMD mesh (one spawn); emits
+    the reference's ``<prefix>_replay_err_spmd`` line and each rank's
+    launches. Returns the largest error over the ranks and rounds."""
+    out = replay_spmd({prefix: trace_job(res)}, REPLAY_SESSION,
+                      device=device if device is not None else "cuda")[prefix]
+    emit(f"{prefix}_replay_err_spmd,{out['err']:.2e},mesh={MESH_NAME}")
+    per_rank = out["launches_per_rank"]
+    names = sorted({k for r in per_rank for k in r})
+    emit(f"{prefix}_replay_spmd_launches,{out['rounds']},"
+         + "".join(f"{k}=" + "/".join(str(r.get(k, 0)) for r in per_rank)
+                   + "|" for k in names)
+         + f"spawn_s={out['spawn_seconds']:.1f}")
+    return out["err"]
+
+
+def churn_runs(smoke: bool = False, device: DeviceLike = None):
+    """The churn scenario's fault-free and chaos runs."""
+    R = 16 if smoke else 24
+    timing = CostProfile(t_worker=ConstantService(1.0),
+                         t_server_block=ConstantService(0.25))
+    plan = FaultPlan.churn(GATE_WORKERS, seed=0, crashes=2,
+                           window=(2.0, 8.0), down=(2.0, 5.0))
+    sess = build_session(device=device, **REPLAY_SESSION)
+    ff = sess.run_ps(R, discipline="per_push", timing=timing)
+    ch = sess.run_ps(R, discipline="per_push", timing=timing, faults=plan)
+    return ff, ch
+
+
+def lossy_runs(smoke: bool = False, device: DeviceLike = None):
+    """The lossy scenario's reliable and lossy runs."""
+    R = 16 if smoke else 24
+    tw, ts = ConstantService(1.0), ConstantService(0.25)
+    tr = Transport(0.0, 0.0, drop_rate=0.05, dup_rate=0.02,
+                   reorder_rate=0.1, ack_timeout=0.5)
+    sess = build_session(device=device, **REPLAY_SESSION)
+    rel = sess.run_ps(R, timing=CostProfile(t_worker=tw, t_server_block=ts))
+    lo = sess.run_ps(R, timing=CostProfile(t_worker=tw, t_server_block=ts,
+                                           net=tr))
+    return rel, lo
+
+
+def server_crash_runs(smoke: bool = False, device: DeviceLike = None):
+    """The server_crash scenario's crash-free and crash runtimes and
+    their runs."""
+    R = 16 if smoke else 24
+    timing = CostProfile(t_worker=ConstantService(1.0),
+                         t_server_block=ConstantService(0.25))
+    plan = FaultPlan.of(FaultPlan.server_crash(2, at=3.0, down=2.5),
+                        FaultPlan.server_crash(9, at=6.0, down=3.0))
+    sess = build_session(device=device, **REPLAY_SESSION)
+    rt_ff = PSRuntime(sess.spec, data=sess.data, timing=timing)
+    ff = rt_ff.run(R)
+    rt_cr = PSRuntime(sess.spec, data=sess.data, timing=timing,
+                      faults=plan)
+    cr = rt_cr.run(R)
+    return rt_ff, ff, rt_cr, cr
+
+
 def _rounds_gate(base, run, gate: str):
     """Rounds-to-tolerance of ``run`` against ``base`` (to the loss the
     base run reaches at 60% of its rounds): (base rounds, run rounds,
@@ -220,18 +288,11 @@ def _rounds_gate(base, run, gate: str):
 def churn_scenario(emit: Emit, smoke: bool = False,
                    device: DeviceLike = None) -> bool:
     """Crash+rejoin at 8 workers, per-push commits, REAL numerics:
-    deterministic plan, replay parity through the epoch, and a
-    rounds-to-tolerance gate — chaos must converge within
-    ``max_churn_rounds_ratio`` x the fault-free round count."""
-    R = 16 if smoke else 24
-    timing = CostProfile(t_worker=ConstantService(1.0),
-                         t_server_block=ConstantService(0.25))
-    plan = FaultPlan.churn(GATE_WORKERS, seed=0, crashes=2,
-                           window=(2.0, 8.0), down=(2.0, 5.0))
-    sess = build_session(GATE_WORKERS, dim=CHURN_DIM, samples=4,
-                         device=device)
-    ff = sess.run_ps(R, discipline="per_push", timing=timing)
-    ch = sess.run_ps(R, discipline="per_push", timing=timing, faults=plan)
+    deterministic plan, replay parity through the epoch (one device and
+    the 8-rank SPMD mesh), and a rounds-to-tolerance gate — chaos must
+    converge within ``max_churn_rounds_ratio`` x the fault-free round
+    count."""
+    ff, ch = churn_runs(smoke, device)
     r_ff, r_ch, ratio, max_ratio = _rounds_gate(
         ff, ch, "max_churn_rounds_ratio")
     emit(f"churn_faultfree_makespan,{ff.makespan*1e6:.0f},"
@@ -248,11 +309,10 @@ def churn_scenario(emit: Emit, smoke: bool = False,
     # replay parity: the chaos trace (staleness + participation) must
     # reproduce the runtime's z trajectory through the epoch
     err = _replay_max_err(ch, build_session(
-        GATE_WORKERS, dim=CHURN_DIM, samples=4,
-        delay_model=ch.to_delay_model(), device=device))
+        delay_model=ch.to_delay_model(), device=device, **REPLAY_SESSION))
     emit(f"churn_replay_err_1dev,{err:.2e},tol=1e-05")
-    emit(f"churn_replay_err_spmd,{SPMD_SKIPPED}")
-    ok = err <= 1e-5
+    spmd = spmd_replay_err(emit, "churn", ch, device)
+    ok = err <= 1e-5 and spmd <= SPMD_TOL
     if ratio > max_ratio:
         emit(f"churn_gate_FAILED,0,rounds ratio {ratio:.3f} > {max_ratio}")
     if not ok:
@@ -265,16 +325,9 @@ def lossy_scenario(emit: Emit, smoke: bool = False,
     """Unreliable transport at 8 workers, REAL numerics: 5% drop, 2%
     duplication, 10% reorder on every worker<->server link, with the
     ack/retry/backoff layer on. Gates rounds-to-tolerance lossy/reliable
-    vs ``max_lossy_rounds_ratio`` and replay parity of the lossy trace."""
-    R = 16 if smoke else 24
-    tw, ts = ConstantService(1.0), ConstantService(0.25)
-    tr = Transport(0.0, 0.0, drop_rate=0.05, dup_rate=0.02,
-                   reorder_rate=0.1, ack_timeout=0.5)
-    sess = build_session(GATE_WORKERS, dim=CHURN_DIM, samples=4,
-                         device=device)
-    rel = sess.run_ps(R, timing=CostProfile(t_worker=tw, t_server_block=ts))
-    lo = sess.run_ps(R, timing=CostProfile(t_worker=tw, t_server_block=ts,
-                                           net=tr))
+    vs ``max_lossy_rounds_ratio`` and replay parity of the lossy trace
+    (one device and the 8-rank SPMD mesh)."""
+    rel, lo = lossy_runs(smoke, device)
     r_rel, r_lo, ratio, max_ratio = _rounds_gate(
         rel, lo, "max_lossy_rounds_ratio")
     t = lo.metrics["transport"]
@@ -288,11 +341,10 @@ def lossy_scenario(emit: Emit, smoke: bool = False,
          f"|retransmits={t['retransmits']}|dups_dropped={t['dups_dropped']}"
          f"|timeout_fallbacks={t['timeout_fallbacks']}")
     err = _replay_max_err(lo, build_session(
-        GATE_WORKERS, dim=CHURN_DIM, samples=4,
-        delay_model=lo.to_delay_model(), device=device))
+        delay_model=lo.to_delay_model(), device=device, **REPLAY_SESSION))
     emit(f"lossy_replay_err_1dev,{err:.2e},tol=1e-05")
-    emit(f"lossy_replay_err_spmd,{SPMD_SKIPPED}")
-    ok = err <= 1e-5
+    spmd = spmd_replay_err(emit, "lossy", lo, device)
+    ok = err <= 1e-5 and spmd <= SPMD_TOL
     if ratio > max_ratio:
         emit(f"lossy_gate_FAILED,0,rounds ratio {ratio:.3f} > {max_ratio}")
     if not ok:
@@ -334,19 +386,9 @@ def server_crash_scenario(emit: Emit, smoke: bool = False,
       tolerance within ``max_server_crash_rounds_ratio`` x its rounds
       (recovery costs sim time, never committed progress);
     * **replay parity** — the crash run's trace replays through the
-      vectorized epoch within 1e-5 on one device."""
-    R = 16 if smoke else 24
-    timing = CostProfile(t_worker=ConstantService(1.0),
-                         t_server_block=ConstantService(0.25))
-    plan = FaultPlan.of(FaultPlan.server_crash(2, at=3.0, down=2.5),
-                        FaultPlan.server_crash(9, at=6.0, down=3.0))
-    sess = build_session(GATE_WORKERS, dim=CHURN_DIM, samples=4,
-                         device=device)
-    rt_ff = PSRuntime(sess.spec, data=sess.data, timing=timing)
-    ff = rt_ff.run(R)
-    rt_cr = PSRuntime(sess.spec, data=sess.data, timing=timing,
-                      faults=plan)
-    cr = rt_cr.run(R)
+      vectorized epoch within 1e-5 on one device and on the 8-rank SPMD
+      mesh."""
+    rt_ff, ff, rt_cr, cr = server_crash_runs(smoke, device)
 
     lost = lost_fold_rounds(rt_ff, rt_cr)
     # read the durability instruments straight off the run's metrics
@@ -369,11 +411,10 @@ def server_crash_scenario(emit: Emit, smoke: bool = False,
     emit(f"server_crash_rounds_ratio,{ratio:.3f},max={max_ratio}")
 
     err = _replay_max_err(cr, build_session(
-        GATE_WORKERS, dim=CHURN_DIM, samples=4,
-        delay_model=cr.to_delay_model(), device=device))
+        delay_model=cr.to_delay_model(), device=device, **REPLAY_SESSION))
     emit(f"server_crash_replay_err_1dev,{err:.2e},tol=1e-05")
-    emit(f"server_crash_replay_err_spmd,{SPMD_SKIPPED}")
-    ok = ok and err <= 1e-5
+    spmd = spmd_replay_err(emit, "server_crash", cr, device)
+    ok = ok and err <= 1e-5 and spmd <= SPMD_TOL
     if lost:
         emit(f"server_crash_gate_FAILED,0,{lost} rounds lost/extra folds "
              f"after WAL replay")

@@ -6,8 +6,8 @@ Field names and defaults are the reference's (``repro/configs/base.py``)
 so a config reads the same in both packages; ``ModelConfig.jnp_dtype``
 becomes ``torch_dtype``. ``backend`` names the port's backends; ``mesh``
 takes a mesh of ``torch.distributed`` ranks (``launch.mesh``) or a
-preset name; ``autotune`` is accepted but only its "off" value runs
-until its slice lands (see ``core.space.make_spec``).
+preset name; ``autotune`` picks where the fused epoch kernels' launches
+come from (``kernels.autotune``: off, cached, sweep).
 """
 from __future__ import annotations
 
@@ -188,7 +188,9 @@ class ADMMConfig:
     # SPMD mesh: None/"none" (one device), a launch.mesh.Mesh of
     # torch.distributed ranks, or a preset name ("test", "pod", "multipod")
     mesh: Any = None
-    # kernel tile autotuning: only "off" runs in the port so far
+    # B1 / B2 launch autotuning (kernels/autotune.py): off (the kernels'
+    # default launches) | cached (the tuned table) | sweep (measure, then
+    # cached)
     autotune: str = "off"
     seed: int = 0
 

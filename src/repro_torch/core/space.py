@@ -393,6 +393,17 @@ class _PackedOps:
     def _use_kernels(self) -> bool:
         return self.backend == "cuda"
 
+    def _launch(self, op: str, bundle):
+        """(threads, blocks per SM) of this kernel dispatch from the
+        autotuner's table ("cached" / "sweep" modes) for the bundle's
+        (N, M, d) on its card; None -> the kernel's default launch (a
+        miss, or autotune "off"). A host-side lookup: no device work."""
+        if getattr(self, "autotune", "off") == "off":
+            return None
+        from ..kernels.autotune import device_kind, lookup_tile
+        N, M, d = bundle.shape
+        return lookup_tile(op, N, M, d, dev=device_kind(bundle.device))
+
     # ---- representation -------------------------------------------------
     def to_user(self, z):
         return self.packer.from_blocks(z)
@@ -432,7 +443,8 @@ class _PackedOps:
         if self._use_kernels():
             out = kernel_ops.admm_worker_select_update(
                 g, y, z_tilde, w_cache, sel, rho_vec,
-                x if track_x else None)
+                x if track_x else None,
+                launch=self._launch("worker_select_update", g))
             return out if track_x else (out[0], out[1], x)
         x_new, y_new, w_new = self.worker_update(g, y, z_tilde, rho_vec)
         return (self.select(sel, y_new, y),
@@ -451,7 +463,8 @@ class _PackedOps:
         if self._use_kernels() and reg.fusable:
             return kernel_ops.server_prox_update(
                 z_cur, w_cache, edge, rho_sum, gamma, reg.l1_coef,
-                0.0 if reg.clip is None else reg.clip)
+                0.0 if reg.clip is None else reg.clip,
+                launch=self._launch("server_prox_fused", w_cache))
         w_sum = self.reduce_workers(w_cache, edge)
         return self.server_update(z_cur, w_sum, rho_sum, gamma, reg.prox)
 
@@ -492,6 +505,7 @@ class FlatSpace(_PackedOps):
     num_workers: int
     backend: str = "torch"
     mesh: Any = None
+    autotune: str = "off"                 # off | cached (after make_spec)
 
     def init_repr(self, z0, device):
         if z0 is None:
@@ -516,6 +530,7 @@ class TreeSpace(_PackedOps):
     backend: str = "torch"
     mesh: Any = None
     layout: Any = None                    # BlockLayout (required to run)
+    autotune: str = "off"                 # off | cached (after make_spec)
 
     @property
     def packer(self):
@@ -620,17 +635,19 @@ def make_spec(space, cfg, loss_fn, *, edge=None, rho_scale=None, reg=None,
     epoch (core/sharded.py) over it. A preset builds its mesh over the
     default process group, which must then be initialised.
 
-    ``autotune`` only takes its "off" value until the autotuner is
-    ported."""
+    ``autotune`` (off | cached | sweep) overrides ``cfg.autotune`` and
+    selects where B1's and B2's launches come from
+    (``kernels/autotune.py``): "off" their defaults, "cached" the tuned
+    table. "sweep" measures this spec's shapes here, once (on the
+    ``cuda`` backend: the epoch's (N, M, dblk) and under a mesh the
+    local shard's), keeps the winners, then dispatches like "cached"."""
+    from ..kernels.autotune import resolve_autotune, sweep_for_space
     from ..launch.mesh import resolve_mesh           # no cycle: mesh.py is leaf
     dev = resolve_device(device)
     resolved_mesh = resolve_mesh(
         mesh if mesh is not None else getattr(cfg, "mesh", None))
-    tune = autotune if autotune is not None else getattr(cfg, "autotune",
-                                                         "off")
-    if tune != "off":
-        raise NotImplementedError(
-            f"autotune={tune!r} is not ported yet: ROADMAP Queue A item 6")
+    tune = resolve_autotune(autotune if autotune is not None
+                            else getattr(cfg, "autotune", "off"))
     resolved = resolve_backend(
         backend if backend is not None else getattr(cfg, "backend", "auto"),
         dev)
@@ -640,6 +657,13 @@ def make_spec(space, cfg, loss_fn, *, edge=None, rho_scale=None, reg=None,
         from .sharded import validate_space_mesh
         space = dataclasses.replace(space, mesh=resolved_mesh)
         validate_space_mesh(space)
+    if tune == "sweep" and space._use_kernels():
+        sweep_for_space(space.num_workers, space.num_blocks,
+                        space.packer.block_dim, mesh=space.mesh, device=dev)
+    # the sweep runs once, here; dispatch reads the kept winners
+    tune = "cached" if tune == "sweep" else tune
+    if space.autotune != tune:
+        space = dataclasses.replace(space, autotune=tune)
     N, M = space.num_workers, space.num_blocks
     if edge is None:
         edge = torch.ones((N, M), dtype=torch.bool, device=dev)

@@ -26,7 +26,11 @@
 // stores only, and a row branch that skips the g and z~ reads where the
 // row is not selected. d % 128 == 0 keeps every warp inside one row, so
 // the branch never diverges within a warp. The kernel allocates nothing
-// and launches on the caller's stream.
+// and launches on the caller's stream. The launch (threads a block,
+// blocks an SM) is 256 and 8 by default, or what the autotuner
+// (kernels/autotune.py) picked for the shape on this card: each element
+// is one thread's, computed in one order, so every launch gives the same
+// bits.
 //
 // worker_update_kernel reads g, y, z~ and writes x, y', w: 6 buffers of
 // n elements, 24n bytes in f32 (3.88 GB for the (8, 64, 315,904) worker
@@ -153,15 +157,24 @@ __global__ void worker_update_kernel(
   }
 }
 
-// Enough blocks to fill every SM at full occupancy; the grid-stride loop
+// `per_sm` blocks on every SM (by default enough to fill every SM at full
+// occupancy), or fewer when `total` needs fewer; the grid-stride loop
 // covers the rest.
-int grid_blocks(int device, int64_t total, int threads) {
+int grid_blocks(int device, int64_t total, int threads, int per_sm = 0) {
   int sms = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (sms <= 0) sms = 1;
+  if (per_sm <= 0) per_sm = 2048 / threads;
   const int64_t need = (total + threads - 1) / threads;
-  const int64_t full = static_cast<int64_t>(sms) * (2048 / threads);
+  const int64_t full = static_cast<int64_t>(sms) * per_sm;
   return static_cast<int>(need < full ? need : full);
+}
+
+// The launches the autotuner may pick: threads a block in {128, 256, 512,
+// 1024}, at least one block an SM.
+bool valid_launch(int threads, int blocks_per_sm) {
+  return (threads == 128 || threads == 256 || threads == 512 ||
+          threads == 1024) && blocks_per_sm >= 1;
 }
 
 template <typename T>
@@ -187,21 +200,30 @@ int launch_worker_update(const void* g, const void* y, const void* z_tilde,
 
 }  // namespace
 
-// x_old and x_out are both null (no x tracked) or both non-null.
+// x_old and x_out are both null (no x tracked) or both non-null. The
+// launch is `threads` a block and `blocks_per_sm` blocks an SM (the
+// autotuner's choice), or with threads == 0 the default: 256 threads and
+// 2048 / 256 blocks an SM. Every launch computes each element in one
+// thread, in one order, so the outputs are the same bits for all of them.
 // Returns cudaGetLastError() after the launch; 0 means launched.
 extern "C" int admm_worker_select_update(
     const void* g, const void* y, const void* z_tilde, const void* w_old,
     const void* x_old, const void* sel, const void* rho, void* y_out,
     void* w_out, void* x_out, int64_t N, int64_t M, int64_t d,
-    int device, void* stream) {
+    int threads, int blocks_per_sm, int device, void* stream) {
+  if (threads != 0 && !valid_launch(threads, blocks_per_sm))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t d4 = d / 4;
   const int64_t total = N * M * d4;
   if (total == 0) return 0;
   int current = -1;
   cudaGetDevice(&current);
   if (current != device) cudaSetDevice(device);
-  const int threads = 256;
-  const int blocks = grid_blocks(device, total, threads);
+  if (threads == 0) {
+    threads = 256;
+    blocks_per_sm = 0;
+  }
+  const int blocks = grid_blocks(device, total, threads, blocks_per_sm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* gp = static_cast<const float4*>(g);
   const float4* yp = static_cast<const float4*>(y);
@@ -239,4 +261,20 @@ extern "C" int admm_worker_update(const void* g, const void* y,
                                                y_out, w_out, n, device,
                                                stream);
   return -1;
+}
+
+// The most blocks of `threads` an SM holds at once of the select update
+// (with or without x): the autotuner's largest candidate. 0 on an error.
+extern "C" int admm_worker_select_update_occupancy(int threads, int with_x,
+                                                   int device) {
+  int current = -1;
+  cudaGetDevice(&current);
+  if (current != device) cudaSetDevice(device);
+  int per_sm = 0;
+  const cudaError_t err =
+      with_x ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &per_sm, worker_select_update_kernel<true>, threads, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &per_sm, worker_select_update_kernel<false>, threads, 0);
+  return err == cudaSuccess ? per_sm : 0;
 }

@@ -42,7 +42,10 @@
 // any grid and any M: no atomics, no split over N. Rows off the edge set
 // are never read. The grid is what the card holds at once (the occupancy
 // API at kServerThreads a block, launch-bounded to 8 such blocks an SM),
-// or fewer blocks when the output needs fewer threads.
+// or fewer blocks when the output needs fewer threads; the autotuner
+// (kernels/autotune.py) may instead pick 128-1024 threads a block (one
+// instance of the kernel each) and the blocks an SM, which changes no
+// bit of the output.
 //
 // Numerics: no fast math; IEEE divisions, gamma*z rounded before the add
 // (no FMA contraction), and the soft threshold and clip written with
@@ -84,7 +87,10 @@ __device__ __forceinline__ uint64_t edge_bits(const uint8_t* __restrict__ e,
   return bits;
 }
 
-__global__ void __launch_bounds__(kServerThreads, 8)
+// kThreads a block; at 1024 / kThreads blocks an SM the bound leaves 64
+// registers a thread at every block size (kServerThreads: 128 and 8).
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 server_prox_kernel(const float4* __restrict__ z,
                    const float4* __restrict__ w_cache,
                    const uint8_t* __restrict__ edge,
@@ -166,31 +172,94 @@ int grid_blocks(int device, int64_t total, int threads, int per_sm) {
   return static_cast<int>(need < full ? need : full);
 }
 
+template <int kThreads>
+int occupancy() {
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, server_prox_kernel<kThreads>, kThreads, 0);
+  return per_sm;
+}
+
+// The most blocks of `threads` an SM holds at once; 0 for a block size
+// with no instance.
+int server_occupancy(int threads) {
+  switch (threads) {
+    case 128: return occupancy<128>();
+    case 256: return occupancy<256>();
+    case 512: return occupancy<512>();
+    case 1024: return occupancy<1024>();
+    default: return 0;
+  }
+}
+
+template <int kThreads>
+void launch_server(int blocks, cudaStream_t stream, const void* z,
+                   const void* w_cache, const void* edge,
+                   const void* rho_sum, void* z_out, int64_t N, int64_t M,
+                   int64_t d4, float gamma, float l1, float clip) {
+  server_prox_kernel<kThreads><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const float4*>(z), static_cast<const float4*>(w_cache),
+      static_cast<const uint8_t*>(edge), static_cast<const float*>(rho_sum),
+      static_cast<float4*>(z_out), N, M, d4, gamma, l1, clip);
+}
+
 }  // namespace
 
+// The launch is `threads` a block (128, 256, 512 or 1024) and
+// `blocks_per_sm` blocks an SM (the autotuner's choice), or with
+// threads == 0 the default: kServerThreads and the occupancy API's blocks
+// an SM. Each output element is summed by one thread over n = 0..N-1 in
+// order whatever the launch, so the result is the same bits for all.
 // Returns cudaGetLastError() after the launch; 0 means launched.
 extern "C" int server_prox_update(const void* z, const void* w_cache,
                                   const void* edge, const void* rho_sum,
                                   void* z_out, int64_t N, int64_t M,
                                   int64_t d, float gamma, float l1,
-                                  float clip, int device, void* stream) {
+                                  float clip, int threads, int blocks_per_sm,
+                                  int device, void* stream) {
+  if (threads != 0 && (blocks_per_sm < 1 || (threads != 128 &&
+                       threads != 256 && threads != 512 && threads != 1024)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t d4 = d / 4;
   const int64_t total = M * d4;
   if (total == 0) return 0;
   int current = -1;
   cudaGetDevice(&current);
   if (current != device) cudaSetDevice(device);
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, server_prox_kernel,
-                                                kServerThreads, 0);
-  server_prox_kernel<<<grid_blocks(device, total, kServerThreads,
-                                   per_sm > 0 ? per_sm : 1),
-                       kServerThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(z), static_cast<const float4*>(w_cache),
-      static_cast<const uint8_t*>(edge), static_cast<const float*>(rho_sum),
-      static_cast<float4*>(z_out), N, M, d4, gamma, l1, clip);
+  if (threads == 0) {
+    threads = kServerThreads;
+    const int per_sm = server_occupancy(threads);
+    blocks_per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  const int blocks = grid_blocks(device, total, threads, blocks_per_sm);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (threads) {
+    case 128:
+      launch_server<128>(blocks, s, z, w_cache, edge, rho_sum, z_out, N, M,
+                         d4, gamma, l1, clip);
+      break;
+    case 256:
+      launch_server<256>(blocks, s, z, w_cache, edge, rho_sum, z_out, N, M,
+                         d4, gamma, l1, clip);
+      break;
+    case 512:
+      launch_server<512>(blocks, s, z, w_cache, edge, rho_sum, z_out, N, M,
+                         d4, gamma, l1, clip);
+      break;
+    default:
+      launch_server<1024>(blocks, s, z, w_cache, edge, rho_sum, z_out, N, M,
+                          d4, gamma, l1, clip);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The most blocks of `threads` an SM holds at once of the fused server
+// kernel: the autotuner's largest candidate. 0 on an error.
+extern "C" int server_prox_update_occupancy(int threads, int device) {
+  int current = -1;
+  cudaGetDevice(&current);
+  if (current != device) cudaSetDevice(device);
+  return server_occupancy(threads);
 }
 
 // Returns cudaGetLastError() after the launch; 0 means launched.

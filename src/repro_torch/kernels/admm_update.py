@@ -47,7 +47,8 @@ def admm_worker_select_update_torch(g, y, z_tilde, w_old, sel, rho_vec,
 # argument types of each C entry point in csrc/admm_update.cu
 _ARGTYPES = {
     "admm_worker_select_update": [ctypes.c_void_p] * 10 + [
-        ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "admm_worker_select_update_occupancy": [ctypes.c_int] * 3,
     "admm_worker_update": [ctypes.c_void_p] * 7 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
@@ -75,11 +76,30 @@ def _check_bundle(name, t, shape, device):
                          f"with a 16-byte aligned base")
 
 
+def launch_args(launch) -> tuple:
+    """(threads, blocks per SM) of a launch the autotuner chose, or (0, 0):
+    the kernel's default launch."""
+    if launch is None:
+        return 0, 0
+    threads, per_sm = (int(v) for v in launch)
+    return threads, per_sm
+
+
+def admm_worker_select_update_occupancy(threads: int, with_x: bool,
+                                        device) -> int:
+    """The most blocks of ``threads`` an SM of ``device`` holds at once of
+    the select update (with or without x)."""
+    dev = torch.device(device)
+    return _function("admm_worker_select_update_occupancy")(
+        int(threads), int(bool(with_x)), dev.index or 0)
+
+
 def admm_worker_select_update_cuda(g, y, z_tilde, w_old, sel, rho_vec,
-                                   x_old=None):
+                                   x_old=None, launch=None):
     """The CUDA kernel. Same arguments and results as the plain version;
     every tensor on one CUDA device, d % 4 == 0 (the ops layer demands
-    d % 128 == 0)."""
+    d % 128 == 0). ``launch``: (threads, blocks per SM), or None for the
+    kernel's default; every launch gives the same bits."""
     dev = g.device
     if dev.type != "cuda":
         raise ValueError(f"admm_worker_select_update_cuda needs CUDA "
@@ -112,7 +132,7 @@ def admm_worker_select_update_cuda(g, y, z_tilde, w_old, sel, rho_vec,
                  sel_u8.data_ptr(), rho.data_ptr(), y_out.data_ptr(),
                  w_out.data_ptr(),
                  None if x_out is None else x_out.data_ptr(),
-                 N, M, d, dev.index, stream)
+                 N, M, d, *launch_args(launch), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"admm_worker_select_update kernel launch "
                            f"failed: cudaError {err}")

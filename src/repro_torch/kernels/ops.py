@@ -42,34 +42,37 @@ def _require_lane_aligned(d: int, op: str) -> None:
 
 
 def admm_worker_select_update(g, y, z_tilde, w_old, sel, rho_vec,
-                              x_old=None):
+                              x_old=None, launch=None):
     """Worker side of one epoch of Algorithm 1, fused: eqs. (11)+(12)+(9)
     plus the sel-masked merge of y / w_cache [/ x] in one pass.
 
     g, y, z_tilde, w_old [, x_old] : (N, M, dblk) with dblk lane-aligned;
     sel     : (N, M) bool — the selected (worker, block) pairs;
-    rho_vec : (N,) per-worker penalties.
+    rho_vec : (N,) per-worker penalties;
+    launch  : (threads, blocks per SM) of the kernel (an autotuner
+              winner), None for its default; the plain version has none.
 
     Returns (y', w'[, x'])."""
     _require_lane_aligned(g.shape[-1], "admm_worker_select_update")
     if g.is_cuda:
         return _admm.admm_worker_select_update_cuda(
-            g, y, z_tilde, w_old, sel, rho_vec, x_old)
+            g, y, z_tilde, w_old, sel, rho_vec, x_old, launch=launch)
     return _admm.admm_worker_select_update_torch(
         g, y, z_tilde, w_old, sel, rho_vec, x_old)
 
 
 def server_prox_update(z_cur, w_cache, edge, rho_sum, gamma: float,
-                       l1: float = 0.0, clip: float = 0.0):
+                       l1: float = 0.0, clip: float = 0.0, launch=None):
     """Server side of one epoch of Algorithm 1, fused: the edge-masked
     reduction of the stale-w cache over workers AND the prox step (13).
 
     z_cur: (M, d) lane-aligned; w_cache: (N, M, d); edge: (N, M) bool;
-    rho_sum: (M,) per-block penalty sums. Returns z_new (M, d)."""
+    rho_sum: (M,) per-block penalty sums; ``launch`` as in
+    ``admm_worker_select_update``. Returns z_new (M, d)."""
     _require_lane_aligned(z_cur.shape[-1], "server_prox_update")
     if z_cur.is_cuda:
         return _prox.server_prox_update_cuda(
-            z_cur, w_cache, edge, rho_sum, gamma, l1, clip)
+            z_cur, w_cache, edge, rho_sum, gamma, l1, clip, launch=launch)
     return _prox.server_prox_update_torch(
         z_cur, w_cache, edge, rho_sum, gamma, l1, clip)
 

@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from . import _build
-from .admm_update import _check_bundle
+from .admm_update import _check_bundle, launch_args
 
 launches = {"server_prox_update": 0, "prox_consensus": 0}
 _fns = {}
@@ -61,16 +61,28 @@ def prox_consensus_torch(z_tilde, w_sum, rho_sum, gamma: float,
     return prox_tail((gamma * z_tilde + w_sum) / mu, mu, l1, clip)
 
 
-def _function(name: str, n_pointers: int, n_sizes: int):
+def _function(name: str, n_pointers: int, n_sizes: int, n_launch: int = 0):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(_build.load("prox_update"), name)
         fn.argtypes = [ctypes.c_void_p] * n_pointers + [
             ctypes.c_int64] * n_sizes + [ctypes.c_float] * 3 + [
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int] * (n_launch + 1) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def server_prox_update_occupancy(threads: int, device) -> int:
+    """The most blocks of ``threads`` an SM of ``device`` holds at once of
+    the fused server kernel."""
+    fn = _fns.get("server_prox_update_occupancy")
+    if fn is None:
+        fn = _build.load("prox_update").server_prox_update_occupancy
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _fns["server_prox_update_occupancy"] = fn
+    return fn(int(threads), torch.device(device).index or 0)
 
 
 def _check_rho_sum(rho_sum, M: int, dev):
@@ -90,10 +102,11 @@ def _launch(name: str, fn, args, dev):
 
 
 def server_prox_update_cuda(z_cur, w_cache, edge, rho_sum, gamma: float,
-                            l1: float = 0.0, clip: float = 0.0):
+                            l1: float = 0.0, clip: float = 0.0, launch=None):
     """The fused CUDA kernel. Same arguments and result as the plain
     version; every tensor on one CUDA device, d % 4 == 0 (the ops layer
-    demands d % 128 == 0)."""
+    demands d % 128 == 0). ``launch``: (threads, blocks per SM), or None
+    for the kernel's default; every launch gives the same bits."""
     dev = z_cur.device
     if dev.type != "cuda":
         raise ValueError(f"server_prox_update_cuda needs CUDA tensors, "
@@ -110,10 +123,10 @@ def server_prox_update_cuda(z_cur, w_cache, edge, rho_sum, gamma: float,
     edge_u8 = edge.contiguous().view(torch.uint8)
     z_out = torch.empty_like(z_cur)
     _launch("server_prox_update",
-            _function("server_prox_update", 5, 3),
+            _function("server_prox_update", 5, 3, n_launch=2),
             (z_cur.data_ptr(), w_cache.data_ptr(), edge_u8.data_ptr(),
              rs.data_ptr(), z_out.data_ptr(), N, M, d, float(gamma),
-             float(l1), float(clip)), dev)
+             float(l1), float(clip), *launch_args(launch)), dev)
     return z_out
 
 

@@ -167,8 +167,9 @@ def parser() -> argparse.ArgumentParser:
                          "the data axes")
     ap.add_argument("--autotune", default="off",
                     choices=["off", "cached", "sweep"],
-                    help="kernel tile autotuning: only off runs in the "
-                         "port so far")
+                    help="B1 / B2 launch autotuning: off (default "
+                         "launches), cached (the tuned table), sweep "
+                         "(measure this run's shapes first)")
     ap.add_argument("--delay-model", default="uniform",
                     choices=DELAY_MODELS,
                     help="Assumption-3 staleness: uniform U{0..D}, "

@@ -4,12 +4,24 @@ Supports MHA / GQA (grouped KV heads), QKV bias (Qwen1.5 / ChatGLM),
 qk-norm (Qwen3 / Chameleon), partial RoPE (ChatGLM "2d"), a sliding
 window (Mixtral), cross-attention (Whisper's decoder) and MLA —
 Multi-head Latent Attention (MiniCPM3), with the *absorbed* decode that
-attends over the latent cache. GQA has two attention implementations:
-``naive`` (the (S, T) scores materialized, ``_sdpa``) and ``flash``
-(kernel B7 through ``ops.flash_attention``, ``_sdpa_flash``). The
-reference's ``chunked`` and ``qchunk`` implementations wait for their
-slice (ROADMAP Queue A item 11 step 6) and raise
-``NotImplementedError``. MLA and cross-attention materialize their
+attends over the latent cache. GQA has four attention implementations,
+the reference's (``cfg.attn_impl``):
+
+* ``naive`` — the (S, T) scores materialized (``_sdpa``);
+* ``flash`` — kernel B7 through ``ops.flash_attention``
+  (``_sdpa_flash``); no sliding window: with one, the naive path runs,
+  as in the reference;
+* ``chunked`` — the online softmax over (query, key) tiles of
+  ``cfg.attn_chunk`` with running f32 (max, sum, out) (``_sdpa_chunked``):
+  O(S * chunk) memory;
+* ``qchunk`` — query tiles against every key, a full softmax a tile
+  (``_sdpa_qchunk``): O(chunk * T) memory.
+
+``chunked`` and ``qchunk`` are plain torch, as the reference computes
+them in ``jnp`` outside any kernel: a Python loop over the tiles, where
+the reference scans them, with no in-place update of a carry or a tile,
+so that ``Model.loss`` differentiates through them under
+``torch.func.vmap(grad)``. MLA and cross-attention materialize their
 scores whatever ``attn_impl`` says, as the reference's do: they reach
 no kernel.
 
@@ -28,6 +40,7 @@ and the one shared rope head ``k_rope``.
 
 Each scaling is the reference's: ``_sdpa`` divides the scores by
 sqrt(hd); the flash path multiplies by 1/sqrt(hd) of the unpadded hd;
+``chunked`` and ``qchunk`` multiply by 1/sqrt(hd) rounded to float32;
 MLA multiplies by 1/sqrt(qk_nope + qk_rope) rounded to float32.
 """
 from __future__ import annotations
@@ -40,7 +53,8 @@ import torch
 from ..kernels import ops
 from .layers import apply_rope, causal_mask, dense_init, rmsnorm
 
-NOT_PORTED = "ROADMAP Queue A item 11 step 6"
+# the fill of a masked score, the reference's
+MASKED = -1e30
 
 
 # --------------------------------------------------------------------------
@@ -120,7 +134,7 @@ def _sdpa(q, k, v, mask, nq, nkv):
     scores = torch.einsum("bsngh,btnh->bngst", q, k).float()
     scores = scores / math.sqrt(hd)
     if mask is not None:
-        scores = torch.where(mask[None, None, None, :, :], scores, -1e30)
+        scores = torch.where(mask[None, None, None, :, :], scores, MASKED)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bngst,btnh->bsngh", probs, v)
     return out.reshape(B, S, nq * hd)
@@ -153,23 +167,145 @@ def _sdpa_flash(q, k, v, nq, nkv, *, causal=True):
     return out.transpose(1, 2).reshape(B, S, nq * hd)
 
 
+def _f32_scale(dim: int) -> float:
+    """1/sqrt(dim), each step in float32, as the reference's
+    ``1.0 / jnp.sqrt(dim).astype(jnp.float32)``."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dim)))
+
+
+def _tile_valid(q_pos, k_pos, T, causal, window, *, keys_padded):
+    """(qc, kc) bool: which keys of a tile a query row may see. Keys at
+    or past ``T`` are padding when ``keys_padded``."""
+    valid = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                       device=q_pos.device)
+    if keys_padded:
+        valid = valid & (k_pos[None, :] < T)
+    if causal:
+        valid = valid & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
+    return valid
+
+
+def _pad_seq(t, pad: int):
+    """``t`` (B, S, ...) with ``pad`` zero rows after S."""
+    if not pad:
+        return t
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+
+def _sdpa_chunked(q, k, v, nq, nkv, *, causal=True, window=None,
+                  chunk=1024):
+    """Online-softmax attention over (query, key) tiles of ``chunk``:
+    O(S * chunk) memory instead of O(S^2). q: (B, S, nq, hd); k, v: (B,
+    T, nkv, hd). Port of the reference's ``_sdpa_chunked``: S and T are
+    padded to whole tiles; a padded key (position >= T) is masked, so it
+    takes no part in the softmax; the running (max, sum, out) are f32,
+    the max starting at -inf and a masked score at -1e30; the
+    probabilities are rounded to v's dtype before the value product,
+    which runs in f32; the output is cast to q's dtype."""
+    B, S, _, hd = q.shape
+    T = k.shape[1]
+    group = nq // nkv
+    qc, kc = min(chunk, S), min(chunk, T)
+    pad_q, pad_k = (-S) % qc, (-T) % kc
+    q, k, v = _pad_seq(q, pad_q), _pad_seq(k, pad_k), _pad_seq(v, pad_k)
+    nQ, nK = (S + pad_q) // qc, (T + pad_k) // kc
+    qb = q.reshape(B, nQ, qc, nkv, group, hd)
+    kb = k.reshape(B, nK, kc, nkv, hd)
+    vb = v.reshape(B, nK, kc, nkv, hd)
+    scale = _f32_scale(hd)
+    dev = q.device
+    outs = []
+    for qi in range(nQ):
+        qt = qb[:, qi]                               # (B, qc, nkv, g, hd)
+        q_pos = qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, nkv, group, qc), -math.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, nkv, group, qc), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, nkv, group, qc, hd), dtype=torch.float32,
+                        device=dev)
+        for ki in range(nK):
+            kt, vt = kb[:, ki], vb[:, ki]            # (B, kc, nkv, hd)
+            k_pos = ki * kc + torch.arange(kc, device=dev)
+            s = torch.einsum("bqngh,bknh->bngqk", qt, kt).float() * scale
+            valid = _tile_valid(q_pos, k_pos, T, causal, window,
+                                keys_padded=True)
+            s = torch.where(valid, s, MASKED)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum(
+                "bngqk,bknh->bngqh", p.to(vt.dtype).float(), vt.float())
+            m = m_new
+        outs.append(o / torch.clamp_min(l[..., None], 1e-30))
+    out = torch.stack(outs, dim=3)                   # (B,nkv,g,nQ,qc,hd)
+    out = out.permute(0, 3, 4, 1, 2, 5).reshape(B, nQ * qc, nq * hd)
+    return out[:, :S].to(q.dtype)
+
+
+def _sdpa_qchunk(q, k, v, nq, nkv, *, causal=True, window=None,
+                 chunk=2048):
+    """Query-tiled attention: each tile of ``chunk`` queries against all
+    T keys, a full softmax a tile, so the only large transient is one
+    (chunk, T) score tile. Port of the reference's ``_sdpa_qchunk``: S
+    is padded to whole tiles (the keys never are); a masked score is
+    -1e30; the probabilities are cast to v's dtype and the value product
+    runs in it."""
+    B, S, _, hd = q.shape
+    T = k.shape[1]
+    group = nq // nkv
+    qc = min(chunk, S)
+    pad_q = (-S) % qc
+    q = _pad_seq(q, pad_q)
+    nQ = (S + pad_q) // qc
+    qb = q.reshape(B, nQ, qc, nkv, group, hd)
+    scale = _f32_scale(hd)
+    k_pos = torch.arange(T, device=q.device)
+    outs = []
+    for qi in range(nQ):
+        q_pos = qi * qc + torch.arange(qc, device=q.device)
+        valid = _tile_valid(q_pos, k_pos, T, causal, window,
+                            keys_padded=False)
+        o = _qchunk_tile(qb[:, qi], k, v, valid, scale)
+        outs.append(o.reshape(B, qc, nq * hd))
+    return torch.cat(outs, dim=1)[:, :S]
+
+
+def _qchunk_tile(qt, k, v, valid, scale: float):
+    """One query tile's attention over every key. Its (qc, T) score
+    tiles die here, before the next tile's are made: at most two live
+    at once (each is chunk x T x heads f32, 4.29 GB at 2048 x 32768 x
+    16)."""
+    s = torch.einsum("bqngh,bknh->bngqk", qt, k).float() * scale
+    s = torch.where(valid, s, MASKED)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    del s
+    return torch.einsum("bngqk,bknh->bqngh", p, v)
+
+
 def gqa_forward(params, x, cfg, positions, *, window=None, causal=True):
-    """Self-attention over the sequence; ``causal=False`` (the enc-dec
-    encoder) masks nothing, and ignores ``window`` as the reference
-    does."""
-    if cfg.attn_impl in ("chunked", "qchunk"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet ({NOT_PORTED}); "
-            f"the port has 'naive' and 'flash'")
+    """Self-attention over the sequence, through ``cfg.attn_impl`` as the
+    reference dispatches it: ``flash`` where there is no window, else
+    ``qchunk``, ``chunked``, or the naive path. ``causal=False`` (the
+    enc-dec encoder) masks nothing on the naive path and ignores
+    ``window`` there, as the reference does."""
     q, k, v = _project_qkv(params, x, cfg, positions)
     S = x.shape[1]
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
     if cfg.attn_impl == "flash" and window is None:
-        out = _sdpa_flash(q, k, v, cfg.num_heads, cfg.num_kv_heads,
-                          causal=causal)
+        out = _sdpa_flash(q, k, v, nq, nkv, causal=causal)
+    elif cfg.attn_impl == "qchunk":
+        out = _sdpa_qchunk(q, k, v, nq, nkv, causal=causal, window=window,
+                           chunk=cfg.attn_chunk)
+    elif cfg.attn_impl == "chunked":
+        out = _sdpa_chunked(q, k, v, nq, nkv, causal=causal, window=window,
+                            chunk=cfg.attn_chunk)
     else:
         mask = causal_mask(S, S, 0, window, device=x.device) if causal \
             else None
-        out = _sdpa(q, k, v, mask, cfg.num_heads, cfg.num_kv_heads)
+        out = _sdpa(q, k, v, mask, nq, nkv)
     return out @ params["w_o"]
 
 

@@ -731,3 +731,43 @@ def test_pytree_session_on_the_card_launches_b1_b2_per_epoch(gen, dtype):
         else:        # z~ rounds to bf16 for the loss: a 1e-8 gap can flip
             torch.testing.assert_close(zk, zp, rtol=4e-2, atol=4e-2)
     assert all(x.dtype == dtype for x in tree_leaves(runs["cuda"][2]))
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 256), (8, 64, 4096), (70, 3, 128)])
+def test_every_autotune_launch_is_bitwise_the_default(gen, shape):
+    """B1 (with and without x) and B2 at every launch the autotuner may
+    pick, NaN and Inf among the inputs and half the rows selected: each
+    output bitwise the default launch's; a launch the kernels do not
+    take is refused."""
+    from repro_torch.kernels import autotune
+    N, M, d = shape
+    for with_x in (False, True):
+        case = _worker_case(gen, N, M, d, with_x, nan=True)
+        base = admm_update.admm_worker_select_update_cuda(*case)
+        launches = autotune.launch_candidates("worker_select_update", N, M,
+                                              d, "cuda")
+        occ = admm_update.admm_worker_select_update_occupancy(1024, with_x,
+                                                              "cuda")
+        assert occ >= 1 and (1024, min(occ, 2)) in launches
+        for launch in launches:
+            out = admm_update.admm_worker_select_update_cuda(*case, launch)
+            assert autotune.same_bits(out, base), launch
+    z = torch.randn((M, d), generator=gen, device="cuda")
+    w = torch.randn((N, M, d), generator=gen, device="cuda")
+    edge = torch.rand((N, M), generator=gen, device="cuda") < 0.6
+    w[0, 0, :3] = float("nan")
+    w[-1, -1, 4] = float("inf")
+    edge[0, 0] = edge[-1, -1] = True
+    rho_sum = 1.0 + edge.sum(0).float()
+    base = prox_update.server_prox_update_cuda(z, w, edge, rho_sum, 0.1,
+                                               1e-3, 0.8)
+    for launch in autotune.launch_candidates("server_prox_fused", N, M, d,
+                                             "cuda"):
+        out = prox_update.server_prox_update_cuda(z, w, edge, rho_sum, 0.1,
+                                                  1e-3, 0.8, launch)
+        assert autotune.same_bits((out,), (base,)), launch
+    with pytest.raises(RuntimeError, match="launch failed"):
+        prox_update.server_prox_update_cuda(z, w, edge, rho_sum, 0.1, 1e-3,
+                                            0.8, (96, 1))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        admm_update.admm_worker_select_update_cuda(*case, (256, 0))

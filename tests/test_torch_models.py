@@ -321,13 +321,16 @@ def test_cache_specs_match_reference(arch, max_len):
 
 
 def test_other_families_and_impls_name_the_roadmap_item():
-    """The impls still missing, ``chunked`` / ``qchunk`` (on a dense, a
-    MoE, the hybrid and the enc-dec arch), name ROADMAP Queue A item 11
-    step 6; MLA takes no attention impl (the reference's ``mla_forward``
-    reads none), so under them it computes the naive logits. SSM,
-    hybrid, MLA and enc-dec configs made from a dense one build and
-    run, enc-dec with its frames (and not without them); frames given to
-    an arch with no encoder are refused."""
+    """Every attention impl runs on every arch that reaches
+    ``gqa_forward``: ``chunked`` / ``qchunk`` on a dense, a MoE, the
+    hybrid and the enc-dec arch (which ROADMAP Queue A item 11 step 6
+    once left raising) give the naive path's logits within the parity
+    tolerance (``test_torch_attention_impls.py`` holds them to the
+    reference's); MLA takes no attention impl (the reference's
+    ``mla_forward`` reads none), so under them it computes the naive
+    logits bitwise. SSM, hybrid, MLA and enc-dec configs made from a
+    dense one build and run, enc-dec with its frames (and not without
+    them); frames given to an arch with no encoder are refused."""
     tok = torch.zeros((1, 8), dtype=torch.int64)
     frames = torch.zeros((1, 16, 128))
     cfg = get_smoke("minicpm3-4b")
@@ -341,11 +344,11 @@ def test_other_families_and_impls_name_the_roadmap_item():
         cfg = get_smoke(arch)
         params = build_model(cfg).init(0, "cpu")
         enc = frames if cfg.is_enc_dec else None
+        naive = build_model(cfg).prefill(params, tok, enc_frames=enc)
         for impl in ("chunked", "qchunk"):
-            with pytest.raises(NotImplementedError,
-                               match="Queue A item 11 step 6"):
-                build_model(cfg.with_(attn_impl=impl)).prefill(
-                    params, tok, enc_frames=enc)
+            out = build_model(cfg.with_(attn_impl=impl, attn_chunk=4)
+                              ).prefill(params, tok, enc_frames=enc)
+            _close(out.numpy(), naive.numpy())
     cfg = get_smoke("qwen3-1.7b")
     mla = cfg.with_(mla=MLAConfig(32, 32, 16, 16, 16))
     ssm = cfg.with_(arch_type="ssm", ssm=SSMConfig(16))

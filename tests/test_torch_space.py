@@ -245,8 +245,12 @@ def test_resolve_backend_and_unported_options():
     with pytest.raises(ValueError, match="unknown mesh"):
         tmesh.resolve_mesh("ring")
     assert tmesh.resolve_mesh(None) is None
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        prob.spec(dataclasses.replace(ADMMConfig(**CFG), autotune="cached"))
+    for mode in ("cached", "sweep"):     # the CPU: no kernel, no sweep
+        spec = prob.spec(dataclasses.replace(ADMMConfig(**CFG),
+                                             autotune=mode))
+        assert spec.space.autotune == "cached"
+    with pytest.raises(ValueError, match="unknown autotune mode"):
+        prob.spec(dataclasses.replace(ADMMConfig(**CFG), autotune="tiles"))
     with pytest.raises(ValueError, match="cuda"):
         prob.spec(ADMMConfig(**CFG), backend="cuda")
 
