@@ -96,8 +96,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    locked/lockfree gate at 8 workers and the skew, heavy_tail, churn,
    lossy and server_crash scenarios with their gates
    (``ps_baseline.json``); churn's, lossy's and server_crash's traces
-   also replayed through the SPMD epoch on 8 gloo ranks spawned on the
-   card (data 4 x model 2; ``benchmarks/spmd_replay.py``), each within
+   also replayed through the SPMD epoch on 8 gloo ranks spawned once
+   on the card for all three (data 4 x model 2;
+   ``benchmarks/spmd_replay.py``), each within
    1e-5 of the runtime's z at every round, B1 and B3 once a round on
    every rank (``ps_spmd_replays``);
    ps_durable — the runtime's durability layer at the same width,
@@ -137,7 +138,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    train   — ``ADMMTrainer`` on the same stacked tree (6 layers, N = 2,
    M = 2 by LPT, launch/train.py's defaults: rho 20, gamma 0.01, D 1,
    block fraction 1) training ``Model.loss`` on ``TokenPipeline``
-   batches of 2 x 512 tokens a worker: 5 steps on the kernels, then 5 on
+   batches of 2 x 512 tokens a worker: 3 steps on the kernels, then 3 on
    the plain backend from the same state. Gates: step 0's loss equals
    ``Model.loss`` at z0 (1e-6 relative); z of the two backends after
    every step within KERNEL_TOL; losses and z finite, pads exactly 0;
@@ -160,7 +161,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    its widths (d_model 1024, 32 experts top-8 of ff 512, vocab 49,155),
    8 of 24 layers (528,768,000 f32 parameters, seed 0), the reference's
    onehot dispatch, N = 2, M = 2 by LPT, launch/train.py's defaults,
-   2 x 512 tokens a worker: 5 steps on the kernels, before each the
+   2 x 512 tokens a worker: 3 steps on the kernels, before each the
    plain backend's step from the same state (routing follows z, so two
    free-running trajectories part at a token's first flip). Gates: z of
    the two within KERNEL_TOL every step; step 0's loss equals
@@ -177,7 +178,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    most layers under it, the cut printed in line ``train_ssm_plan``
    with the reckoning), N = 2,
    M = 2 by LPT, launch/train.py's defaults, 2 x 512 tokens a worker:
-   5 steps on the kernels, before each the plain step from the same
+   3 steps on the kernels, before each the plain step from the same
    state. Gates: z within KERNEL_TOL every step; step 0's loss equals
    ``Model.loss`` at z0; the gradient at z0 finite; B1 and B2 once a
    step and held on one more step's inputs; pads 0; losses and z
@@ -195,6 +196,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the three run on expandable segments (``expandable_segments``), and
    cyclic garbage and cached blocks are released before the profiled
    and the captured step, whose peaks are printed beside the loop's;
+   train_remat — ``remat=True`` (each layer recomputed in the backward):
+   ``train``'s cell, 3 kernel steps with remat off, then 3 with it on
+   from the same state: z within KERNEL_TOL (1 + max) every step (and
+   whether bitwise), losses 1e-6 relative, B1 and B2 once a step, step
+   ms and peaks of both; mamba2-370m at all 48 layers with remat (its
+   peak and step ms beside ``train_ssm``'s); line
+   ``train_remat_depths``: the depth of the cut cells (train_moe,
+   train_mla, train_encdec, and qwen3-1.7b's 28 layers) reckoned by
+   ``train_depth_plan`` with remat beside without, not run;
+   train_mesh — ``ADMMTrainer.train_step`` under data 4 x model 2 on 8
+   gloo ranks on the card (the mesh splits the block table; the ranks
+   run in phase ``ps``'s one spawn, after the replays):
+   qwen3-1.7b's layer widths at 2 layers, N = 8, M = 4, 2 x 128 tokens
+   a worker, 3 steps, the vocabulary cut when the ranks' reckoning
+   passes MESH_PEAK_LIMIT (line ``train_mesh_plan``); each rank's z
+   tile within 1e-5 of the single-device step run first from the same
+   state and draws, B1 and B3 once a step on every rank, B2 never; the
+   shared spawn's seconds and each rank's peak;
 8. serve   — the dense model stack at qwen3-1.7b's full width (28
    layers, d_model 2048, 16 / 8 heads of 128, vocab 151,936, fp32,
    random weights from a seed): ``Model.prefill`` of 4 x 4096 tokens on
@@ -222,7 +241,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    kernel launched, each one's last logits within 2e-3 of the naive
    prefill's, a chunked with its causal mask dropped shown to read past
    that; then 1 x 32768 tokens (the reference's prefill_32k, its batch
-   cut to 1) at 14 of the 28 layers through flash (B7 once a layer at
+   cut to 1) at 4 of the 28 layers through flash (B7 once a layer at
    (16, 32768, 128), layer 0's held to float64 on its first head),
    qchunk and chunked (naive's 68.7 GB scores a layer are printed as
    the reason it is not run): each one's first run at a 2-layer cut,
@@ -271,8 +290,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    2e-3; ``Engine.generate`` (B7 never in decode); decode vs prefill
    within 5e-4; the SSM layers' decode state the same at max_len 64 and
    4096;
-   serve_mla — minicpm3-4b in full (62 layers, d_model 2560, 40 heads,
-   q rank 768, kv rank 256; f32, seed 0): the 4 x 4096 prefill (its
+   serve_mla — minicpm3-4b at its full width, 31 of its 62 layers
+   (d_model 2560, 40 heads, q rank 768, kv rank 256; f32, seed 0; the
+   depth cut to keep the script well inside its time limit): the
+   4 x 4096 prefill (its
    (4, 40, 4096, 4096) scores materialized, as the reference's MLA does
    under every attn_impl: no kernel), its peak beside the reckoning,
    profiled; under ``attn_impl="flash"`` no launch and logits bitwise
@@ -313,6 +334,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    in row chunks), each pass's gate refusing zeros, a sixteenth of K
    dropped and 3-bit inputs; timed beside ``torch.matmul`` on the bf16
    operands and bf16 autograd; B6 as in ``logreg``;
+   cost    — before phase 9, the cost counter (``repro_torch.analysis``)
+   on the meta device: ``main``'s epoch at kdda_like, the SPMD shard
+   (``per_shard_cost_program``, 1 x 1 mesh), ``train``'s step with remat
+   off and on and ``serve``'s 4 x 4096 f32 flash prefill, each one's
+   FLOPs, HBM bytes, roofline bound and bottleneck beside the ms its
+   phase measured; gates: B1's, B2's, B3's and B7's counted bytes a call
+   within 1 % of PERF.md section 6, the remat step one forward of the
+   layers (within 5 %) over the plain one, its useful-FLOP ratio lower.
+   Phase ``serve_chunked`` also times ``scaled_dot_product_attention``
+   (memory-efficient backend) on B7's (16, 32768, 128) inputs;
 10. a ``kernels`` summary line (B5's designs each on a line of their
    own after B5's; B2 on the PS runtime's commit, B6 in bf16, B7 on
    zamba2's prefill and on whisper's encoder and decoder, and B1 and
@@ -397,8 +428,15 @@ HALF_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
 SERVE_BF16_RATIO = 2.0
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the script's seconds so far, so the
+    difference of two lines is the time between them."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -441,6 +479,20 @@ def time_ms(fn, reps: int = REPS, windows: int = WINDOWS,
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+SLOW_WINDOW_MS = 100.0         # a window of a slow plain or library call
+
+
+def time_ms_within(fn, reps: int = REPS, windows: int = WINDOWS) -> float:
+    """``time_ms``, but a call slow enough that ``reps`` of them pass
+    SLOW_WINDOW_MS is timed in 3 windows of as many calls as fit in it
+    (at least one): the plain versions at a train step's shapes take
+    10-50 ms a call, and 100 of them added seconds a path."""
+    one = time_ms(fn, 1, 1, warmup=1)
+    if one * reps <= SLOW_WINDOW_MS:
+        return time_ms(fn, reps, windows)
+    return time_ms(fn, max(1, int(SLOW_WINDOW_MS / one)), 3, warmup=0)
 
 
 def reset_peak() -> None:
@@ -1305,11 +1357,11 @@ def measure(name: str, case, bw: float, errs, reps: int = REPS,
     mod = kernel_module(name)
     kernel, plain = getattr(mod, f"{name}_cuda"), getattr(mod, PLAIN[name])
     ms = time_ms(lambda: kernel(*case), reps, windows)
-    plain_ms = time_ms(lambda: plain(*case), reps, windows)
+    plain_ms = time_ms_within(lambda: plain(*case), reps, windows)
     library_ms, extra = None, {}
     if name in LIBRARY:
         call = LIBRARY[name]
-        library_ms = time_ms(lambda: call(*case), reps, windows)
+        library_ms = time_ms_within(lambda: call(*case), reps, windows)
         extra["library_max_abs_diff_vs_plain"] = float(
             (call(*case).float() - plain(*case).float()).abs().max())
     bytes_, flops = COUNTS[name](case)
@@ -1394,13 +1446,17 @@ def run_epochs(sess, epochs):
     return state, times
 
 
+def kdda_config():
+    from repro_torch.configs.base import ADMMConfig
+    return ADMMConfig(rho=2.0, gamma=0.1, max_delay=1, block_fraction=0.5,
+                      num_blocks=KDDA_BLOCKS, l1_coef=1e-3, clip=1.0, seed=0)
+
+
 def kdda_problem(workers=KDDA_WORKERS, dim=KDDA_DIM):
     """The kdda_like config and its centers, from seed 0."""
-    from repro_torch.configs.base import ADMMConfig
-    cfg = ADMMConfig(rho=2.0, gamma=0.1, max_delay=1, block_fraction=0.5,
-                     num_blocks=KDDA_BLOCKS, l1_coef=1e-3, clip=1.0, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return cfg, torch.randn((workers, dim), generator=gen, device="cuda")
+    return kdda_config(), torch.randn((workers, dim), generator=gen,
+                                      device="cuda")
 
 
 def expect_counts(path: str, launches, want) -> None:
@@ -1442,6 +1498,7 @@ def phase_main(bw: float, errs):
             not bool(torch.isfinite(z_kernel).all()):
         fail("main path z is not a finite vector of the problem's dim")
     epoch_ms = statistics.median(times[1:])
+    PHASE_MS["main"] = epoch_ms
     profile = profile_epochs("main", sess, state, epoch_ms)
     with capture_inputs() as inputs:      # one more epoch, from epoch 10's state
         sess.step(state)
@@ -1498,6 +1555,20 @@ AUTOTUNE_PATH_BOUND_MS = {
     ("server_prox_fused", (2, 2, 311_164_928)): 2.972}
 
 
+def autotune_plain_ms(op: str, shape) -> float:
+    """ms of ``op``'s plain version on the sweep's inputs at ``shape``
+    (the plain column of PERF.md's tuned rows)."""
+    from repro_torch.kernels import admm_update, autotune, prox_update
+    args = autotune.op_inputs(op, *shape, "cuda")
+    plain = (admm_update.admm_worker_select_update_torch
+             if op == "worker_select_update"
+             else prox_update.server_prox_update_torch)
+    ms = time_ms(lambda: plain(*args), 2, 3, 1)
+    del args
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_autotune(bw: float, z_main) -> None:
     """Both ops swept at both benchmark shapes (``autotune.SHAPES``) on
     the card: every candidate launch timed by CUDA-event windows, its
@@ -1520,6 +1591,7 @@ def phase_autotune(bw: float, z_main) -> None:
         for op in autotune.OPS:
             reset_peak()
             scores, default_us = autotune.events_scores(op, *shape, "cuda")
+            plain_ms = autotune_plain_ms(op, shape)
             t, b = autotune.best_launch(scores)
             key = autotune.table_key(kind, op, *shape)
             entries[key] = autotune.entry(autotune.LaunchConfig(
@@ -1527,7 +1599,7 @@ def phase_autotune(bw: float, z_main) -> None:
             rows.append(dict(
                 op=op, shape=list(shape), candidates=len(scores),
                 bitwise=True, winner=[t, b], winner_ms=scores[(t, b)] / 1e3,
-                default_ms=default_us / 1e3,
+                default_ms=default_us / 1e3, plain_ms=plain_ms,
                 gain=1.0 - scores[(t, b)] / default_us,
                 bound_ms=1e3 * autotune.op_bytes(op, *shape) / bw,
                 path_bound_ms=AUTOTUNE_PATH_BOUND_MS[(op, shape)],
@@ -1892,6 +1964,7 @@ def phase_spmd(bw: float, errs, z_main):
                     z, z_main, rtol=TRAJ_TOL, atol=TRAJ_TOL):
                 fail(f"spmd: z differs from phase main's by {diff:.3e}")
             epoch_ms = statistics.median(times[1:])
+            PHASE_MS["spmd"] = epoch_ms
             profile = profile_epochs("spmd", sess, state, epoch_ms, epochs=2)
             with capture_inputs() as inputs:  # one more epoch
                 sess.step(state)
@@ -2119,8 +2192,7 @@ def ps_spmd_replays(lines) -> dict:
         if r["launches_per_rank"] != want:
             fail(f"ps_table1: {sc}'s ranks launched "
                  f"{r['launches_per_rank']}, expected {want}")
-    ADDED_S["ps_spmd_replays"] = sum(found[sc]["spawn_s"]
-                                     for sc in PS_SPMD_SCENARIOS)
+    ADDED_S["ps_spmd_replays"] = found[PS_SPMD_SCENARIOS[0]]["spawn_s"]
     return found
 
 
@@ -2135,8 +2207,10 @@ def phase_ps(bw: float, errs):
     telemetry shown inert (z, delays and makespan bitwise equal over 3
     rounds); then Table 1 from the card's measured costs, the
     locked/lockfree gate at 8 workers and the four scenarios' gates."""
+    import numpy as np
     from repro_torch.api import ConsensusSession
     from repro_torch.benchmarks import speedup
+    from repro_torch.benchmarks.spmd_replay import replay_spmd
     from repro_torch.kernels import ops
     from repro_torch.ps import measure_costs
 
@@ -2221,13 +2295,32 @@ def phase_ps(bw: float, errs):
 
     table = speedup.table1(collect, costs, device="cuda")
     gates = {"speedup_x8": speedup.smoke_gate(collect, costs, "cuda")}
+    replays = {}                # the SPMD replays, all in one spawn
     for name in PS_SCENARIOS:
+        kw = dict(replays=replays) if name in PS_SPMD_SCENARIOS else {}
         gates[name] = speedup.SCENARIOS[name](collect, smoke=True,
-                                              device="cuda")
+                                              device="cuda", **kw)
+    # one spawn of the 8 gloo ranks: the replays, then train_mesh's
+    # steps, each rank holding its z tiles to the single-device steps
+    # run here first (their z in a file the ranks read mapped)
+    MESH_RUN["plan"] = plan = mesh_plan()
+    single = mesh_single(plan)
+    with tempfile.TemporaryDirectory() as ref_dir:
+        for t, z in enumerate(single.pop("z")):
+            np.save(Path(ref_dir) / f"z{t}.npy", z)
+        del z
+        MESH_RUN.update(single)
+        t0 = time.perf_counter()
+        out, MESH_RUN["ranks"] = replay_spmd(
+            replays, speedup.REPLAY_SESSION, "cuda",
+            extra=(mesh_job, (plan["vocab"], ref_dir)))
+        MESH_RUN["spawn_s"] = time.perf_counter() - t0
+    speedup.spmd_replay_lines(collect, out)
     spmd = ps_spmd_replays(lines)
     emit("ps_table1", t_worker_us=1e6 * costs["t_worker"],
          t_server_block_us=1e6 * costs["t_server_block"],
          k=speedup.K_ITERS, rows=table, gates=gates, spmd_replay=spmd,
+         spawn_rank_clock_s=out[PS_SPMD_SCENARIOS[0]]["rank_clock_s"],
          lines=[ln for ln in lines if "_hist," not in ln])
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
@@ -2797,9 +2890,10 @@ def spmd_tree() -> dict:
 
 TRAIN_LAYERS = 6               # the pytree phase's cut
 TRAIN_WORKERS, TRAIN_BLOCKS = 2, 2
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3
 TRAIN_BATCH, TRAIN_SEQ = 2, 512          # per worker: 2 x 512 tokens
-TRAIN_PROFILE_STEPS = 2
+TRAIN_PROFILE_STEPS = 1
+TRAIN_PROFILE_WARMUPS = (2, 8, 32)   # a step is ~200 ms: 2 warm it up
 SGD_BATCH, SGD_STEPS = 4, 3              # AdamW, all 28 layers
 SERVE_LOGIT_TOL = 1e-5         # the served tree vs the stacked forward
 LOSS_TOL = 1e-6                # step 0's loss vs Model.loss, relative
@@ -2876,8 +2970,9 @@ def train_split(model, spec, packed, batch, profile, step_ms) -> dict:
 def phase_train(bw: float, errs):
     """``ADMMTrainer`` on qwen3-1.7b's stacked tree at full width, cut to
     TRAIN_LAYERS layers (f32, seed 0), N = 2, M = 2 by LPT, launch/train.py's
-    defaults, ``TokenPipeline`` batches of 2 x 512 tokens a worker: 5
-    steps on the kernels, then 5 on the plain backend from the same
+    defaults, ``TokenPipeline`` batches of 2 x 512 tokens a worker:
+    TRAIN_STEPS on the kernels, then as many on the plain backend from
+    the same
     state. Gates: step 0's loss is ``Model.loss`` at z0; z of the two
     backends agree every step by the kernels' rule; losses and z finite,
     pads 0; B1 and B2 once a step; one more step's B1 and B2 held on
@@ -2896,6 +2991,7 @@ def phase_train(bw: float, errs):
     from repro_torch.models.weights import stacked_params
     from repro_torch.training import ADMMTrainer
 
+    stages, mark = stage_clock()
     N, M = TRAIN_WORKERS, TRAIN_BLOCKS
     model_cfg = dataclasses.replace(qwen3_1p7b.config(),
                                     num_layers=TRAIN_LAYERS)
@@ -2960,6 +3056,7 @@ def phase_train(bw: float, errs):
     expect_launches("train", launches, TRAIN_STEPS, MAIN_KERNELS)
     loss_rel = same_loss("train", losses[0], loss0)
     step_ms = statistics.median(times[1:])
+    PHASE_MS["train"] = step_ms
 
     # the trained z served: a ParamTree of views, its last logits against
     # the stacked forward's on one worker's tokens
@@ -2987,15 +3084,20 @@ def phase_train(bw: float, errs):
     def step():
         held[0], _ = kern.train_step(held[0], batches[TRAIN_STEPS])
 
+    mark("steps")
     profile = profile_calls("train", step, step_ms, TRAIN_PROFILE_STEPS,
-                            expect={B1_NAME: 1, B2_NAME: 1})
+                            expect={B1_NAME: 1, B2_NAME: 1},
+                            warmups=TRAIN_PROFILE_WARMUPS)
+    mark("profile")
     split = train_split(model, spec, kern._packed(spec, held[0]),
                         batches[TRAIN_STEPS], profile, step_ms)
     with capture_inputs(copy=False, names=MAIN_KERNELS, keep=1) as inputs:
         step()
     del held[0]
     torch.cuda.empty_cache()
+    mark("split")
     rows = check_on_path("train", inputs, MAIN_KERNELS, bw, errs)
+    mark("kernels_on_path")
 
     diffs = []
     plain = trainer("torch")
@@ -3009,6 +3111,7 @@ def phase_train(bw: float, errs):
     errs["server_prox_update"] = max(errs["server_prox_update"], max(diffs))
     del params, batches
     torch.cuda.empty_cache()
+    mark("torch_steps")
 
     kernels = b1_b2_rows(rows, profile)
     emit("train", arch=SERVE_ARCH, layers=TRAIN_LAYERS, N=N, M=M, params=P,
@@ -3029,7 +3132,7 @@ def phase_train(bw: float, errs):
          z_max_abs_diff_vs_torch=diffs, served_logits_max_abs_diff=serve_diff,
          served_logits_max_abs=serve_scale, pads_zero=True,
          device_ms_per_step=split, profile=profile, kernels=kernels,
-         card=smi_line())
+         seconds_by_stage=stages, card=smi_line())
     phase_train_sgd()
     return launches
 
@@ -3443,9 +3546,9 @@ ADDED_S = {}
 LONG_BATCH, LONG_SEQ = 1, 32_768   # the reference's prefill_32k
                                    # (configs/base.py:204), its batch of 32
                                    # cut to 1 for one card
-LONG_LAYERS = 14                   # of 28: cut to keep the phases this
-                                   # slice adds near 150 s (at 28 the 32k
-                                   # runs take ~50 s of them)
+LONG_LAYERS = 4                    # of 28: cut to keep the script well
+                                   # inside its time limit (at 14 the 32k
+                                   # runs took ~23 s, chunked 13 s of it)
 LONG_PROFILE_LAYERS = 2            # the first run and the idle share's
                                    # profile: a cut of the stack
 
@@ -3563,6 +3666,19 @@ def long_prefill_reckoning(cfg, weight_bytes: int) -> dict:
         "naive_scores_bytes": f * LONG_BATCH * nq * LONG_SEQ * LONG_SEQ}
 
 
+def library_32k(case) -> float:
+    """ms of ``scaled_dot_product_attention`` on B7's (16, 32768, 128)
+    f32 causal inputs under the memory-efficient backend, which keeps no
+    (S, S) scores (the library column of PERF.md's B7 32k row)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q, k, v, causal = case[:4]
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        ms = time_ms(lambda: sdpa(q, k, v, causal), reps=2, windows=3,
+                     warmup=1)
+    torch.cuda.empty_cache()
+    return ms
+
+
 def serve_long(cfg, params, weight_bytes: int, bw, errs) -> dict:
     """LONG_BATCH x LONG_SEQ tokens (the reference's prefill_32k, batch
     cut to 1) at LONG_LAYERS layers through flash (B7 once a layer at
@@ -3616,6 +3732,9 @@ def serve_long(cfg, params, weight_bytes: int, bw, errs) -> dict:
             (case,) = inputs.pop("flash_attention")
             one = tuple(t[:1].contiguous() if isinstance(t, torch.Tensor)
                         else t for t in case)
+            row["b7_library_ms"] = library_32k(case)
+            row["b7_library"] = ("scaled_dot_product_attention, "
+                                 "EFFICIENT_ATTENTION, causal")
             del case
             row["b7_head0_vs_f64"] = check("flash_attention", one, errs)
             row["b7_shape"] = [cfg.num_heads * LONG_BATCH, LONG_SEQ, 128]
@@ -3691,6 +3810,7 @@ def phase_serve(bw: float, errs):
     expect_counts("serve prefill (flash)", launches,
                   {"flash_attention": cfg.num_layers})
     flash_ms = [prefill(flash, tokens)[1] for _ in range(2)]
+    PHASE_MS["serve"] = statistics.median(flash_ms)
     flash_profile = profile_calls(
         "serve_prefill", lambda: flash.prefill(params, tokens,
                                                logits_mode="last"),
@@ -4286,7 +4406,7 @@ def phase_train_moe(bw: float, errs) -> dict:
     """``ADMMTrainer`` on granite-moe-1b-a400m's stacked tree at its
     widths, cut to TRAIN_MOE_LAYERS layers (f32, seed 0, the reference's
     onehot dispatch), N = 2, M = 2 by LPT, launch/train.py's defaults,
-    ``TokenPipeline`` batches of 2 x 512 tokens a worker, 5 steps on the
+    ``TokenPipeline`` batches of 2 x 512 tokens a worker, 3 steps on the
     kernels. Before each, the plain backend's step from the same state
     (routing follows z, so two free-running trajectories part at a
     token's first flip): z within KERNEL_TOL. Gates: step 0's loss is
@@ -4303,6 +4423,7 @@ def phase_train_moe(bw: float, errs) -> dict:
     from repro_torch.models.weights import stacked_params
     from repro_torch.training import ADMMTrainer
 
+    stages, mark = stage_clock()
     N, M = TRAIN_WORKERS, TRAIN_BLOCKS
     model_cfg = get_config(MOE_ARCH).with_(num_layers=TRAIN_MOE_LAYERS)
     model = build_model(model_cfg)
@@ -4407,16 +4528,22 @@ def phase_train_moe(bw: float, errs) -> dict:
     def step():
         held[0], _ = kern.train_step(held[0], batches[TRAIN_STEPS])
 
+    mark("steps")
     profile = profile_calls("train_moe", step, step_ms, TRAIN_PROFILE_STEPS,
-                            expect={B1_NAME: 1, B2_NAME: 1})
+                            expect={B1_NAME: 1, B2_NAME: 1},
+                            warmups=TRAIN_PROFILE_WARMUPS)
+    mark("profile")
     split = train_split(model, spec, kern._packed(spec, held[0]),
                         batches[TRAIN_STEPS], profile, step_ms)
+    mark("split")
     parts = moe_parts(model_cfg, held[0].params, N, TRAIN_BATCH, TRAIN_SEQ)
+    mark("moe_parts")
     with capture_inputs(copy=False, names=MAIN_KERNELS, keep=1) as inputs:
         step()
     del held[0]
     torch.cuda.empty_cache()
     rows = check_on_path("train_moe", inputs, MAIN_KERNELS, bw, errs)
+    mark("kernels_on_path")
     del batches
     torch.cuda.empty_cache()
 
@@ -4433,7 +4560,7 @@ def phase_train_moe(bw: float, errs) -> dict:
          reckoned_peak_bytes=reckoned, z_max_abs_diff_vs_torch=diffs,
          grads_twice_bitwise=True, pads_zero=True,
          device_ms_per_step=split, moe_parts=parts, profile=profile,
-         kernels=kernels, card=smi_line())
+         kernels=kernels, seconds_by_stage=stages, card=smi_line())
     return launches
 
 
@@ -4777,7 +4904,8 @@ def phase_serve_hybrid(bw: float, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the MLA and enc-dec families: minicpm3-4b and whisper-medium in full
+# the MLA and enc-dec families: minicpm3-4b (served at a depth cut) and
+# whisper-medium in full
 # ---------------------------------------------------------------------------
 
 MLA_ARCH = "minicpm3-4b"
@@ -4785,6 +4913,7 @@ ENC_DEC_ARCH = "whisper-medium"
 ENC_DEC_SEQ = 448              # whisper's decoder context: openai/whisper-
                                # medium's max_target_positions
 SERVE_PEAK_LIMIT = 72e9        # the reckoned peak a serve phase may reach
+SERVE_MLA_LAYERS = 31          # of 62: at full depth the phase took ~60 s
 
 
 def mla_prefill_reckoning(cfg, weight_bytes: int, batch: int,
@@ -4802,22 +4931,23 @@ def mla_prefill_reckoning(cfg, weight_bytes: int, batch: int,
 
 
 def phase_serve_mla(bw: float, errs) -> dict:
-    """minicpm3-4b in full (62 layers, d_model 2560, 40 heads, q rank
-    768, kv rank 256, d_ff 6400; f32, seed 0): the SERVE_BATCH x
-    SERVE_SEQ prefill (MLA materializes its (B, 40, S, S) scores as the
-    reference does: no kernel), its peak beside the reckoning (which
-    must stay under SERVE_PEAK_LIMIT), timed and profiled; the same prefill under ``attn_impl="flash"``: no launch,
+    """minicpm3-4b at full width, SERVE_MLA_LAYERS of its 62 layers
+    (d_model 2560, 40 heads, q rank 768, kv rank 256, d_ff 6400; f32,
+    seed 0): the SERVE_BATCH x SERVE_SEQ prefill (MLA materializes its
+    (B, 40, S, S) scores as the reference does: no kernel), its peak
+    beside the reckoning (which must stay under SERVE_PEAK_LIMIT), timed
+    and profiled; the same prefill under ``attn_impl="flash"``: no launch,
     logits bitwise the naive ones; ``Engine.generate`` with
     launch/serve.py's batch through the absorbed decode over the latent
     cache; decode against prefill at every prompt position; first tokens
-    decided; the latent cache's bytes at max_len 64 and 4096, 62 x B x
-    max_len x (256 + 32) x 4."""
+    decided; the latent cache's bytes at max_len 64 and 4096, layers x B
+    x max_len x (256 + 32) x 4."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
     stages, mark = stage_clock()
-    cfg = get_config(MLA_ARCH)
+    cfg = get_config(MLA_ARCH).with_(num_layers=SERVE_MLA_LAYERS)
     naive, flash = build_model(cfg), build_model(cfg.with_(attn_impl="flash"))
     gc.collect()
     reset_peak()
@@ -5156,12 +5286,16 @@ def train_depth_plan(full, N: int, M: int, batch) -> dict:
     from repro_torch.core.blocks import make_block_layout
     from repro_torch.core.tree import tree_leaves
     from repro_torch.models.weights import stacked_params
+    key = (repr(full), N, M, tuple(batch["tokens"].shape))
+    if key in DEPTH_PLANS:
+        return dict(DEPTH_PLANS[key])
     probe = {n: loss_grad_peak(at_depth(full, n), N, batch) for n in (2, 4)}
     per_layer = (probe[4] - probe[2]) / 2
     fixed = probe[2] - 2 * per_layer
+    tree_at = depth_trees(full)
 
-    def reckon(layers):
-        meta = stacked_params(at_depth(full, layers), 0, "meta")
+    def reckon(layers, tree=None):
+        meta = tree_at(layers) if tree is None else tree
         P = sum(int(t.numel()) for t in tree_leaves(meta))
         T = M * make_block_layout(meta, num_blocks=M).block_dim
         loss = fixed + layers * per_layer
@@ -5172,11 +5306,51 @@ def train_depth_plan(full, N: int, M: int, batch) -> dict:
     while reckon(layers)[0] > TRAIN_SSM_PEAK_LIMIT and layers > 1:
         layers -= 1
     reckoned, loss = reckon(layers)
-    return dict(layers=layers, reckoned_peak_bytes=reckoned,
-                loss_grad_peak_bytes_probed={str(n): b
-                                             for n, b in probe.items()},
-                loss_grad_bytes_per_layer=per_layer,
-                loss_grad_peak_bytes_reckoned=int(loss))
+    # the shapes' tree against the parameters built at that depth
+    if reckon(layers, stacked_params(at_depth(full, layers), 0, "meta")) \
+            != (reckoned, loss):
+        fail(f"train_depth_plan: {full.name}'s tree at {layers} layers "
+             f"from its 1- and 2-layer shapes differs from its parameters'")
+    DEPTH_PLANS[key] = dict(
+        layers=layers, reckoned_peak_bytes=reckoned,
+        loss_grad_peak_bytes_probed={str(n): b for n, b in probe.items()},
+        loss_grad_bytes_per_layer=per_layer,
+        loss_grad_peak_bytes_reckoned=int(loss))
+    return dict(DEPTH_PLANS[key])
+
+
+# train_depth_plan's plans by (config, N, M, batch shape): phase
+# train_remat_depths reuses those of train_mla and train_encdec
+DEPTH_PLANS = {}
+
+
+def depth_trees(full):
+    """layers -> ``full``'s stacked parameter tree at that depth on the
+    meta device, from the shapes of its trees at 1 and 2 layers: a leaf
+    whose leading axis grows with the depth is stacked, every other leaf
+    is the same at any depth. ``stacked_params`` on meta runs each
+    layer's initializers (~15 ms a layer on the host); this builds
+    empty tensors."""
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.models.weights import stacked_params
+    one, treedef = tree_flatten(stacked_params(at_depth(full, 1), 0, "meta"))
+    two, _ = tree_flatten(stacked_params(at_depth(full, 2), 0, "meta"))
+    stacked = []
+    for a, b in zip(one, two):
+        grows = a.shape != b.shape
+        if grows and (a.shape[0], b.shape[0], a.shape[1:]) != (
+                1, 2, b.shape[1:]):
+            fail(f"depth_trees: {full.name}'s leaf {tuple(a.shape)} at 1 "
+                 f"layer is {tuple(b.shape)} at 2")
+        stacked.append(grows)
+
+    def at(layers):
+        return tree_unflatten(treedef, [
+            torch.empty((layers,) + tuple(a.shape[1:]), dtype=a.dtype,
+                        device="meta") if grows else a
+            for a, grows in zip(one, stacked)])
+
+    return at
 
 
 @contextlib.contextmanager
@@ -5228,7 +5402,7 @@ def phase_train_stacked(path: str, arch: str, bw: float, errs) -> dict:
     arch's two stacks alike, the cut printed in line ``<path>_plan``),
     N = 2, M = 2 by LPT, launch/train.py's defaults, ``TokenPipeline``
     batches of 2 x 512 tokens a worker (and an enc-dec arch's 2 x T_enc
-    frames), 5 steps on the kernels, before each the plain backend's
+    frames), 3 steps on the kernels, before each the plain backend's
     step from the same state: z within KERNEL_TOL. Gates: step 0's loss
     is ``Model.loss`` at z0; the first gradient finite; B1 and B2 once
     a step and held on their inputs; pads 0; losses and z finite.
@@ -5351,6 +5525,7 @@ def phase_train_stacked(path: str, arch: str, bw: float, errs) -> dict:
     mark("steps")
     loss_rel = same_loss(path, losses[0], loss0)
     step_ms = statistics.median(times[1:])
+    PHASE_MS[path], PHASE_PEAK[path] = step_ms, max(peaks)
     own = {k: 0.0 for k in MAIN_KERNELS}
     own["server_prox_update"] = max(diffs)
 
@@ -5420,6 +5595,478 @@ def phase_train_stacked(path: str, arch: str, bw: float, errs) -> dict:
          kernels=kernels, seconds_by_stage=stages, card=smi_line())
     return dict(launches={f"{k}_{family}": launches[k] for k in MAIN_KERNELS},
                 rows={f"{k}_{family}": rows[k] for k in MAIN_KERNELS})
+
+
+# ---------------------------------------------------------------------------
+# phases train_remat, train_mesh and cost
+# ---------------------------------------------------------------------------
+
+REMAT_STEPS = 3
+PHASE_MS = {}                  # ms the script's own phases measured
+PHASE_PEAK = {}                # and their peaks, for the later phases
+# the training cells cut by depth: (path, arch); "train" is the pytree
+# phase's tree (qwen3-1.7b, 6 of 28 layers) under Model.loss
+REMAT_DEPTH_CELLS = (("train_moe", MOE_ARCH), ("train_mla", MLA_ARCH),
+                     ("train_encdec", ENC_DEC_ARCH), ("train", SERVE_ARCH))
+
+
+def remat_steps(path: str, model_cfg, params, batches, steps: int,
+                on_step=None) -> dict:
+    """``steps`` ADMM train steps on the kernels from ``params`` (N, M of
+    the train cell): step ms, peaks read step by step (the checks
+    excluded), losses, B1 and B2 once a step; ``on_step(t, z)`` sees
+    each step's newest z table."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import ADMMTrainer
+    model = build_model(model_cfg)
+    tr = ADMMTrainer(loss_fn=model.loss, admm=train_config(backend="auto"),
+                     num_workers=TRAIN_WORKERS, device="cuda")
+    gc.collect()
+    reset_peak()
+    state = tr.init(params)
+    times, losses, peaks = [], [], []
+    for t in range(steps):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = tr.train_step(state, batches[t])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        peaks.append(torch.cuda.max_memory_allocated())
+        expect_launches(f"{path} step {t}", ops.launch_counts(), 1,
+                        MAIN_KERNELS)
+        losses.append(float(info["loss"]))
+        z = tr._packed(tr._spec(state.params), state).z_hist[0]
+        if not math.isfinite(losses[-1]) or not bool(torch.isfinite(z).all()):
+            fail(f"{path}: loss or z not finite at step {t}")
+        if on_step is not None:
+            on_step(t, z)
+        del z
+        torch.cuda.reset_peak_memory_stats()
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_ms=times, step_ms_median=statistics.median(times[1:]),
+                losses=losses, peak_bytes=max(peaks),
+                peak_bytes_by_step=peaks)
+
+
+def phase_train_remat(errs) -> None:
+    """``remat=True`` on the stacked tree. The train cell (qwen3-1.7b's
+    widths, TRAIN_LAYERS layers, N = 2, M = 2, 2 x 512 tokens a worker):
+    REMAT_STEPS kernel steps with remat off, then on from the same
+    state: z within KERNEL_TOL (1 + max) of the plain step's every step
+    (bitwise or not printed), losses 1e-6 relative, B1 = B2 = 1 a step,
+    step ms and peaks of both. Then mamba2-370m at all 48 layers with
+    remat (train_ssm's cell): its peak and step ms beside train_ssm's
+    in this run. Then, reckoned and not run, each depth-cut cell's
+    ``train_depth_plan`` with remat beside without (line
+    ``train_remat_depths``)."""
+    import dataclasses
+    from repro_torch.configs import get_config, qwen3_1p7b
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.weights import stacked_params
+
+    t_phase = time.perf_counter()
+    N, M = TRAIN_WORKERS, TRAIN_BLOCKS
+    base = dataclasses.replace(qwen3_1p7b.config(), num_layers=TRAIN_LAYERS)
+    params = stacked_params(base, 0, "cuda")
+    pipe = TokenPipeline(vocab_size=base.vocab_size, seq_len=TRAIN_SEQ + 1,
+                         global_batch=N * TRAIN_BATCH, seed=0)
+    batches = [pipe.batch(t, num_workers=N, device="cuda")
+               for t in range(REMAT_STEPS)]
+    z_plain, diffs, same = [], [], []
+    plain = remat_steps("train_remat (remat off)", base, params, batches,
+                        REMAT_STEPS, lambda t, z: z_plain.append(z.cpu()))
+
+    def hold(t, z):
+        want = z_plain[t].cuda()
+        diffs.append(compare(z, want))
+        same.append(bool(torch.equal(z, want)))
+
+    remat = remat_steps("train_remat", base.with_(remat=True), params,
+                        batches, REMAT_STEPS, hold)
+    for t, (a, b) in enumerate(zip(remat["losses"], plain["losses"])):
+        if not abs(a - b) <= LOSS_TOL * abs(b):
+            fail(f"train_remat: step {t}'s loss {a!r} with remat against "
+                 f"{b!r} without")
+    errs["server_prox_update"] = max(errs["server_prox_update"], max(diffs))
+    PHASE_MS["train_remat"] = remat["step_ms_median"]
+    del params, batches, z_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mamba2 at full depth with remat
+    full = get_config(SSM_ARCH).with_(remat=True)
+    pipe = TokenPipeline(vocab_size=full.vocab_size, seq_len=TRAIN_SEQ + 1,
+                         global_batch=N * TRAIN_BATCH, seed=0)
+    batches = [pipe.batch(t, num_workers=N, device="cuda")
+               for t in range(REMAT_STEPS)]
+    params = stacked_params(full, 0, "cuda")
+    ssm = remat_steps("train_remat_ssm", full, params, batches, REMAT_STEPS)
+    ssm.update(layers=full.num_layers,
+               train_ssm_peak_bytes=PHASE_PEAK.get("train_ssm"),
+               train_ssm_step_ms_median=PHASE_MS.get("train_ssm"))
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_remat", arch=SERVE_ARCH, layers=TRAIN_LAYERS, N=N, M=M,
+         steps=REMAT_STEPS, remat_off=plain, remat_on=remat,
+         z_max_abs_diff_vs_remat_off=diffs, z_bitwise_by_step=same,
+         step_ms_ratio=remat["step_ms_median"] / plain["step_ms_median"],
+         peak_ratio=remat["peak_bytes"] / plain["peak_bytes"],
+         ssm_full_depth=ssm, seconds=time.perf_counter() - t_phase,
+         card=smi_line())
+
+    # the depth cuts, with remat beside without (reckoned, not run)
+    t0 = time.perf_counter()
+    plans = {}
+    for path, arch in REMAT_DEPTH_CELLS:
+        cfg = get_config(arch)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size,
+                             seq_len=TRAIN_SEQ + 1,
+                             global_batch=N * TRAIN_BATCH, seed=0)
+        enc_kw = dict(enc_frames_dim=cfg.d_model,
+                      enc_seq_len=cfg.encoder_seq_len) \
+            if cfg.is_enc_dec else {}
+        batch = pipe.batch(0, num_workers=N, device="cuda", **enc_kw)
+        off = train_depth_plan(cfg, N, M, batch)
+        on = train_depth_plan(cfg.with_(remat=True), N, M, batch)
+        # each remat probe's peak holds one layer's recompute: its saved
+        # tensors, the transient the extrapolation keeps in its fixed term
+        on["recompute_transient_bytes"] = off["loss_grad_bytes_per_layer"]
+        plans[path] = dict(arch=arch, full_layers=cfg.num_layers,
+                           layers_without_remat=off["layers"],
+                           layers_with_remat=on["layers"],
+                           without_remat=off, with_remat=on)
+        del batch
+        torch.cuda.empty_cache()
+    emit("train_remat_depths", limit_bytes=TRAIN_SSM_PEAK_LIMIT,
+         cells=plans, seconds=time.perf_counter() - t0, card=smi_line())
+    ADDED_S["train_remat"] = time.perf_counter() - t_phase
+
+
+MESH_WORLD, MESH_MODEL = 8, 2          # data 4 x model 2, the test mesh
+MESH_N, MESH_M, MESH_LAYERS = 8, 4, 2
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 2, 128, 3
+MESH_PEAK_LIMIT = 72e9                 # all ranks together, one card
+MESH_CONTEXT_BYTES = 600e6             # a rank's CUDA context and caches
+
+
+def mesh_config(vocab=None):
+    """qwen3-1.7b's widths at MESH_LAYERS layers; ``vocab`` cuts the
+    vocabulary (the one leaf every block is padded to)."""
+    import dataclasses
+    from repro_torch.configs import qwen3_1p7b
+    cfg = dataclasses.replace(qwen3_1p7b.config(), num_layers=MESH_LAYERS)
+    return cfg if vocab is None else dataclasses.replace(cfg,
+                                                         vocab_size=vocab)
+
+
+def mesh_reckoning(cfg) -> dict:
+    """Bytes of the 8 ranks' train step on one card: each rank's tiles
+    (the ring (2, Ml, dblk), y and w_cache (Nl, Ml, dblk)), its step's
+    tables (z~ and g (Nl, Ml, dblk), the routed points and grads (Ng, M,
+    dblk) each, y' and w'), the loss's params and grads of its Ng
+    workers, its context; and the single-device step run beside them
+    (4 B x (2T + 6NT + NP + P))."""
+    from repro_torch.core.blocks import make_block_layout
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.weights import stacked_params
+    meta = stacked_params(cfg, 0, "meta")
+    P = sum(int(t.numel()) for t in tree_leaves(meta))
+    dblk = make_block_layout(meta, num_blocks=MESH_M).block_dim
+    data = MESH_WORLD // MESH_MODEL
+    Nl, Ml = MESH_N // data, MESH_M // MESH_MODEL
+    Ng = Nl // MESH_MODEL if Nl % MESH_MODEL == 0 else Nl
+    rows = 2 * Ml + 2 * Nl * Ml + 4 * Nl * Ml + 2 * Ng * MESH_M
+    rank = 4 * (rows * dblk + 2 * Ng * P) + MESH_CONTEXT_BYTES
+    T = MESH_M * dblk
+    single = 4 * (2 * T + 6 * MESH_N * T + MESH_N * P + P)
+    return dict(vocab=cfg.vocab_size, params=P, dblk=dblk,
+                per_rank_bytes=int(rank), ranks_bytes=int(MESH_WORLD * rank),
+                single_device_bytes=int(single))
+
+
+def mesh_plan() -> dict:
+    """The vocabulary to run at: qwen3-1.7b's own unless the ranks'
+    reckoning passes MESH_PEAK_LIMIT; then halved until it fits (the
+    cut printed)."""
+    full = mesh_reckoning(mesh_config())
+    vocab, plan = None, full
+    while plan["ranks_bytes"] > MESH_PEAK_LIMIT:
+        vocab = (vocab or full["vocab"]) // 2
+        plan = mesh_reckoning(mesh_config(vocab))
+    return dict(full_width=full, run=plan, vocab=vocab,
+                cut=None if vocab is None else
+                f"vocabulary {full['vocab']} -> {vocab}: at the full "
+                f"vocabulary the embedding (one leaf) pads every block to "
+                f"its {full['dblk']} lanes and the 8 ranks' tiles reckon "
+                f"{full['ranks_bytes']} bytes")
+
+
+def mesh_batches(cfg):
+    from repro_torch.data import TokenPipeline
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ + 1,
+                         global_batch=MESH_N * MESH_BATCH, seed=0)
+    return [pipe.batch(t, num_workers=MESH_N, device="cuda")
+            for t in range(MESH_STEPS)]
+
+
+def mesh_trainer(cfg, mesh=None):
+    """``ADMMTrainer`` at launch/train.py's defaults, M = MESH_M."""
+    from repro_torch.configs.base import ADMMConfig
+    from repro_torch.models import build_model
+    from repro_torch.training import ADMMTrainer
+    model = build_model(cfg)
+    return ADMMTrainer(loss_fn=model.loss,
+                       admm=ADMMConfig(rho=20.0, gamma=0.01, max_delay=1,
+                                       block_fraction=1.0, num_blocks=MESH_M,
+                                       seed=0),
+                       num_workers=MESH_N, mesh=mesh, device="cuda")
+
+
+def mesh_single(plan) -> dict:
+    """The single-device reference of phase ``train_mesh`` on the card,
+    run in phase ``ps`` before its spawn: MESH_STEPS steps of the same
+    config from the same state and draws, each step's z to the host."""
+    from repro_torch.models.weights import stacked_params
+    cfg = mesh_config(plan["vocab"])
+    reset_peak()
+    tr = mesh_trainer(cfg)
+    state = tr.init(stacked_params(cfg, 0, "cuda"))
+    batches = mesh_batches(cfg)
+    z_single, single_ms = [], []
+    for t in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = tr.train_step(state, batches[t])
+        torch.cuda.synchronize()
+        single_ms.append(1e3 * (time.perf_counter() - t0))
+        z_single.append(tr._packed(tr._spec(state.params),
+                                   state).z_hist[0].cpu().numpy())
+    single_peak = torch.cuda.max_memory_allocated()
+    del state, tr, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(z=z_single, single_step_ms=single_ms,
+                single_peak_bytes=single_peak)
+
+
+def mesh_job(rank: int, mesh, vocab, ref_dir: str) -> dict:
+    """One rank's part of phase ``train_mesh``, run in phase ``ps``'s
+    spawn of the 8 gloo ranks on cuda:0 after the replays
+    (``replay_spmd``'s ``extra``): ``ADMMTrainer.train_step`` under the
+    (data 4, model 2) test mesh; after every step its z tile against the
+    single-device step's rows of it (``ref_dir``/z<t>.npy, read mapped):
+    the largest |difference| and whether within TRAJ_TOL; launches per
+    step, step ms, peak. Only these small results leave the rank: the
+    tiles are ~0.5 GB a step."""
+    import numpy as np
+    from repro_torch.core.sharded import local_tile
+    from repro_torch.kernels import ops
+    from repro_torch.models.weights import stacked_params
+
+    cfg = mesh_config(vocab)
+    tr = mesh_trainer(cfg, mesh)
+    state = tr.init(stacked_params(cfg, 0, "cuda"))
+    batches = mesh_batches(cfg)
+    spec = tr._spec(state.params)
+    tile = local_tile(spec)
+    torch.cuda.reset_peak_memory_stats()
+    diffs, close, launches, times = [], [], [], []
+    for t in range(MESH_STEPS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = tr.train_step(state, batches[t])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        launches.append(ops.launch_counts())
+        z = tr._packed(spec, state).z_hist[0]
+        ref = np.load(Path(ref_dir) / f"z{t}.npy", mmap_mode="r")
+        want = torch.from_numpy(np.array(
+            ref[tile.m0:tile.m0 + tile.Ml])).to(z.device)
+        diffs.append(float((z - want).abs().max()))
+        close.append(bool(torch.allclose(z, want, rtol=TRAJ_TOL,
+                                         atol=TRAJ_TOL)))
+        del z, want, ref
+    return {"z_max_abs_diff": diffs, "z_close": close, "launches": launches,
+            "step_ms": times,
+            "tile": (tile.n0, tile.Nl, tile.m0, tile.Ml, tile.Ng),
+            "coords": dict(mesh.coords),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+# phase ps's train_mesh part: the plan, the single-device reference's
+# times and peak, each rank's result, the spawn's seconds (replays
+# included)
+MESH_RUN = {}
+
+
+def phase_train_mesh() -> None:
+    """``ADMMTrainer.train_step`` under data 4 x model 2 on MESH_WORLD
+    gloo ranks on the one card: qwen3-1.7b's widths at MESH_LAYERS
+    layers, N = 8, M = 4 (the mesh splits the block table: each rank
+    holds a (2, 2) tile; split gradients on), MESH_BATCH x MESH_SEQ
+    tokens a worker, MESH_STEPS steps; the vocabulary cut when
+    ``mesh_plan``'s reckoning passes MESH_PEAK_LIMIT. It ran in phase
+    ``ps``: the single-device steps from the same state and draws
+    (``mesh_single``), then the ranks in that phase's one spawn of the 8
+    ranks (``mesh_job``, after the replays; as benchmarks/spmd_replay.py
+    spawns them), so no second spawn pays the processes' start. Gates
+    here: each rank's z tile within 1e-5 of the single-device step's,
+    every step; B1 = B3 = 1 a step on every rank and B2 = 0. Prints the
+    shared spawn's seconds and each rank's peak."""
+    plan = MESH_RUN["plan"]
+    emit("train_mesh_plan", limit_bytes=MESH_PEAK_LIMIT, **plan,
+         card=smi_line())
+    ranks = MESH_RUN.pop("ranks")
+    for r in ranks:
+        for t, launches in enumerate(r["launches"]):
+            expect_launches(f"train_mesh rank {r['coords']} step {t}",
+                            launches, 1, SPMD_KERNELS)
+        n0, Nl, m0, Ml, Ng = r["tile"]
+        if (Nl, Ml) != (MESH_N // (MESH_WORLD // MESH_MODEL),
+                        MESH_M // MESH_MODEL):
+            fail(f"train_mesh: rank {r['coords']} holds tile {r['tile']}")
+        for t, (diff, close) in enumerate(zip(r["z_max_abs_diff"],
+                                              r["z_close"])):
+            if not close:
+                fail(f"train_mesh: rank {r['coords']}'s z tile differs "
+                     f"from the single-device step {t} by {diff:.3e}")
+        if len(r["z_close"]) != MESH_STEPS:
+            fail(f"train_mesh: rank {r['coords']} held {len(r['z_close'])} "
+                 f"steps, expected {MESH_STEPS}")
+    emit("train_mesh", arch=SERVE_ARCH, layers=MESH_LAYERS,
+         vocab=plan["run"]["vocab"], depth_or_width_cut=plan["cut"],
+         world_size=MESH_WORLD, backend="gloo",
+         mesh={"data": MESH_WORLD // MESH_MODEL, "model": MESH_MODEL},
+         N=MESH_N, M=MESH_M, tokens_per_worker=MESH_BATCH * MESH_SEQ,
+         steps=MESH_STEPS, tile=list(ranks[0]["tile"]),
+         launches_per_rank_step=ranks[0]["launches"][0],
+         z_tile_max_abs_diff_vs_single=max(
+             max(r["z_max_abs_diff"]) for r in ranks),
+         single_step_ms=MESH_RUN["single_step_ms"],
+         single_peak_bytes=MESH_RUN["single_peak_bytes"],
+         step_ms_median_per_rank=[statistics.median(r["step_ms"][1:])
+                                  for r in ranks],
+         peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+         spawn_seconds_shared_with_ps_replays=MESH_RUN["spawn_s"],
+         card=smi_line())
+
+
+# PERF.md section 6's bytes a call: B1 on main (8, 64, 315,904) with x,
+# B2 on main, B3 on spmd (64, 315,904), B7 on serve's f32 (64, 4096, 128)
+PERF_BYTES_A_CALL = {"admm_worker_select_update": 3.88e9,
+                     "server_prox_update": 0.81e9,
+                     "prox_consensus": 0.243e9,
+                     "flash_attention": 0.537e9}
+BYTES_TOL = 0.01
+REMAT_FLOPS_TOL = 0.05
+
+
+def phase_cost() -> None:
+    """The cost counter (``repro_torch.analysis``) on four programs, each
+    counted on the meta device: ``main``'s epoch at kdda_like (B1 + B2),
+    the SPMD epoch's shard on a 1 x 1 mesh (B1 + B3,
+    ``per_shard_cost_program``), ``train``'s step with remat off and on,
+    and ``serve``'s 4 x 4096 f32 flash prefill (B7 once a layer). Prints
+    each one's FLOPs, HBM bytes, ``Roofline.step_time`` and
+    ``bottleneck`` beside the ms this script's phase measured. Gates: the
+    counted bytes a call of B1, B2, B3 and B7 within 1 % of PERF.md
+    section 6; the remat step counting one more forward of the layers
+    (within 5 %); its ``useful_flops_ratio`` lower."""
+    import dataclasses
+    from repro_torch.analysis.cost import count
+    from repro_torch.analysis.report import (epoch_program,
+                                             layers_forward_flops,
+                                             prefill_program,
+                                             train_step_program)
+    from repro_torch.analysis.roofline import Roofline, model_flops
+    from repro_torch.configs import INPUT_SHAPES, get_config, qwen3_1p7b
+    from repro_torch.core.sharded import per_shard_cost_program
+    from repro_torch.launch.mesh import make_abstract_mesh
+
+    t_phase = time.perf_counter()
+    cfg = kdda_config()
+    rows, per_call = {}, {}
+
+    def row(name, cost, measured_ms, **kw):
+        roof = Roofline.from_cost(cost, tf32=False, **kw)
+        rows[name] = dict(
+            flops=cost.flops, hbm_bytes=cost.hbm_bytes,
+            collective_bytes=dict(cost.collective_bytes),
+            kernels={k: cost.ops[k] for k in PLAIN if k in cost.ops},
+            kernel_bytes=dict(cost.kernel_bytes),
+            step_time_bound_ms=1e3 * roof.step_time,
+            bottleneck=roof.bottleneck,
+            useful_flops_ratio=roof.useful_flops_ratio,
+            measured_ms=measured_ms)
+        for k, nbytes in cost.kernel_bytes.items():
+            per_call.setdefault(k, nbytes / cost.ops[k])
+        return roof
+
+    fn, args = epoch_program(KDDA_WORKERS, KDDA_BLOCKS, KDDA_DIM, cfg)
+    row("main_epoch", count(fn, *args)[1], PHASE_MS.get("main"),
+        arch="flat", shape="kdda_like")
+    del fn, args
+    from repro_torch.api import ConsensusSession
+    sess = ConsensusSession.flat(
+        quad_loss, torch.empty((KDDA_WORKERS, KDDA_DIM), device="meta"),
+        dim=KDDA_DIM, cfg=cfg, backend="cuda", device="meta",
+        mesh=make_abstract_mesh((1, 1), ("data", "model")))
+    fn, args = per_shard_cost_program(sess.spec, sess.data)
+    row("spmd_shard", count(fn, *args)[1], PHASE_MS.get("spmd"),
+        arch="flat", shape="kdda_like", mesh="1x1")
+    del sess, fn, args
+
+    base = dataclasses.replace(qwen3_1p7b.config(), num_layers=TRAIN_LAYERS)
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_WORKERS * TRAIN_BATCH)
+    flops = {}
+    for remat in (False, True):
+        fn, args = train_step_program(base.with_(remat=remat),
+                                      train_config(), TRAIN_WORKERS,
+                                      TRAIN_BATCH, TRAIN_SEQ)
+        cost = count(fn, *args)[1]
+        flops[remat] = (cost.flops, row(
+            f"train_step_remat_{'on' if remat else 'off'}", cost,
+            PHASE_MS.get("train_remat" if remat else "train"),
+            arch=base.name, shape="train",
+            model_flops_total=model_flops(base, shape)))
+        del fn, args
+    layers = layers_forward_flops(base, TRAIN_WORKERS, TRAIN_BATCH,
+                                  TRAIN_SEQ)
+    extra = flops[True][0] - flops[False][0]
+    if not abs(extra - layers) <= REMAT_FLOPS_TOL * layers:
+        fail(f"cost: the remat step counts {extra:.4e} more FLOPs, one "
+             f"forward of the layers is {layers:.4e}")
+    ratio = {k: v[1].useful_flops_ratio for k, v in flops.items()}
+    if not ratio[True] < ratio[False]:
+        fail(f"cost: useful_flops_ratio {ratio[True]} with remat, "
+             f"{ratio[False]} without")
+
+    serve = get_config(SERVE_ARCH).with_(attn_impl="flash")
+    fn, args = prefill_program(serve, SERVE_BATCH, SERVE_SEQ)
+    row("serve_flash_prefill", count(fn, *args)[1], PHASE_MS.get("serve"),
+        arch=serve.name, shape="prefill_4x4096")
+    del fn, args
+
+    for name, want in PERF_BYTES_A_CALL.items():
+        got = per_call.get(name)
+        if got is None or not abs(got - want) <= BYTES_TOL * want:
+            fail(f"cost: {name} counted {got} bytes a call, PERF.md "
+                 f"section 6 has {want}")
+    emit("cost", programs=rows,
+         bytes_a_call={k: per_call[k] for k in PERF_BYTES_A_CALL},
+         perf_md_bytes_a_call=PERF_BYTES_A_CALL,
+         remat_extra_flops=extra, layers_forward_flops=layers,
+         remat_extra_over_forward=extra / layers,
+         peak_flops="67 TFLOP/s fp32 (TF32 off), 3.35 TB/s",
+         seconds=time.perf_counter() - t_phase, card=smi_line())
+    ADDED_S["cost"] = time.perf_counter() - t_phase
 
 
 # ---------------------------------------------------------------------------
@@ -5893,6 +6540,8 @@ def main() -> int:
         train_mla = phase_train_stacked("train_mla", MLA_ARCH, bw, errs)
         train_encdec = phase_train_stacked("train_encdec", ENC_DEC_ARCH,
                                            bw, errs)
+        phase_train_remat(errs)
+    phase_train_mesh()
     serve_launches, serve_rows, serve16_launches, serve16_rows = \
         phase_serve(bw, errs)
     phase_serve_moe(bw, errs)
@@ -5900,6 +6549,7 @@ def main() -> int:
     hybrid = phase_serve_hybrid(bw, errs)
     phase_serve_mla(bw, errs)
     encdec = phase_serve_encdec(bw, errs)
+    phase_cost()
     logreg_launches, logreg_rows = phase_logreg(bw, errs)
     logreg16_launches, logreg16_rows = phase_logreg_bf16(bw, errs)
 

@@ -51,10 +51,12 @@ Each of churn, lossy and server_crash replays its trace on one device
 and on the SPMD epoch over a data 4 x model 2 mesh: the reference's
 8-device mesh is 8 gloo ranks here, one process each, which
 ``spmd_replay.replay_spmd`` spawns once per scenario on the session's
-device (all on the one card, or on the CPU). Its ``*_replay_err_spmd``
-line is the reference's; ``*_replay_spmd_launches`` counts each rank's
-kernel launches (B1 and B3, once a round on the card; none on the CPU)
-and the spawn's wall seconds.
+device (all on the one card, or on the CPU), or once for all of them
+when the caller passes each scenario a ``replays`` dict and then calls
+``spmd_replays``. Its ``*_replay_err_spmd`` line is the reference's;
+``*_replay_spmd_launches`` counts each rank's kernel launches (B1 and
+B3, once a round on the card; none on the CPU) and the spawn's wall
+seconds.
 
 The gates are virtual-time figures of the simulation (the reference's
 values, ``benchmarks/kernels_baseline.json``), so they hold for the
@@ -213,21 +215,48 @@ def _replay_max_err(res, sess: ConsensusSession) -> float:
     return err
 
 
+def spmd_replays(emit: Emit, jobs: Dict[str, dict],
+                 device: DeviceLike = None) -> Dict[str, float]:
+    """Replay every ``trace_job`` in ``jobs`` on the 8-rank SPMD mesh in
+    one spawn (``replay_spmd`` on ``REPLAY_SESSION``) and emit its lines
+    (``spmd_replay_lines``). Returns each job's largest error over the
+    ranks and rounds."""
+    return spmd_replay_lines(emit, replay_spmd(
+        jobs, REPLAY_SESSION, device=device if device is not None else "cuda"))
+
+
+def spmd_replay_lines(emit: Emit, out: Dict[str, dict]) -> Dict[str, float]:
+    """Emit, by job of ``replay_spmd``'s ``out``, the reference's
+    ``<prefix>_replay_err_spmd`` line and each rank's launches (with the
+    spawn's seconds, shared by the jobs); returns each job's error."""
+    for prefix, o in out.items():
+        emit(f"{prefix}_replay_err_spmd,{o['err']:.2e},mesh={MESH_NAME}")
+        per_rank = o["launches_per_rank"]
+        names = sorted({k for r in per_rank for k in r})
+        emit(f"{prefix}_replay_spmd_launches,{o['rounds']},"
+             + "".join(f"{k}=" + "/".join(str(r.get(k, 0)) for r in per_rank)
+                       + "|" for k in names)
+             + f"spawn_s={o['spawn_seconds']:.1f}")
+    return {prefix: o["err"] for prefix, o in out.items()}
+
+
 def spmd_replay_err(emit: Emit, prefix: str, res,
-                    device: DeviceLike = None) -> float:
-    """Replay ``res``'s trace on the 8-rank SPMD mesh (one spawn); emits
-    the reference's ``<prefix>_replay_err_spmd`` line and each rank's
-    launches. Returns the largest error over the ranks and rounds."""
-    out = replay_spmd({prefix: trace_job(res)}, REPLAY_SESSION,
-                      device=device if device is not None else "cuda")[prefix]
-    emit(f"{prefix}_replay_err_spmd,{out['err']:.2e},mesh={MESH_NAME}")
-    per_rank = out["launches_per_rank"]
-    names = sorted({k for r in per_rank for k in r})
-    emit(f"{prefix}_replay_spmd_launches,{out['rounds']},"
-         + "".join(f"{k}=" + "/".join(str(r.get(k, 0)) for r in per_rank)
-                   + "|" for k in names)
-         + f"spawn_s={out['spawn_seconds']:.1f}")
-    return out["err"]
+                    device: DeviceLike = None, replays=None):
+    """Replay ``res``'s trace on the 8-rank SPMD mesh (one spawn;
+    ``spmd_replays``). Returns the largest error over the ranks and
+    rounds. With ``replays`` (a dict) nothing is spawned: the trace's
+    job goes into it under ``prefix``, for the caller to replay with
+    the others in one spawn and gate, and None is returned."""
+    if replays is not None:
+        replays[prefix] = trace_job(res)
+        return None
+    return spmd_replays(emit, {prefix: trace_job(res)}, device)[prefix]
+
+
+def _replay_ok(err: float, spmd) -> bool:
+    """Replay parity: one device within 1e-5, the SPMD replay within
+    SPMD_TOL (None: deferred to the caller's ``spmd_replays``)."""
+    return err <= 1e-5 and (spmd is None or spmd <= SPMD_TOL)
 
 
 def churn_runs(smoke: bool = False, device: DeviceLike = None):
@@ -286,7 +315,8 @@ def _rounds_gate(base, run, gate: str):
 
 
 def churn_scenario(emit: Emit, smoke: bool = False,
-                   device: DeviceLike = None) -> bool:
+                   device: DeviceLike = None,
+                   replays=None) -> bool:
     """Crash+rejoin at 8 workers, per-push commits, REAL numerics:
     deterministic plan, replay parity through the epoch (one device and
     the 8-rank SPMD mesh), and a rounds-to-tolerance gate — chaos must
@@ -311,8 +341,8 @@ def churn_scenario(emit: Emit, smoke: bool = False,
     err = _replay_max_err(ch, build_session(
         delay_model=ch.to_delay_model(), device=device, **REPLAY_SESSION))
     emit(f"churn_replay_err_1dev,{err:.2e},tol=1e-05")
-    spmd = spmd_replay_err(emit, "churn", ch, device)
-    ok = err <= 1e-5 and spmd <= SPMD_TOL
+    spmd = spmd_replay_err(emit, "churn", ch, device, replays)
+    ok = _replay_ok(err, spmd)
     if ratio > max_ratio:
         emit(f"churn_gate_FAILED,0,rounds ratio {ratio:.3f} > {max_ratio}")
     if not ok:
@@ -321,7 +351,8 @@ def churn_scenario(emit: Emit, smoke: bool = False,
 
 
 def lossy_scenario(emit: Emit, smoke: bool = False,
-                   device: DeviceLike = None) -> bool:
+                   device: DeviceLike = None,
+                   replays=None) -> bool:
     """Unreliable transport at 8 workers, REAL numerics: 5% drop, 2%
     duplication, 10% reorder on every worker<->server link, with the
     ack/retry/backoff layer on. Gates rounds-to-tolerance lossy/reliable
@@ -343,8 +374,8 @@ def lossy_scenario(emit: Emit, smoke: bool = False,
     err = _replay_max_err(lo, build_session(
         delay_model=lo.to_delay_model(), device=device, **REPLAY_SESSION))
     emit(f"lossy_replay_err_1dev,{err:.2e},tol=1e-05")
-    spmd = spmd_replay_err(emit, "lossy", lo, device)
-    ok = err <= 1e-5 and spmd <= SPMD_TOL
+    spmd = spmd_replay_err(emit, "lossy", lo, device, replays)
+    ok = _replay_ok(err, spmd)
     if ratio > max_ratio:
         emit(f"lossy_gate_FAILED,0,rounds ratio {ratio:.3f} > {max_ratio}")
     if not ok:
@@ -374,7 +405,8 @@ def lost_fold_rounds(rt_ff, rt_cr) -> int:
 
 
 def server_crash_scenario(emit: Emit, smoke: bool = False,
-                          device: DeviceLike = None) -> bool:
+                          device: DeviceLike = None,
+                          replays=None) -> bool:
     """Block-server crash + WAL-replay recovery at 8 real-compute
     workers: a deterministic ``server_crash`` plan drops two lock
     domains' in-memory state mid-run; each rebuilds from its write-ahead
@@ -413,8 +445,8 @@ def server_crash_scenario(emit: Emit, smoke: bool = False,
     err = _replay_max_err(cr, build_session(
         delay_model=cr.to_delay_model(), device=device, **REPLAY_SESSION))
     emit(f"server_crash_replay_err_1dev,{err:.2e},tol=1e-05")
-    spmd = spmd_replay_err(emit, "server_crash", cr, device)
-    ok = ok and err <= 1e-5 and spmd <= SPMD_TOL
+    spmd = spmd_replay_err(emit, "server_crash", cr, device, replays)
+    ok = ok and _replay_ok(err, spmd)
     if lost:
         emit(f"server_crash_gate_FAILED,0,{lost} rounds lost/extra folds "
              f"after WAL replay")

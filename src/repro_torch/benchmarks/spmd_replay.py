@@ -8,12 +8,14 @@ device: the CPU, or all on one card), each builds
 ``launch.mesh.make_test_mesh(8)`` and the scenario's session over it
 with the trace's ``TraceDelay``, replays every round of every trace it
 is given, and reports the largest |z_replay - z_runtime| it saw. One
-spawn replays any number of traces.
+spawn replays any number of traces, and can carry other work for the
+same 8 ranks (``extra``).
 """
 from __future__ import annotations
 
 import datetime
 import json
+import pickle
 import tempfile
 import time
 from pathlib import Path
@@ -40,9 +42,17 @@ def trace_job(res) -> dict:
                            for z in res.z_versions])}
 
 
-def _rank(rank: int, world: int, init_method: str, jobs: Dict[str, dict],
-          session_kw: dict, device: str, out_dir: str) -> None:
-    """One rank: replay every job through the sharded epoch."""
+def _rank(rank: int, world: int, init_method: str, jobs_file: str,
+          session_kw: dict, device: str, out_dir: str, extra=None,
+          t_spawn: float = 0.0) -> None:
+    """One rank: replay every job (read from ``jobs_file``) through the
+    sharded epoch, then run ``extra`` (see ``replay_spmd``). ``clock``
+    books the wall seconds since ``t_spawn`` (the parent's
+    ``time.time()`` at the spawn) at which the rank started, joined the
+    group and ended each job."""
+    clock = {"started": time.time() - t_spawn}
+    with open(jobs_file, "rb") as f:
+        jobs = pickle.load(f)
     import torch.distributed as dist
 
     from ..core.space import TraceDelay
@@ -55,10 +65,11 @@ def _rank(rank: int, world: int, init_method: str, jobs: Dict[str, dict],
     dist.init_process_group(
         "gloo", init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    clock["joined"] = time.time() - t_spawn
     try:
         mesh = make_test_mesh(world, MODEL)
         out = {"coords": dict(mesh.coords), "errs": {}, "launches": {},
-               "rounds": {}}
+               "rounds": {}, "clock": clock}
         for name, job in jobs.items():
             dm = TraceDelay(job["delays"], participation=job["participation"])
             sess = build_session(delay_model=dm, mesh=mesh, device=device,
@@ -75,26 +86,45 @@ def _rank(rank: int, world: int, init_method: str, jobs: Dict[str, dict],
             out["launches"][name] = {k: n for k, n in
                                      ops.launch_counts().items() if n}
             out["rounds"][name] = z_run.shape[0] - 1
+            clock[name] = time.time() - t_spawn
+        if extra is not None:
+            fn, args = extra
+            torch.save(fn(rank, mesh, *args),
+                       Path(out_dir) / f"rank{rank}_extra.pt")
+            clock["extra"] = time.time() - t_spawn
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
 def replay_spmd(jobs: Dict[str, dict], session_kw: dict,
-                device="cpu") -> Dict[str, dict]:
+                device="cpu", extra=None):
     """Spawn WORLD gloo ranks once and replay every job (``trace_job``)
     through ``speedup.build_session(**session_kw)`` on the (data 4, model
     2) mesh. Returns, by job: the largest replay error over the ranks
     and rounds (``err``), the rounds, each rank's launches by kernel,
-    and the spawn's wall seconds (start to join, all jobs)."""
+    the spawn's wall seconds (start to join, all jobs) and each rank's
+    ``clock`` (seconds into the spawn at which it started, joined the
+    group and ended each job: where the spawn's time went).
+
+    ``extra``, a pair (fn, args) of a picklable function, is other work
+    for the same ranks: after the replays each rank calls
+    ``fn(rank, mesh, *args)`` in the process group, and the return is
+    then (the replays as above, the list of ``fn``'s results by rank)."""
     import torch.multiprocessing as mp
 
-    t0 = time.perf_counter()
+    t0, t_spawn = time.perf_counter(), time.time()
     dev = str(torch.device(device))
     with tempfile.TemporaryDirectory() as tmp:
+        # the traces go through a file: arguments past a pipe's buffer
+        # make each process's start wait until the one before it has
+        # imported torch (the ranks then start ~8 s apart on a card)
+        jobs_file = str(Path(tmp) / "jobs.pkl")
+        with open(jobs_file, "wb") as f:
+            pickle.dump(jobs, f)
         ctx = mp.start_processes(
-            _rank, args=(WORLD, f"file://{tmp}/store", jobs, session_kw, dev,
-                         tmp),
+            _rank, args=(WORLD, f"file://{tmp}/store", jobs_file, session_kw,
+                         dev, tmp, extra, t_spawn),
             nprocs=WORLD, start_method="spawn", join=False)
         deadline = time.monotonic() + JOIN_S
         try:
@@ -109,9 +139,13 @@ def replay_spmd(jobs: Dict[str, dict], session_kw: dict,
                     proc.join()
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(WORLD)]
+        extras = None if extra is None else [
+            torch.load(Path(tmp) / f"rank{r}_extra.pt") for r in range(WORLD)]
     seconds = time.perf_counter() - t0
-    return {name: {"err": max(r["errs"][name] for r in ranks),
-                   "rounds": ranks[0]["rounds"][name],
-                   "launches_per_rank": [r["launches"][name] for r in ranks],
-                   "spawn_seconds": seconds}
-            for name in jobs}
+    out = {name: {"err": max(r["errs"][name] for r in ranks),
+                  "rounds": ranks[0]["rounds"][name],
+                  "launches_per_rank": [r["launches"][name] for r in ranks],
+                  "spawn_seconds": seconds,
+                  "rank_clock_s": [r["clock"] for r in ranks]}
+           for name in jobs}
+    return out if extra is None else (out, extras)

@@ -212,10 +212,28 @@ class BlockLayout:
             mask[j, :used] = True
         return mask
 
-    def _lead(self, leaves) -> Tuple[int, ...]:
-        lead = leaves[0].ndim - len(self.leaf_shapes[0])
+    def window_leaf_ids(self, window=None) -> Tuple[int, ...]:
+        """The leaves of the block window ``(m0, Ml)``, blocks [m0, m0 +
+        Ml), in leaf order; every leaf when ``window`` is None. A leaf
+        lies in one block, so a window holds whole leaves."""
+        if window is None:
+            return tuple(range(len(self.leaf_shapes)))
+        m0, Ml = window
+        return tuple(k for k, b in enumerate(self.block_ids)
+                     if m0 <= b < m0 + Ml)
+
+    def window_rows(self, window=None) -> int:
+        """Ml, the rows of the window's table (M when ``window`` is
+        None)."""
+        return self.num_blocks if window is None else window[1]
+
+    def _lead(self, leaves, ids) -> Tuple[int, ...]:
+        if len(leaves) != len(ids):
+            raise ValueError(f"{len(leaves)} leaves; the layout's window "
+                             f"holds {len(ids)}")
+        lead = leaves[0].ndim - len(self.leaf_shapes[ids[0]])
         batch = tuple(leaves[0].shape[:lead])
-        for k, leaf in enumerate(leaves):
+        for leaf, k in zip(leaves, ids):
             if tuple(leaf.shape) != batch + self.leaf_shapes[k]:
                 raise ValueError(
                     f"leaf {k} has shape {tuple(leaf.shape)}; expected "
@@ -223,56 +241,70 @@ class BlockLayout:
                     f"for a different tree?)")
         return batch
 
-    def leaf_starts(self) -> Tuple[int, ...]:
-        """Per leaf: start offset within the row-major flattened table."""
-        return tuple(self.block_ids[k] * self.block_dim + self.leaf_offsets[k]
-                     for k in range(len(self.leaf_shapes)))
+    def leaf_starts(self, window=None) -> Tuple[int, ...]:
+        """Per leaf of the window: start offset within the row-major
+        flattened table of its rows."""
+        m0 = 0 if window is None else window[0]
+        return tuple((self.block_ids[k] - m0) * self.block_dim
+                     + self.leaf_offsets[k]
+                     for k in self.window_leaf_ids(window))
 
-    def pack_leaves(self, leaves):
+    def pack_leaves(self, leaves, window=None):
         """Leaves (in ``tree_flatten`` order, shapes ``batch +
         leaf_shape``) -> the table ``batch + (M, dblk)``: one zeroed
         table, each leaf cast into its window by one copy (no
-        concatenated intermediate)."""
-        batch = self._lead(leaves)
-        out = torch.zeros(batch + (self.num_blocks, self.block_dim),
+        concatenated intermediate). Under a block ``window`` (m0, Ml)
+        the leaves are the window's and the table its Ml rows."""
+        ids = self.window_leaf_ids(window)
+        batch = self._lead(leaves, ids)
+        rows = self.window_rows(window)
+        out = torch.zeros(batch + (rows, self.block_dim),
                           dtype=getattr(torch, self.dtype),
                           device=leaves[0].device)
-        flat = out.view(batch + (self.num_blocks * self.block_dim,))
-        for leaf, shape, start in zip(leaves, self.leaf_shapes,
-                                      self.leaf_starts()):
-            size = _size(shape)
+        flat = out.view(batch + (rows * self.block_dim,))
+        for leaf, k, start in zip(leaves, ids, self.leaf_starts(window)):
+            size = _size(self.leaf_shapes[k])
             flat.narrow(-1, start, size).copy_(
                 leaf.reshape(batch + (size,)))
         return out
 
-    def unpack_leaves(self, arr):
-        """The table ``batch + (M, dblk)`` -> leaves in ``tree_flatten``
-        order, in their stored dtypes; padding dropped. Leaves in the
-        compute dtype are views of the (contiguous) table: each reads
-        only its own window."""
+    def unpack_leaves(self, arr, window=None):
+        """The table ``batch + (M, dblk)`` (a ``window``'s ``batch +
+        (Ml, dblk)``) -> its leaves in ``tree_flatten`` order, in their
+        stored dtypes; padding dropped. Leaves in the compute dtype are
+        views of the (contiguous) table: each reads only its own
+        window."""
         batch = tuple(arr.shape[:-2])
-        flat = arr.contiguous().view(batch + (self.num_blocks
-                                              * self.block_dim,))
+        flat = arr.contiguous().view(
+            batch + (self.window_rows(window) * self.block_dim,))
         leaves = []
-        for shape, dt, start in zip(self.leaf_shapes, self.leaf_dtypes,
-                                    self.leaf_starts()):
-            piece = flat.narrow(-1, start, _size(shape))
-            leaves.append(piece.view(batch + shape).to(getattr(torch, dt)))
+        for k, start in zip(self.window_leaf_ids(window),
+                            self.leaf_starts(window)):
+            piece = flat.narrow(-1, start, _size(self.leaf_shapes[k]))
+            leaves.append(piece.view(batch + self.leaf_shapes[k])
+                          .to(getattr(torch, self.leaf_dtypes[k])))
         return leaves
 
-    def to_blocks(self, tree_val):
+    def to_blocks(self, tree_val, window=None):
         """Pack a pytree (leaves ``batch + leaf_shape``) into the block
-        table ``batch + (M, dblk)`` in the packed compute dtype."""
+        table ``batch + (M, dblk)`` in the packed compute dtype. Under a
+        ``window`` the tree is :meth:`from_blocks`'s: the window's
+        leaves, every other leaf ``None``."""
         leaves, treedef = tree_flatten(tree_val)
-        if treedef != self.tree.treedef:
+        if window is None and treedef != self.tree.treedef:
             raise ValueError(f"tree structure {treedef} does not match the "
                              f"layout's {self.tree.treedef}")
-        return self.pack_leaves(leaves)
+        return self.pack_leaves(leaves, window)
 
-    def from_blocks(self, arr):
+    def from_blocks(self, arr, window=None):
         """Unpack a block table ``batch + (M, dblk)`` back to the pytree
-        (leaves cast back to their stored dtypes; padding dropped)."""
-        return tree_unflatten(self.tree.treedef, self.unpack_leaves(arr))
+        (leaves cast back to their stored dtypes; padding dropped). Under
+        a ``window`` the leaves outside it are ``None``."""
+        leaves = [None] * len(self.leaf_shapes)
+        for k, leaf in zip(self.window_leaf_ids(window),
+                           self.unpack_leaves(arr, window)):
+            leaves[k] = leaf
+        return tree_unflatten(self.tree.treedef, leaves)
 
 
 def make_block_layout(tree, blocks: TreeBlocks = None, *,

@@ -37,8 +37,14 @@ than approximate:
   worker reduction's float-sum order changes (partial sum + all-reduce),
   so the two trajectories agree to fp32 tolerance.
 
-Not ported: the reference's ``_SimCollectives`` and
-``per_shard_cost_program``, which serve only its HLO costing.
+Costing one shard (the reference's HLO costing, here the port's cost
+counter, ``analysis/cost.py``): every collective of ``MeshCollectives``
+reports itself to ``analysis.hooks``, which charges it by kind at its
+result's bytes. :class:`SimCollectives` are single-rank stand-ins with
+the real collectives' shapes and the same charge, and
+:func:`per_shard_cost_program` runs one shard of the epoch on its local
+tiles with them, with no process group: on the meta device it costs a
+mesh no machine here holds.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from ..analysis import hooks
 from ..device import seeded_generator
 from ..launch.mesh import data_axes, model_axis_size, num_workers
 from .async_sim import minibatch_rows, validate_minibatch_data
@@ -166,11 +173,20 @@ def rank_data(tile: Tile, N: int, data):
 def _gather(x, axis: int, group, size: int):
     """Tiled all-gather: the ranks' ``x`` concatenated along ``axis`` in
     group order (``lax.all_gather(..., tiled=True)``)."""
-    xm = x.movedim(axis, 0).contiguous()
-    out = torch.empty((size * xm.shape[0],) + tuple(xm.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, xm, group=group)
-    return out.movedim(0, axis)
+    def run():
+        xm = x.movedim(axis, 0).contiguous()
+        out = torch.empty((size * xm.shape[0],) + tuple(xm.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, xm, group=group)
+        return out.movedim(0, axis)
+    return hooks.collective("all-gather", x, run)
+
+
+def _all_reduce(x, group, op=dist.ReduceOp.SUM):
+    def run():
+        dist.all_reduce(x, op=op, group=group)
+        return x
+    return hooks.collective("all-reduce", x, run)
 
 
 class MeshCollectives:
@@ -194,36 +210,93 @@ class MeshCollectives:
         received stack is moved to its place in front of ``concat_axis``
         (a mix-up here swaps blocks and workers without a shape error)."""
         k = self.msize
-        chunk = x.shape[split_axis] // k
-        send = x.unflatten(split_axis, (k, chunk)).movedim(split_axis, 0)
-        send = send.contiguous()                 # (k,) + one chunk's shape
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=self.mesh.model_group)
-        return recv.movedim(0, concat_axis).flatten(concat_axis,
-                                                    concat_axis + 1)
+
+        def run():
+            chunk = x.shape[split_axis] // k
+            send = x.unflatten(split_axis, (k, chunk)).movedim(split_axis, 0)
+            send = send.contiguous()             # (k,) + one chunk's shape
+            recv = torch.empty_like(send)
+            dist.all_to_all_single(recv, send, group=self.mesh.model_group)
+            return recv.movedim(0, concat_axis).flatten(concat_axis,
+                                                        concat_axis + 1)
+        return hooks.collective("all-to-all", x, run)
 
     def all_gather_data(self, x):
         return _gather(x, 0, self.mesh.data_group, self.nsh)
 
     def psum_data(self, x):
-        dist.all_reduce(x, group=self.mesh.data_group)
-        return x
+        return _all_reduce(x, self.mesh.data_group)
 
     def psum_model(self, x):
-        dist.all_reduce(x, group=self.mesh.model_group)
-        return x
+        return _all_reduce(x, self.mesh.model_group)
 
     def reduce_all(self, x, op=dist.ReduceOp.SUM):
         """``op`` over every rank of the mesh: the data group, then the
         model group."""
-        dist.all_reduce(x, op=op, group=self.mesh.data_group)
-        dist.all_reduce(x, op=op, group=self.mesh.model_group)
-        return x
+        _all_reduce(x, self.mesh.data_group, op)
+        return _all_reduce(x, self.mesh.model_group, op)
 
     def full_blocks(self, x):
         """An (Ml, dblk) block-server shard gathered to the full (M,
         dblk) table."""
         return self.all_gather_model(x, axis=0) if self.msize > 1 else x
+
+
+class SimCollectives(MeshCollectives):
+    """Single-rank stand-ins for :class:`MeshCollectives` with the same
+    shapes, for costing one shard with no process group: a gather
+    returns its input repeated to the gathered shape, an all-to-all a
+    reshape to the exchanged shape, a reduction its input as it is.
+    Each reports itself to ``analysis.hooks`` as the real collective
+    does, so a counter charges both alike (and counts nothing of the
+    stand-in's own ops)."""
+
+    def all_gather_model(self, x, axis):
+        return hooks.collective("all-gather", x,
+                                lambda: torch.cat([x] * self.msize, axis))
+
+    def all_to_all_model(self, x, split_axis, concat_axis):
+        shape = list(x.shape)
+        shape[split_axis] //= self.msize
+        shape[concat_axis] *= self.msize
+        return hooks.collective("all-to-all", x,
+                                lambda: x.reshape(shape))
+
+    def all_gather_data(self, x):
+        return hooks.collective("all-gather", x,
+                                lambda: torch.cat([x] * self.nsh, dim=0))
+
+    def psum_data(self, x):
+        return hooks.collective("all-reduce", x, lambda: x)
+
+    def psum_model(self, x):
+        return hooks.collective("all-reduce", x, lambda: x)
+
+    def reduce_all(self, x, op=dist.ReduceOp.SUM):
+        self.psum_data(x)
+        return self.psum_model(x)
+
+
+def per_shard_cost_program(spec: ConsensusSpec, data, z0=None):
+    """(fn, args): ``fn(*args)`` runs ONE shard of the SPMD epoch (the
+    tile of the spec's mesh view: rank 0's on an abstract mesh) with
+    :class:`SimCollectives`, on local
+    tiles made for ``spec.device`` (meta: shapes only), with no process
+    group. The mesh may be ``launch.mesh.make_abstract_mesh``'s. ``data``
+    holds all N workers' rows or rank 0's; ``z0`` (a params tree, meta
+    tensors suffice) is required for a pytree space, which has no
+    default initial value. Cost it under ``analysis.cost.count``."""
+    from .space import init_consensus_state
+    tile = local_tile(spec)
+    space_l = local_space(spec, tile.Nl)
+    coll = SimCollectives(spec.space.mesh)
+    state = init_consensus_state(spec, z0)
+    data = rank_data(tile, spec.space.num_workers, data)
+
+    def fn(st, d):
+        return _epoch_body(spec, space_l, coll, tile, st, d)
+
+    return fn, (state, data)
 
 
 def psum_rank_data(mesh, N: int, M: int, x):

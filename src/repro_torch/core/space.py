@@ -81,7 +81,10 @@ def resolve_backend(backend: Optional[str] = None,
 
     ``"auto"``/None picks ``cuda`` (the hand-written kernels) on a CUDA
     device and ``torch`` elsewhere. ``"cuda"`` off a CUDA device raises:
-    there is no kernel to launch on the CPU. ``"torch"`` runs anywhere.
+    there is no kernel to launch on the CPU. On the meta device it is the
+    card's program with shapes only (the kernels' plain versions run
+    there; ``analysis/cost.py`` charges each its declared cost).
+    ``"torch"`` runs anywhere.
     """
     dev = torch.device(device)
     if backend in (None, "auto"):
@@ -89,7 +92,7 @@ def resolve_backend(backend: Optional[str] = None,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; "
                          f"expected one of torch | cuda | auto")
-    if backend == "cuda" and dev.type != "cuda":
+    if backend == "cuda" and dev.type not in ("cuda", "meta"):
         raise ValueError(f"backend='cuda' launches the CUDA kernels and "
                          f"needs a CUDA device; got device={dev}")
     return backend

@@ -30,6 +30,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: a draw on meta has
+    a shape and no values, and torch makes no generator for meta. The
+    cost counter (``analysis/cost.py``) runs the epoch there."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def seeded_generator(device: torch.device, *key: int) -> torch.Generator:
     """A generator on ``device`` seeded from the integer tuple ``key``
     (mixed through numpy's SeedSequence, so neighbouring keys give
@@ -37,6 +47,7 @@ def seeded_generator(device: torch.device, *key: int) -> torch.Generator:
     words = np.random.SeedSequence([int(k) for k in key]).generate_state(
         2, np.uint32)
     seed = (int(words[0]) << 31) ^ int(words[1])
-    gen = torch.Generator(device=device)
+    gen = (_MetaGenerator() if torch.device(device).type == "meta"
+           else torch.Generator(device=device))
     gen.manual_seed(seed)
     return gen

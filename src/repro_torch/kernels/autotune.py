@@ -223,12 +223,14 @@ def launch_candidates(op: str, N: int, M: int, d: int,
     return sorted(out)
 
 
-def op_bytes(op: str, N: int, M: int, d: int) -> int:
+def op_bytes(op: str, N: int, M: int, d: int, with_x: bool = False) -> int:
     """Bytes the op moves on the sweep's inputs (every row selected):
-    B1 reads g, y, z~ and writes y', w'; B2 reads w_cache and z and
-    writes z'; both read their masks and penalties."""
+    B1 reads g, y, z~ and writes y', w' (and x' ``with_x``: a row that
+    is not selected reads w and x instead of g and z~, so the count
+    holds at any selection); B2 reads w_cache and z and writes z'; both
+    read their masks and penalties."""
     if op == "worker_select_update":
-        return 5 * N * M * d * 4 + N * M + 4 * N
+        return (6 if with_x else 5) * N * M * d * 4 + N * M + 4 * N
     return (N + 2) * M * d * 4 + N * M + 4 * M
 
 

@@ -16,6 +16,10 @@ count is not a multiple of 8*128, with the reference's ``ValueError``
 contract. ``matmul`` and ``logreg_grad`` take any shape (data matrices
 are not laid out by the package) in float32, bfloat16 or float16, with
 a float32 accumulator and the result in the input dtype.
+
+Every op reports its dispatch to ``analysis.hooks``, so a cost counter
+charges the kernel its declared cost (``analysis/cost.py``) whichever
+version runs, and nothing of the plain version's ops on top.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Dict
 
 import torch
 
+from ..analysis import hooks
 from . import admm_update as _admm
 from . import flash_attention as _fa
 from . import logreg as _lg
@@ -54,11 +59,16 @@ def admm_worker_select_update(g, y, z_tilde, w_old, sel, rho_vec,
 
     Returns (y', w'[, x'])."""
     _require_lane_aligned(g.shape[-1], "admm_worker_select_update")
-    if g.is_cuda:
-        return _admm.admm_worker_select_update_cuda(
-            g, y, z_tilde, w_old, sel, rho_vec, x_old, launch=launch)
-    return _admm.admm_worker_select_update_torch(
-        g, y, z_tilde, w_old, sel, rho_vec, x_old)
+
+    def run():
+        if g.is_cuda:
+            return _admm.admm_worker_select_update_cuda(
+                g, y, z_tilde, w_old, sel, rho_vec, x_old, launch=launch)
+        return _admm.admm_worker_select_update_torch(
+            g, y, z_tilde, w_old, sel, rho_vec, x_old)
+
+    return hooks.kernel("admm_worker_select_update",
+                        (g, y, z_tilde, w_old, sel, rho_vec, x_old), run)
 
 
 def server_prox_update(z_cur, w_cache, edge, rho_sum, gamma: float,
@@ -70,11 +80,17 @@ def server_prox_update(z_cur, w_cache, edge, rho_sum, gamma: float,
     rho_sum: (M,) per-block penalty sums; ``launch`` as in
     ``admm_worker_select_update``. Returns z_new (M, d)."""
     _require_lane_aligned(z_cur.shape[-1], "server_prox_update")
-    if z_cur.is_cuda:
-        return _prox.server_prox_update_cuda(
-            z_cur, w_cache, edge, rho_sum, gamma, l1, clip, launch=launch)
-    return _prox.server_prox_update_torch(
-        z_cur, w_cache, edge, rho_sum, gamma, l1, clip)
+
+    def run():
+        if z_cur.is_cuda:
+            return _prox.server_prox_update_cuda(
+                z_cur, w_cache, edge, rho_sum, gamma, l1, clip,
+                launch=launch)
+        return _prox.server_prox_update_torch(
+            z_cur, w_cache, edge, rho_sum, gamma, l1, clip)
+
+    return hooks.kernel("server_prox_update", (z_cur, w_cache, edge, rho_sum),
+                        run)
 
 
 def prox_consensus(z_tilde, w_sum, rho_sum, gamma: float, l1: float = 0.0,
@@ -88,11 +104,15 @@ def prox_consensus(z_tilde, w_sum, rho_sum, gamma: float, l1: float = 0.0,
     M, d = z_tilde.shape
     _require_lane_aligned(d, "prox_consensus")
     rho_sum = rho_sum.reshape(M)
-    if z_tilde.is_cuda:
-        return _prox.prox_consensus_cuda(z_tilde, w_sum, rho_sum, gamma, l1,
-                                         clip)
-    return _prox.prox_consensus_torch(z_tilde, w_sum, rho_sum, gamma, l1,
-                                      clip)
+
+    def run():
+        if z_tilde.is_cuda:
+            return _prox.prox_consensus_cuda(z_tilde, w_sum, rho_sum, gamma,
+                                             l1, clip)
+        return _prox.prox_consensus_torch(z_tilde, w_sum, rho_sum, gamma, l1,
+                                          clip)
+
+    return hooks.kernel("prox_consensus", (z_tilde, w_sum, rho_sum), run)
 
 
 def _flat_aligned(v):
@@ -118,10 +138,13 @@ def admm_worker_update(g, y, z_tilde, rho):
         raise TypeError(f"admm_worker_update takes float32 or bfloat16, got "
                         f"{g.dtype}")
     flat = [_flat_aligned(t) for t in (g, y, z_tilde)]
-    if g.is_cuda:
-        outs = _admm.admm_worker_update_cuda(*flat, rho)
-    else:
-        outs = _admm.admm_worker_update_torch(*flat, rho)
+
+    def run():
+        if g.is_cuda:
+            return _admm.admm_worker_update_cuda(*flat, rho)
+        return _admm.admm_worker_update_torch(*flat, rho)
+
+    outs = hooks.kernel("admm_worker_update", tuple(flat), run)
     return tuple(o.reshape(g.shape) for o in outs)
 
 
@@ -130,18 +153,26 @@ def matmul(a, b, transpose_a: bool = False):
     2-D, any sizes; float32, bfloat16 or float16 (one dtype), summed in
     float32, C in the operands' dtype."""
     _lg.require_float("matmul", a=a, b=b)
-    if a.is_cuda:
-        return _lg.matmul_cuda(a, b, transpose_a)
-    return _lg.matmul_torch(a, b, transpose_a)
+
+    def run():
+        if a.is_cuda:
+            return _lg.matmul_cuda(a, b, transpose_a)
+        return _lg.matmul_torch(a, b, transpose_a)
+
+    return hooks.kernel("matmul", (a, b, transpose_a), run)
 
 
 def _margin(s, y):
     """v = -y * sigmoid(-y * s) elementwise, computed in float32, in the
     operands' dtype."""
     _lg.require_float("margin", s=s, y=y)
-    if s.is_cuda:
-        return _lg.margin_cuda(s, y)
-    return _lg.margin_torch(s, y)
+
+    def run():
+        if s.is_cuda:
+            return _lg.margin_cuda(s, y)
+        return _lg.margin_torch(s, y)
+
+    return hooks.kernel("margin", (s, y), run)
 
 
 def logreg_grad(X, y, w):
@@ -162,9 +193,13 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     defaults to 1/sqrt(hd). On CUDA tensors the kernel takes hd 128 or
     256 and any S, T."""
     _fa.check_operands("flash_attention", q, k, v)
-    if q.is_cuda:
-        return _fa.flash_attention_cuda(q, k, v, causal, scale)
-    return _fa.flash_attention_torch(q, k, v, causal, scale)
+
+    def run():
+        if q.is_cuda:
+            return _fa.flash_attention_cuda(q, k, v, causal, scale)
+        return _fa.flash_attention_torch(q, k, v, causal, scale)
+
+    return hooks.kernel("flash_attention", (q, k, v, causal), run)
 
 
 _COUNTERS = (_admm.launches, _prox.launches, _lg.launches, _fa.launches)

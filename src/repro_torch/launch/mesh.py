@@ -95,6 +95,20 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
                 model_group=model_groups[wi])
 
 
+def make_abstract_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]
+                       ) -> Mesh:
+    """Rank 0's view of a mesh of ``prod(shape)`` ranks, with no process
+    group and no groups: what ``core.sharded.per_shard_cost_program``
+    needs to cost one shard (the reference's ``AbstractMesh``). Its
+    collectives cannot run."""
+    if not set(axes) <= set(MESH_AXES) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh axes {axes} unknown; expected distinct "
+                         f"names from {MESH_AXES}")
+    return Mesh(axis_names=tuple(axes), shape=dict(zip(axes, shape)),
+                coords={a: 0 for a in axes}, data_group=None,
+                model_group=None)
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")

@@ -15,11 +15,24 @@ Parameter Server runtime: B1 per worker compute, B2 per block commit);
 schedule. One JSON line per logged step, with the loss at full float
 precision. On the card unless ``--device cpu``; ``main`` returns the
 logged losses.
+
+``--mesh test`` (or ``pod``, ``multipod``) runs the SPMD epoch over a
+mesh of ``torch.distributed`` ranks, one process each; started by
+``torchrun``, the launcher joins the default group from its environment
+(gloo on the CPU, NCCL on the card when each rank has a card of its
+own, else gloo), and rank 0 prints:
+
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+      --mesh test --device cpu --steps 6
 """
 import argparse
 import contextlib
 import json
+import os
 import time
+
+import torch
+import torch.distributed as dist
 
 from ..api import ConsensusSession
 from ..checkpoint import save
@@ -274,19 +287,48 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def join_process_group(device) -> bool:
+    """The default process group from ``torchrun``'s environment (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), unless one is
+    up; True when this call made it."""
+    if dist.is_initialized():
+        return False
+    if "WORLD_SIZE" not in os.environ:
+        raise SystemExit("--mesh needs one process per rank: start the "
+                         "launcher with torchrun --nproc-per-node <ranks>")
+    world = int(os.environ["WORLD_SIZE"])
+    backend = "gloo"
+    if device.type == "cuda" and world <= torch.cuda.device_count():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        backend = "nccl"
+    dist.init_process_group(backend, init_method="env://")
+    return True
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
     if args.runtime == "ps" and args.trainer != "admm":
         raise SystemExit("--runtime ps is the AsyBADMM Parameter Server "
                          "runtime; use --trainer admm")
     device = resolve_device(args.device)
+    joined = args.mesh != "none" and join_process_group(device)
+    try:
+        return _train(args, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, device):
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     params = stacked_params(cfg, args.seed, device)
     n_params = sum(x.numel() for x in tree_leaves(params))
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"trainer={args.trainer} device={device}")
+    if rank0:
+        print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
+              f"trainer={args.trainer} device={device} mesh={args.mesh}")
 
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq + 1,
                          global_batch=args.batch, seed=args.seed)
@@ -347,13 +389,19 @@ def main(argv=None):
         if step % args.log_every == 0 or step == args.steps - 1:
             # machine stream: full float precision (see run_ps_training)
             losses.append(float(info["loss"]))
-            print(json.dumps({"step": step, "loss": losses[-1],
-                              "elapsed_s": round(time.time() - t0, 1)}),
-                  flush=True)
+            if rank0:
+                print(json.dumps({"step": step, "loss": losses[-1],
+                                  "elapsed_s": round(time.time() - t0, 1)}),
+                      flush=True)
 
     if args.ckpt:
-        save(args.ckpt, get_params(state), step=args.steps)
-        print(f"checkpoint saved to {args.ckpt}.npz")
+        # under a mesh every rank gathers the full z; one writes it
+        params = get_params(state)
+        if rank0:
+            save(args.ckpt, params, step=args.steps)
+            print(f"checkpoint saved to {args.ckpt}.npz")
+        if dist.is_initialized():
+            dist.barrier()
     return losses
 
 

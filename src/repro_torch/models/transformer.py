@@ -47,16 +47,25 @@ top-level ``cross_k`` and ``cross_v`` of (L, B, T_enc, nkv, hd), filled
 once from the encoder (``Engine``) and read by every decode step.
 ``decode_step`` updates the cache in place.
 
-``remat`` changes nothing at inference; on the stacked tree it raises:
-``torch.func.grad`` refuses the saved-tensor hooks that
-``torch.utils.checkpoint`` needs.
+``remat`` changes nothing at inference (the ``ParamTree``); on the
+stacked tree it checkpoints each layer of every loop the reference
+scans under ``jax.checkpoint`` (the dense / MoE loop, the SSM loop, the
+hybrid's SSM layers, the enc-dec encoder and decoder): the layer runs
+in a :class:`_Remat` function that saves only its inputs (the carry,
+the layer's parameter leaves and what the layer reads beside them) and
+recomputes the layer under ``torch.func.vjp`` in the backward.
+``torch.utils.checkpoint`` is not used: ``torch.func.grad`` refuses
+its saved-tensor hooks. The hybrid's shared block is not checkpointed,
+as the reference's is not.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
+
+from ..core.tree import tree_flatten, tree_unflatten
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -205,6 +214,118 @@ def _ssm_layer_fwd(lp, x, cfg):
     return x + ssm_mod.mamba2_forward(lp["mamba"], h, cfg)
 
 
+def _differentiated_again(saved) -> bool:
+    """Whether the backward being run is itself differentiated: a
+    backward with ``create_graph=True`` outside ``torch.func``, a second
+    ``grad`` / ``jvp`` transform around the one running, or autograd
+    recording the tensors under the transforms (a leaf that requires
+    grad). A single ``torch.func.grad`` runs its backward with grad
+    enabled and is not."""
+    from torch._C._functorch import (TransformType, get_unwrapped,
+                                     is_batchedtensor, is_gradtrackingtensor)
+    from torch._functorch.pyfunctorch import \
+        retrieve_all_functorch_interpreters
+    levels = [i.key() for i in retrieve_all_functorch_interpreters()]
+    if not levels:
+        return torch.is_grad_enabled()
+    if sum(k in (TransformType.Grad, TransformType.Jvp)
+           for k in levels) > 1:
+        return True
+    for t in saved:
+        while is_gradtrackingtensor(t) or is_batchedtensor(t):
+            t = get_unwrapped(t)
+        if t.requires_grad:
+            return True
+    return False
+
+
+class _Remat(torch.autograd.Function):
+    """``fn(*args)`` (a tuple of tensors) with only ``args`` saved: the
+    backward runs ``fn`` again under ``torch.func.vjp`` and pulls the
+    cotangents back to every floating-point argument, unrecorded: a
+    second derivative through a checkpointed layer raises
+    (:func:`_differentiated_again`) rather than miss the layer's term.
+    Every tensor the layer reads must be in ``args`` (a tensor closed
+    over would get no gradient); ``generate_vmap_rule`` lets it run
+    under ``vmap``."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        args = ctx.saved_tensors
+        if _differentiated_again(args):
+            raise RuntimeError(
+                "remat=True: a checkpointed layer's backward is not "
+                "differentiable (its pull is taken unrecorded); take "
+                "second derivatives with remat=False")
+        diff = [i for i, a in enumerate(args) if a.is_floating_point()]
+
+        def of_diff(*d):
+            full = list(args)
+            for i, t in zip(diff, d):
+                full[i] = t
+            return ctx.fn(*full)
+
+        _, pull = torch.func.vjp(of_diff, *(args[i] for i in diff))
+        # not recorded for a second derivative: torch.func.grad takes
+        # its gradient with create_graph=True, which would keep every
+        # tensor of the recompute and its backward alive to the end
+        with torch.no_grad():
+            pulled = pull(tuple(cotangents))
+        grads = [None] * len(args)
+        for i, g in zip(diff, pulled):
+            grads[i] = g
+        return (None, *grads)
+
+
+def _layer_call(cfg, layer_fn: Callable, lp, *inputs):
+    """``layer_fn(lp, *inputs)`` (a tensor, or a tuple whose None entries
+    stay None), checkpointed under ``cfg.remat`` when ``lp`` is a layer
+    of the stacked tree (a dict of tensors), as the reference's
+    ``_scan_layers`` checkpoints its scan body."""
+    if not (cfg.remat and isinstance(lp, dict)):
+        return layer_fn(lp, *inputs)
+    leaves, treedef = tree_flatten(lp)
+    n = len(inputs)
+    kept = []                          # which outputs are tensors
+
+    def flat(*args):
+        out = layer_fn(tree_unflatten(treedef, args[n:]), *args[:n])
+        outs = out if isinstance(out, tuple) else (out,)
+        kept[:] = [o is not None for o in outs]
+        return tuple(o for o in outs if o is not None)
+
+    outs = iter(_Remat.apply(flat, *inputs, *leaves))
+    full = [next(outs) if k else None for k in kept]
+    return tuple(full) if len(full) > 1 else full[0]
+
+
+def _dense_layer(lp, x, positions, cfg, causal=True):
+    return _layer_call(cfg, lambda p, h, pos: _dense_layer_fwd(
+        p, h, cfg, pos, causal=causal), lp, x, positions)
+
+
+def _ssm_layer(lp, x, cfg):
+    return _layer_call(cfg, lambda p, h: _ssm_layer_fwd(p, h, cfg), lp, x)
+
+
+def _decoder_layer(lp, x, positions, enc, cfg):
+    """An enc-dec decoder layer: its cross K/V from ``enc`` inside the
+    layer, as the reference's scan body computes them."""
+    return _layer_call(cfg, lambda p, h, pos, e: _dense_layer_fwd(
+        p, h, cfg, pos, enc_kv=attn.encode_cross_kv(p["cross"], e, cfg)),
+        lp, x, positions, enc)
+
+
 def _hybrid_groups(cfg):
     """(k, groups): the shared block follows each of the ``groups`` runs
     of k SSM layers; the layers past the last run follow no block."""
@@ -216,10 +337,10 @@ def _hybrid_forward(params, layers, x, cfg, positions):
     k, n_groups = _hybrid_groups(cfg)
     for g in range(n_groups):
         for lp in layers[g * k:(g + 1) * k]:
-            x = _ssm_layer_fwd(lp, x, cfg)
+            x = _ssm_layer(lp, x, cfg)
         x, _ = _dense_layer_fwd(params["shared_attn"], x, cfg, positions)
     for lp in layers[n_groups * k:]:
-        x = _ssm_layer_fwd(lp, x, cfg)
+        x = _ssm_layer(lp, x, cfg)
     return x
 
 
@@ -238,12 +359,6 @@ def _layer_list(params, name: str, cfg):
     stacked tree's leaves unbound once."""
     layers = params[name]
     if isinstance(layers, dict):
-        if cfg.remat:
-            raise NotImplementedError(
-                f"{cfg.name}: remat=True (activation checkpointing) is not "
-                f"supported on the stacked tree: torch.func.grad refuses "
-                f"the saved-tensor hooks torch.utils.checkpoint needs; set "
-                f"remat=False")
         return unbind_layers(layers)
     return layers
 
@@ -262,7 +377,7 @@ def encode(params, frames, cfg):
     positions = torch.arange(T, device=frames.device).expand(B, T)
     x = frames
     for lp in _layer_list(params, "enc_layers", cfg):
-        x, _ = _dense_layer_fwd(lp, x, cfg, positions, causal=False)
+        x, _ = _dense_layer(lp, x, positions, cfg, causal=False)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -288,18 +403,16 @@ def forward(params, tokens, cfg, *, enc_frames=None, logits_mode="all"):
     aux_total = torch.zeros((), device=x.device)
     if cfg.arch_type == "ssm":
         for lp in layers:
-            x = _ssm_layer_fwd(lp, x, cfg)
+            x = _ssm_layer(lp, x, cfg)
     elif cfg.arch_type == "hybrid":
         x = _hybrid_forward(params, layers, x, cfg, positions)
     elif cfg.is_enc_dec:
         enc = encode(params, enc_frames.to(x.dtype), cfg)
         for lp in layers:
-            x, _ = _dense_layer_fwd(
-                lp, x, cfg, positions,
-                enc_kv=attn.encode_cross_kv(lp["cross"], enc, cfg))
+            x, _ = _decoder_layer(lp, x, positions, enc, cfg)
     else:
         for lp in layers:
-            x, aux = _dense_layer_fwd(lp, x, cfg, positions)
+            x, aux = _dense_layer(lp, x, positions, cfg)
             if aux is not None:
                 aux_total = aux_total + aux
     if logits_mode == "last":

@@ -21,6 +21,19 @@ penalties, policies) is built once per trainer and tree structure: the
 reference leans on ``jit``'s cache for that, and an eager rebuild would
 be host work on every step.
 
+Under a mesh (``mesh=``, or ``admm.mesh``) ``train_step`` runs the SPMD
+epoch of ``core/sharded.py`` (B1 and B3 on every rank, never B2), and
+each rank's state holds only its tile of the (N, M) grid: the ring's
+block columns [m0, m0 + Ml) and the duals and w cache of its worker rows
+[n0, n0 + Nl) in those columns (``core.sharded.local_tile``). It is
+still params-shaped: a leaf lies in one block, so the tile unpacks into
+the leaves of the rank's blocks (``BlockLayout``'s block window
+(m0, Ml); ``z_hist`` leaves (D+1, ...), ``y`` /
+``w_cache`` leaves (Nl, ...)), views of the tile, and every other leaf
+of the tree is ``None``. No rank holds the whole table, so the state's
+memory divides over the mesh; ``gathered_params`` gathers the newest z
+over the model axis into the full params tree.
+
 ``SGDTrainer`` — the conventional synchronous data-parallel baseline
 (mean gradient + AdamW/SGD), for the convergence comparisons.
 
@@ -38,7 +51,9 @@ import torch
 from ..configs.base import ADMMConfig
 from ..core.admm import server_update, worker_update
 from ..core.async_sim import push_history, subsample_worker_data
-from ..core.blocks import TreeBlocks, make_block_layout, make_tree_blocks
+from ..core.blocks import (BlockLayout, TreeBlocks, make_block_layout,
+                           make_tree_blocks)
+from ..core.sharded import full_z_blocks, local_tile
 from ..core.space import (ConsensusSpec, ConsensusState, TreeSpace,
                           asybadmm_epoch, consensus_residual,
                           init_consensus_state, make_spec,
@@ -81,14 +96,16 @@ class SGDTrainer:
 # AsyBADMM consensus trainer — thin adapter over core.space
 # ===========================================================================
 
-def _table(layout, tree):
-    """The block table behind a params-shaped tree: the table itself when
-    every leaf is still the view ``layout.from_blocks`` made of it (so a
-    step's output packs with no copy), else a packed copy."""
+def _table(layout: BlockLayout, window, tree):
+    """The block table (a block ``window``'s rows) behind a params-shaped
+    tree: the table itself when every leaf is still the view
+    ``layout.from_blocks`` made of it (so a step's output packs with no
+    copy), else a packed copy."""
     leaves = tree_leaves(tree)
     base = leaves[0]._base
-    lead = leaves[0].dim() - len(layout.leaf_shapes[0])
-    shape = tuple(leaves[0].shape[:lead]) + (layout.num_blocks,
+    lead = leaves[0].dim() - len(
+        layout.leaf_shapes[layout.window_leaf_ids(window)[0]])
+    shape = tuple(leaves[0].shape[:lead]) + (layout.window_rows(window),
                                              layout.block_dim)
     if base is not None and base.dtype == torch.float32 \
             and base.is_contiguous() and base.numel() == torch.Size(
@@ -98,9 +115,16 @@ def _table(layout, tree):
         table = base.view(shape)
         if all(leaf.data_ptr() == view.data_ptr()
                and leaf.shape == view.shape and leaf.stride() == view.stride()
-               for leaf, view in zip(leaves, layout.unpack_leaves(table))):
+               for leaf, view in zip(leaves, layout.unpack_leaves(table,
+                                                                  window))):
             return table
-    return layout.to_blocks(tree)
+    return layout.to_blocks(tree, window)
+
+
+def _tree_key(tree):
+    leaves, treedef = tree_flatten(tree)
+    return (treedef, tuple((tuple(leaf.shape), leaf.dtype)
+                           for leaf in leaves))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,9 +140,8 @@ class ADMMTrainer:
                 effective rho_i = admm.rho * rho_scale[i].
     mesh      : optional ``launch.mesh.Mesh`` (or preset name)
                 overriding ``admm.mesh``: ``train_step`` then runs the
-                SPMD epoch. The state stays params-shaped, so the mesh
-                must leave each rank the whole table (1 x 1);
-                ``ConsensusSession.pytree(mesh=...)`` splits it.
+                SPMD epoch, and each rank's state is its tile (see the
+                module's docstring).
     device    : where the state lives and the epoch runs (None: the card).
     """
     loss_fn: Callable
@@ -131,13 +154,12 @@ class ADMMTrainer:
     device: DeviceLike = None
 
     def __post_init__(self):
-        # specs by tree structure, leaf shapes and dtypes
+        # specs by tree structure, leaf shapes and dtypes (the full
+        # params tree's, and under a mesh its tile's too)
         object.__setattr__(self, "_specs", {})
 
     def _spec(self, params) -> ConsensusSpec:
-        leaves, treedef = tree_flatten(params)
-        key = (treedef, tuple((tuple(leaf.shape), leaf.dtype)
-                              for leaf in leaves))
+        key = _tree_key(params)
         spec = self._specs.get(key)
         if spec is None:
             blocks = self.blocks if self.blocks is not None \
@@ -147,25 +169,44 @@ class ADMMTrainer:
             spec = make_spec(space, self.admm, self.loss_fn, edge=self.edge,
                              rho_scale=self.rho_scale, track_x=False,
                              mesh=self.mesh, device=self.device)
-            if spec.space.mesh is not None:
-                from ..core.sharded import local_tile
-                tile = local_tile(spec)
-                if (tile.Nl, tile.Ml) != (self.num_workers,
-                                          space.num_blocks):
-                    raise NotImplementedError(
-                        "ADMMTrainer keeps its state params-shaped, and "
-                        "this mesh splits the block table over ranks; "
-                        "train through ConsensusSession.pytree(mesh=...) "
-                        "instead")
             self._specs[key] = spec
         return spec
 
+    @staticmethod
+    def window(spec):
+        """This rank's block columns (m0, Ml) under a mesh, else None
+        (every block)."""
+        if spec.space.mesh is None:
+            return None
+        tile = local_tile(spec)
+        return (tile.m0, tile.Ml)
+
     def _packed(self, spec, state: ADMMTrainState) -> ConsensusState:
-        layout = spec.space.layout
-        return ConsensusState(z_hist=_table(layout, state.z_hist),
-                              y=_table(layout, state.y),
-                              w_cache=_table(layout, state.w_cache), x=None,
-                              t=int(state.step))
+        layout, window = spec.space.layout, self.window(spec)
+        return ConsensusState(z_hist=_table(layout, window, state.z_hist),
+                              y=_table(layout, window, state.y),
+                              w_cache=_table(layout, window, state.w_cache),
+                              x=None, t=int(state.step))
+
+    def _state(self, spec, g: ConsensusState) -> ADMMTrainState:
+        layout, window = spec.space.layout, self.window(spec)
+        state = ADMMTrainState(z_hist=layout.from_blocks(g.z_hist, window),
+                               y=layout.from_blocks(g.y, window),
+                               w_cache=layout.from_blocks(g.w_cache, window),
+                               step=g.t)
+        if window is not None:
+            # a tile's tree is found by its own structure from here on
+            self._specs.setdefault(_tree_key(state.params), spec)
+        return state
+
+    def gathered_params(self, state: ADMMTrainState):
+        """The newest consensus params as the full params tree, on every
+        rank (under a mesh, the z tiles gathered over the model axis)."""
+        spec = self._spec(state.params)
+        if spec.space.mesh is None:
+            return state.params
+        z = full_z_blocks(spec, self._packed(spec, state))
+        return spec.space.layout.from_blocks(z)
 
     @staticmethod
     def _check_w_cache(state: ADMMTrainState, what: str) -> None:
@@ -176,19 +217,16 @@ class ADMMTrainer:
 
     def init(self, params, *, cyclic: bool = False) -> ADMMTrainState:
         spec = self._spec(params)
-        g = init_consensus_state(spec, params)
         # the trainer's user-facing state stays in PARAMS representation
-        # (leaf dtypes, checkpoints); train_step lowers it onto the
-        # packed block table per step
-        unpack = spec.space.layout.from_blocks
-        z_hist, y, w_cache = (unpack(g.z_hist), unpack(g.y),
-                              unpack(g.w_cache))
+        # (leaf dtypes, checkpoints; under a mesh the rank's tile);
+        # train_step lowers it onto the packed block table per step
+        state = self._state(spec, init_consensus_state(spec, params))
         if cyclic:
             # Static Gauss-Seidel rounds (train_step_block) never read the
             # stale-w cache (every worker pushes the active block fresh) —
             # don't carry it.
-            w_cache = ()
-        return ADMMTrainState(z_hist=z_hist, y=y, w_cache=w_cache, step=g.t)
+            state = state._replace(w_cache=())
+        return state
 
     # -----------------------------------------------------------------
     def train_step(self, state: ADMMTrainState, batch
@@ -204,9 +242,7 @@ class ADMMTrainer:
                    "init(params)")
         spec = self._spec(state.params)
         g, info = asybadmm_epoch(spec, self._packed(spec, state), batch)
-        unpack = spec.space.layout.from_blocks
-        return (ADMMTrainState(z_hist=unpack(g.z_hist), y=unpack(g.y),
-                               w_cache=unpack(g.w_cache), step=g.t), info)
+        return self._state(spec, g), info
 
     # -----------------------------------------------------------------
     def train_step_block(self, state: ADMMTrainState, batch, block_id: int
@@ -230,6 +266,11 @@ class ADMMTrainer:
         cfg = self.admm
         N, M = self.num_workers, cfg.num_blocks
         spec = self._spec(state.params)
+        if spec.space.mesh is not None and (local_tile(spec).Nl, local_tile(
+                spec).Ml) != (N, M):
+            raise NotImplementedError(
+                "train_step_block runs on the whole table; under a mesh "
+                "that splits it, train with train_step")
         blocks = spec.space.blocks
         t, dev = int(state.step), spec.device
         if spec.minibatch is not None:

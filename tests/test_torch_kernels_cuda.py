@@ -771,3 +771,45 @@ def test_every_autotune_launch_is_bitwise_the_default(gen, shape):
                                             0.8, (96, 1))
     with pytest.raises(RuntimeError, match="launch failed"):
         admm_update.admm_worker_select_update_cuda(*case, (256, 0))
+
+
+def test_kernel_costs_are_the_same_on_the_card(gen):
+    """The cost counter charges each kernel its declared cost on the card
+    as on the CPU (``analysis/cost.py``): one dispatch of each op on
+    CUDA tensors counts the same bytes and FLOPs as the same op on meta
+    tensors of those shapes, and nothing else; the kernel launches."""
+    from repro_torch.analysis.cost import count
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    N, M, d = 3, 4, 128
+    sel = torch.rand(N, M, generator=gen, device="cuda") < 0.5
+    edge = torch.rand(N, M, generator=gen, device="cuda") < 0.7
+    rho = torch.rand(N, generator=gen, device="cuda") + 0.5
+    rho_sum = torch.sum(torch.where(edge, rho[:, None], 0.0), dim=0)
+    calls = [
+        ("admm_worker_select_update", ops.admm_worker_select_update,
+         (t(N, M, d), t(N, M, d), t(N, M, d), t(N, M, d), sel, rho,
+          t(N, M, d))),
+        ("server_prox_update", ops.server_prox_update,
+         (t(M, d), t(N, M, d), edge, rho_sum, 0.1, 1e-3, 1.0)),
+        ("prox_consensus", ops.prox_consensus,
+         (t(M, d), t(M, d), rho_sum, 0.1, 1e-3, 1.0)),
+        ("admm_worker_update", ops.admm_worker_update,
+         (t(8, 128), t(8, 128), t(8, 128), 2.0)),
+        ("matmul", ops.matmul, (t(40, 24), t(40, 8), True)),
+        ("margin", ops._margin, (t(100, 1), t(100, 1))),
+        ("flash_attention", ops.flash_attention,
+         (t(2, 33, 128), t(2, 33, 128), t(2, 33, 128), True)),
+    ]
+    for name, op, args in calls:
+        ops.reset_launch_counts()
+        _, on_card = count(op, *args)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[name] == 1
+        meta = tuple(torch.empty(a.shape, dtype=a.dtype, device="meta")
+                     if isinstance(a, torch.Tensor) else a for a in args)
+        _, on_meta = count(op, *meta)
+        assert dict(on_card.ops) == {name: 1}
+        assert on_card.same(on_meta)

@@ -267,12 +267,41 @@ def test_param_specs_are_the_reference_shapes_on_meta():
             [str(s.dtype) for s in jax.tree.leaves(rspecs)]
 
 
-def test_remat_on_the_stacked_tree_raises():
+def _saved_bytes(model, params, batch):
+    """Bytes of the activations autograd saves for the backward of
+    ``model.loss`` (tensors that are not views of a parameter)."""
+    total = [0]
+    leaves, treedef = tree_flatten(params)
+    live = tree_unflatten(treedef, [t.detach().requires_grad_()
+                                    for t in leaves])
+    weights = {t.untyped_storage().data_ptr() for t in tree_leaves(live)}
+
+    def pack(t):
+        if t.untyped_storage().data_ptr() not in weights:
+            total[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        model.loss(live, batch)
+    return total[0]
+
+
+def test_remat_on_the_stacked_tree_matches_plain():
+    """``remat=True`` trains on the stacked tree: the loss and gradient
+    equal ``remat=False``'s, and autograd saves less (each layer keeps
+    only its inputs and recomputes the rest in the backward; the
+    reference's parity is ``tests/test_torch_remat.py``)."""
     cfg = get_smoke("qwen3-1.7b").with_(remat=True)
-    model = build_model(cfg)
+    model, plain = build_model(cfg), build_model(cfg.with_(remat=False))
     _, tb = _batch(cfg)
-    with pytest.raises(NotImplementedError, match="remat"):
-        model.loss(stacked_params(cfg, 0, "cpu"), tb)
+    params = stacked_params(cfg, 0, "cpu")
+    g, loss = torch.func.grad_and_value(model.loss)(params, tb)
+    g_plain, loss_plain = torch.func.grad_and_value(plain.loss)(params, tb)
+    np.testing.assert_allclose(float(loss), float(loss_plain), rtol=LOSS_TOL)
+    for a, b in zip(tree_leaves(g), tree_leaves(g_plain)):
+        torch.testing.assert_close(a, b, rtol=0, atol=GRAD_TOL)
+    assert _saved_bytes(model, params, tb) < \
+        0.5 * _saved_bytes(plain, params, tb)
     # inference on the ParamTree ignores it, as the reference's does
     assert model.prefill(model.init(0, "cpu"), tb["tokens"]).shape == \
         (2, 24, cfg.vocab_size)

@@ -25,9 +25,20 @@ block as in tests/test_spmd_parity.py:98): the model axis splits the
 packed table's rows, never its lanes, and the sharded tree trajectory is
 held against the reference's single-device ``ConsensusSession.pytree``
 (injected draws) and the port's own single-device tree epoch.
+
+``ADMMTrainer.train_step`` runs on ranks 0-3 of the same spawn under a
+(data=2, model=2) mesh that splits the block table (the qwen3-1.7b
+smoke, N = M = 4, no draws): each rank's tile after every step within
+1e-5 of the reference's single-device ``ADMMTrainer`` (the reference's
+own SPMD step equals it, tests/test_spmd_parity.py) and of the port's;
+the newest z gathered into the full tree; the cost counter's count of
+one epoch on rank r equal to ``per_shard_cost_program``'s on an
+abstract mesh (collectives charged alike by kind). Every rank also
+trains through ``launch/train.py --mesh test``.
 """
 import pickle
 import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -37,9 +48,15 @@ import torch.multiprocessing as mp
 
 import torch_sharded_ranks as ranks
 from repro import api as rapi
+from repro.configs import get_smoke as ref_smoke
 from repro.configs.base import ADMMConfig as RConfig
 from repro.core import space as rspace
 from repro.core.blocks import TreeBlocks
+from repro.models import build_model as ref_build
+from repro.training import ADMMTrainer as RTrainer
+from repro_torch.checkpoint import load_arrays, load_step
+from repro_torch.configs import get_smoke
+from repro_torch.launch import train as launch_train
 
 WORLD = 8                                   # data=4 x model=2
 JOIN_TIMEOUT_S = 240
@@ -134,10 +151,36 @@ def _scenarios():
         delays, sels = _reference_draws(scheme, dm, edge)
         out[f"{name}/injected"] = dict(base, delays=delays, sels=sels)
         out[f"{name}/own"] = dict(base, delay_model=dm)
+    out["trainer"] = _trainer_scenario()
     # the reference's state after RESUME_AT epochs, for state_from_numpy
     key = "split_grads/injected"
     out[key]["resume"] = _reference_run(out[key], epochs=RESUME_AT)["state"]
     return out
+
+
+TRAINER_ARCH, TRAINER_N, TRAINER_M, TRAINER_STEPS = "qwen3-1.7b", 4, 4, 3
+TRAINER_ADMM = dict(rho=5.0, gamma=0.01, num_blocks=TRAINER_M,
+                    block_fraction=1.0, max_delay=0, seed=0)
+
+
+def _trainer_batches():
+    r = np.random.RandomState(2)
+    out = []
+    for _ in range(TRAINER_STEPS):
+        tok = r.randint(0, 512, (TRAINER_N, 2, 17))
+        out.append({"tokens": tok[..., :-1], "labels": tok[..., 1:]})
+    return out
+
+
+def _trainer_scenario():
+    """The trainer case the ranks run: the reference's smoke weights as
+    numpy, the batches, the config (no draws: every block selected, no
+    delay)."""
+    rparams = ref_build(ref_smoke(TRAINER_ARCH)).init(jax.random.PRNGKey(0))
+    return dict(trainer=True, cfg=get_smoke(TRAINER_ARCH),
+                params=jax.tree.map(np.asarray, rparams),
+                batches=_trainer_batches(), workers=TRAINER_N,
+                admm=TRAINER_ADMM)
 
 
 @pytest.fixture(scope="module")
@@ -145,9 +188,10 @@ def sharded(tmp_path_factory):
     """(scenarios, per-rank results) of one 8-rank gloo run."""
     tmp = tmp_path_factory.mktemp("sharded")
     scenarios = _scenarios()
+    (tmp / "scenarios.pkl").write_bytes(pickle.dumps(scenarios))
     ctx = mp.start_processes(
-        ranks.run_rank, args=(WORLD, f"file://{tmp}/store", scenarios,
-                              str(tmp)),
+        ranks.run_rank, args=(WORLD, f"file://{tmp}/store",
+                              str(tmp / "scenarios.pkl"), str(tmp)),
         nprocs=WORLD, start_method="spawn", join=False)
     deadline = time.monotonic() + JOIN_TIMEOUT_S
     try:
@@ -385,3 +429,91 @@ def test_pod_mesh_flattens_pod_and_data_into_the_data_group(sharded):
         assert pm["data_group"] == [m, 2 + m, 4 + m, 6 + m]
         assert pm["model_group"] == [rank - m, rank - m + 1]
         assert pm["data_group"].index(rank) == pm["worker_shard_index"]
+
+
+def _reference_trainer_states():
+    """The reference's single-device ``ADMMTrainer`` states after each
+    step (params-shaped numpy leaves), on the trainer scenario."""
+    rmodel = ref_build(ref_smoke(TRAINER_ARCH))
+    rt = RTrainer(loss_fn=rmodel.loss, admm=RConfig(**TRAINER_ADMM),
+                  num_workers=TRAINER_N)
+    state = rt.init(rmodel.init(jax.random.PRNGKey(0)))
+    step = jax.jit(rt.train_step)
+    out = []
+    for b in _trainer_batches():
+        state, info = step(state, {k: jnp.asarray(v) for k, v in b.items()})
+        out.append({name: [np.asarray(t) for t in jax.tree.leaves(
+            getattr(state, name))] for name in ("z_hist", "y", "w_cache")}
+                   | {"loss": float(info["loss"])})
+    return out
+
+
+def test_trainer_on_a_mesh_that_splits_the_table(sharded):
+    """Each rank's tile of ``ADMMTrainer.train_step`` under (data=2,
+    model=2) against the reference's single-device trainer and the
+    port's, step by step; the tiles cover the (N, M) grid; the gathered
+    z is the reference's."""
+    _, results = sharded
+    ref = _reference_trainer_states()
+    tiles = set()
+    for r in range(4):
+        got = results[r]["trainer"]
+        n0, Nl, m0, Ml = got["tile"]
+        assert (Nl, Ml) == (TRAINER_N // 2, TRAINER_M // 2)
+        tiles.add((n0, m0))
+        assert max(got["diffs_vs_single"]) <= TOL
+        for step, want in zip(got["steps"], ref):
+            np.testing.assert_allclose(step["loss"], want["loss"], rtol=TOL)
+            for name in ("z_hist", "y", "w_cache"):
+                assert step[name], f"rank {r} holds no {name} leaf"
+                for k, t in step[name].items():
+                    w = want[name][k]
+                    if name != "z_hist":
+                        w = w[n0:n0 + Nl]
+                    assert t.shape == w.shape
+                    assert float(np.abs(t - w).max()) <= \
+                        TOL * (1.0 + float(np.abs(w).max()))
+        for a, b in zip(got["gathered_params"], ref[-1]["z_hist"]):
+            np.testing.assert_allclose(a, b[0], rtol=0, atol=TOL)
+    assert tiles == {(0, 0), (0, 2), (2, 0), (2, 2)}
+    for r in range(4, WORLD):
+        assert results[r]["trainer"] is None
+
+
+def test_per_shard_cost_program_matches_the_counted_rank(sharded):
+    """One epoch counted on each rank of the mesh (its collectives
+    charged where they run) equals ``per_shard_cost_program``'s count of
+    that rank's shard (rank 0's tile: every tile of this mesh has the
+    same shapes) with ``SimCollectives`` and no process group."""
+    _, results = sharded
+    for r in range(4):
+        got = results[r]["trainer"]
+        assert got["same_cost"], (got["cost"], got["sim_cost"])
+        cost = got["cost"]
+        assert set(cost["collective_bytes"]) == {"all-reduce", "all-gather",
+                                                 "all-to-all"}
+        assert "admm_worker_select_update" not in cost["ops"]  # torch backend
+        assert cost["flops"] > 0 and cost["hbm_bytes"] > 0
+
+
+def test_launch_train_runs_under_the_test_mesh(sharded, tmp_path):
+    """``launch/train.py --mesh test`` trains on all 8 ranks: 2 finite
+    losses, the same on every rank and as the single-device run's; its
+    ``--ckpt`` is one checkpoint, written by rank 0 alone, holding the
+    single-device run's z."""
+    _, results = sharded
+    losses = [results[r]["launch_train"] for r in range(WORLD)]
+    assert len(losses[0]) == 2 and all(np.isfinite(losses[0]))
+    assert all(loss == losses[0] for loss in losses)
+    ckpt = results[0]["launch_ckpt"]
+    assert all(results[r]["launch_ckpt"] == ckpt for r in range(WORLD))
+    single = str(tmp_path / "single")
+    single_losses = launch_train.main(ranks.LAUNCH_ARGS + ["--ckpt", single])
+    np.testing.assert_allclose(losses[0], single_losses, rtol=TOL)
+    got, want = load_arrays(ckpt), load_arrays(single)
+    assert load_step(ckpt) == load_step(single) == 2
+    assert sorted(got) == sorted(want) and want
+    for k in want:
+        assert got[k].shape == want[k].shape
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=TOL)
+    assert not list(Path(ckpt).parent.glob("*.tmp"))

@@ -362,6 +362,37 @@ def test_from_blocks_views_one_contiguous_table():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("window", [(0, 4), (0, 2), (1, 2), (3, 1)])
+def test_block_window_is_rows_of_the_full_table(window):
+    """A block window (m0, Ml), a mesh rank's block columns: its table is
+    rows [m0, m0 + Ml) of the full table (a leading worker axis passing
+    through), its tree holds the leaves of its blocks as views of that
+    table and None for every other leaf, and that tree packs back to
+    the same rows; (0, M) is the whole layout."""
+    tt, _ = _pair(_ragged_tree())
+    layout = blocks.make_block_layout(tt, num_blocks=4)
+    batched = tree.tree_map(lambda t: torch.stack([t, 2 * t, -t]), tt)
+    full = layout.to_blocks(batched)
+    m0, Ml = window
+    rows = full[:, m0:m0 + Ml].clone()
+    ids = layout.window_leaf_ids(window)
+    assert ids == tuple(k for k, b in enumerate(layout.block_ids)
+                        if m0 <= b < m0 + Ml)
+    part = layout.from_blocks(rows, window)
+    got = tree.tree_flatten(part)[0]
+    assert len(got) == len(ids)
+    want = tree.tree_flatten(batched)[0]
+    base = rows.data_ptr()
+    for k, leaf in zip(ids, got):
+        assert torch.equal(leaf, want[k])
+        assert rows.data_ptr() <= leaf.data_ptr() < base + 4 * rows.numel()
+    assert torch.equal(layout.to_blocks(part, window), rows)
+    if Ml == layout.num_blocks:
+        assert tree.tree_structure(part) == tree.tree_structure(batched)
+    with pytest.raises(ValueError, match="window holds"):
+        layout.pack_leaves(got + [got[0]], window)
+
+
 def test_padding_inert_through_prox_and_edge_mask():
     """Zero pad lanes stay exactly zero through the server step (the
     edge-masked w reduction + prox) and the prox alone."""

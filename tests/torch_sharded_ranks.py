@@ -6,7 +6,12 @@ through ``ConsensusSession.flat(..., mesh=mesh)`` (a scenario marked
 ``tree`` through ``ConsensusSession.pytree``: one leaf per block, its
 centers the batch), checks the mesh
 errors and the groups of a (pod, data, model) mesh, and pickles what it
-saw to ``out_dir/rank<r>.pkl``. It imports
+saw to ``out_dir/rank<r>.pkl``. A scenario marked ``trainer`` runs
+``ADMMTrainer.train_step`` on ranks 0-3 under a (data=2, model=2) mesh
+that splits the block table (``trainer_scenario``: each rank's tile
+after every step, the single-device step's diff, and on every rank the
+cost counter's count of one epoch beside ``per_shard_cost_program``'s);
+every rank then trains through ``launch/train.py --mesh test``. It imports
 torch and the port only, so the spawned ranks never load JAX; scenarios
 arrive as numpy arrays and plain values.
 """
@@ -18,15 +23,26 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.cost import count
 from repro_torch.api import ConsensusSession
 from repro_torch.configs.base import ADMMConfig
 from repro_torch.core import space
 from repro_torch.core.blocks import TreeBlocks
-from repro_torch.core.sharded import grad_split_size
-from repro_torch.core.tree import tree_structure
-from repro_torch.launch.mesh import make_mesh, make_test_mesh, resolve_mesh
+from repro_torch.core.sharded import (grad_split_size, local_tile,
+                                      per_shard_cost_program)
+from repro_torch.core.space import asybadmm_epoch
+from repro_torch.core.tree import tree_leaves, tree_structure
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import (make_abstract_mesh, make_mesh,
+                                     make_test_mesh, resolve_mesh)
+from repro_torch.models import build_model, stacked_from_numpy
+from repro_torch.training import ADMMTrainer
 
 PG_TIMEOUT_S = 60
+#: ``launch/train.py``'s arguments on every rank, beside ``--mesh test``
+#: and a checkpoint path shared by the ranks
+LAUNCH_ARGS = ["--device", "cpu", "--steps", "2", "--log-every", "1",
+               "--seq", "16", "--batch", "4"]
 
 
 def quad_loss(z, c):
@@ -149,15 +165,88 @@ def mesh_errors(mesh, sc):
     return errors
 
 
-def run_rank(rank, world, init_method, scenarios, out_dir):
+TRAINER_MESH = ((2, 2), ("data", "model"))
+
+
+def trainer_scenario(sc, rank):
+    """``ADMMTrainer.train_step`` of the scenario's model on the (data=2,
+    model=2) mesh over ranks 0-3 (every rank builds the mesh's groups;
+    ranks 4-7 then stop): each step's tile leaves by leaf index, the
+    tile, the largest difference from the single-device trainer's state
+    after every step, and the costs of one more epoch counted on the
+    mesh and by ``per_shard_cost_program`` on an abstract mesh."""
+    try:
+        mesh = make_mesh(*TRAINER_MESH)
+    except RuntimeError:
+        return None                      # a rank outside the mesh
+    model = build_model(sc["cfg"])
+    params = stacked_from_numpy(sc["cfg"], sc["params"], "cpu")
+    batches = [{k: torch.as_tensor(v) for k, v in b.items()}
+               for b in sc["batches"]]
+
+    def trainer(m):
+        return ADMMTrainer(loss_fn=model.loss, admm=ADMMConfig(**sc["admm"]),
+                           num_workers=sc["workers"], mesh=m, device="cpu")
+
+    tr, single = trainer(mesh), trainer(None)
+    state, s_state = tr.init(params), single.init(params)
+    spec = tr._spec(state.params)
+    leaf_ids = spec.space.layout.window_leaf_ids(tr.window(spec))
+    tile = local_tile(spec)
+    steps, diffs = [], []
+    for b in batches:
+        state, info = tr.train_step(state, b)
+        s_state, s_info = single.train_step(s_state, b)
+        leaves = {name: dict(zip(leaf_ids, (
+            t.numpy().copy() for t in tree_leaves(getattr(state, name)))))
+            for name in ("z_hist", "y", "w_cache")}
+        steps.append(dict(leaves, loss=float(info["loss"])))
+        diff = 0.0
+        for name in ("z_hist", "y", "w_cache"):
+            full = tree_leaves(getattr(s_state, name))
+            for k, t in leaves[name].items():
+                want = full[k].numpy()
+                if name != "z_hist":
+                    want = want[tile.n0:tile.n0 + tile.Nl]
+                diff = max(diff, float(np.abs(t - want).max()))
+        diffs.append(diff)
+    # one more epoch counted on the mesh, and one shard of it costed
+    # with no process group
+    _, real = count(asybadmm_epoch, spec, tr._packed(spec, state),
+                    batches[0])
+    abstract = trainer(make_abstract_mesh(*TRAINER_MESH))
+    fn, args = per_shard_cost_program(abstract._spec(params), batches[0],
+                                      z0=params)
+    _, sim = count(fn, *args)
+    return {"tile": (tile.n0, tile.Nl, tile.m0, tile.Ml), "steps": steps,
+            "diffs_vs_single": diffs, "cost": real.row(),
+            "sim_cost": sim.row(), "same_cost": real.same(sim),
+            "gathered_params": [t.numpy().copy() for t in tree_leaves(
+                tr.gathered_params(state))]}
+
+
+def run_rank(rank, world, init_method, scenarios_path, out_dir):
+    """One rank: the scenarios come from a pickle file, not through the
+    spawn's arguments (the start of every process waits until the
+    process has read its arguments, so large ones start the ranks one
+    after another)."""
     torch.set_num_threads(1)
+    scenarios = pickle.loads(Path(scenarios_path).read_bytes())
     dist.init_process_group(
         "gloo", init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
     try:
         mesh = make_test_mesh(8, 2)
         results = {name: run_scenario(sc, mesh)
-                   for name, sc in scenarios.items()}
+                   for name, sc in scenarios.items()
+                   if not sc.get("trainer")}
+        for name, sc in scenarios.items():
+            if sc.get("trainer"):
+                results[name] = trainer_scenario(sc, rank)
+        ckpt = str(Path(out_dir) / "launch_ckpt")
+        results["launch_train"] = launch_train.main(
+            ["--mesh", "test", "--ckpt", ckpt] + LAUNCH_ARGS)
+        results["launch_ckpt"] = ckpt
         results["errors"] = mesh_errors(mesh, next(iter(scenarios.values())))
         results["coords"] = dict(mesh.coords)
         sc = next(iter(scenarios.values()))
