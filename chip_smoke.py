@@ -151,6 +151,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    B1's and B2's device ms from the profiler. Line ``train_sgd``:
    ``SGDTrainer`` + AdamW on all 28 layers, 3 steps of 4 x 512 tokens,
    step 0's loss equal to ``Model.loss``, params finite, no kernel. Line
+   ``train_block``: ``train_step_block`` (the Gauss-Seidel round) on the
+   same model, data and config from ``init(cyclic=True)``, 4 rounds
+   timed after a round a block, the peak above the state; round 0's
+   loss is ``Model.loss`` at z0, no kernel launches. Line
    ``train_entry_points``: launch/train.py at its smoke defaults (admm
    and sgd, 6 steps; ``--runtime ps``, 3 rounds) and the training
    example with ``--quick``: B1 and B2 once per ADMM step (per worker
@@ -344,6 +348,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    layers (within 5 %) over the plain one, its useful-FLOP ratio lower.
    Phase ``serve_chunked`` also times ``scaled_dot_product_attention``
    (memory-efficient backend) on B7's (16, 32768, 128) inputs;
+   dryrun  — after ``cost``, the port's dry run checked on the card:
+   ``launch.dryrun.run_one("qwen3-1.7b", "train_4k", "pod",
+   "sharded_epoch")`` counted on meta (rank 0's shard of the SPMD epoch
+   on the 16 x 16 pod, bf16, remat), its tokens a worker halved until
+   the predicted peak is within 60 GB, and that per-shard program run
+   on the card (local tiles, ``SimCollectives``, seed 0): the bytes of
+   its state and inputs equal to the count's exactly, the card's peak
+   within 10 % of the predicted one, B1 = B3 = 1 and B2 = 0 by the
+   profiler and the launch counters, the ms beside ``step_time``;
 10. a ``kernels`` summary line (B5's designs each on a line of their
    own after B5's; B2 on the PS runtime's commit, B6 in bf16, B7 on
    zamba2's prefill and on whisper's encoder and decoder, and B1 and
@@ -3190,6 +3203,87 @@ def phase_train_sgd() -> None:
          peak_bytes=peak, launches=launches, card=smi_line())
     del state, batches
     torch.cuda.empty_cache()
+
+
+BLOCK_ROUNDS = 4               # train_block: rounds timed (2 a block)
+
+
+def phase_train_block() -> dict:
+    """``ADMMTrainer.train_step_block``, the Gauss-Seidel block round, on
+    phase ``train``'s model and data (qwen3-1.7b cut to TRAIN_LAYERS
+    layers, f32, seed 0, N = 2, M = 2, 2 x 512 tokens a worker,
+    launch/train.py's defaults) from ``init(cyclic=True)``: a round of
+    each block to warm up, then BLOCK_ROUNDS rounds (block ``i % M``),
+    each timed on the host clock after a synchronize, and the peak of
+    allocated bytes during them above what was allocated before them
+    (the state, the weights and the batches). Gates: the first round's
+    loss is ``Model.loss`` at z0 (every worker reads z0); the round
+    launches no kernel (its update is the plain ``core.admm`` math);
+    losses and z finite. It calls the trainer's public methods only, so
+    ``python -c 'import chip_smoke; chip_smoke.phase_train_block()'``
+    from the root of another tree of the package measures that tree's
+    round the same way."""
+    import dataclasses
+    from repro_torch.configs import qwen3_1p7b
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.weights import stacked_params
+    from repro_torch.training import ADMMTrainer
+
+    N, M = TRAIN_WORKERS, TRAIN_BLOCKS
+    model_cfg = dataclasses.replace(qwen3_1p7b.config(),
+                                    num_layers=TRAIN_LAYERS)
+    model = build_model(model_cfg)
+    params = stacked_params(model_cfg, 0, "cuda")
+    pipe = TokenPipeline(vocab_size=model_cfg.vocab_size,
+                         seq_len=TRAIN_SEQ + 1,
+                         global_batch=N * TRAIN_BATCH, seed=0)
+    batches = [pipe.batch(t, num_workers=N, device="cuda")
+               for t in range(M)]
+    tr = ADMMTrainer(loss_fn=model.loss, admm=train_config(),
+                     num_workers=N, device="cuda")
+    loss0 = direct_loss(model, params, batches[0], workers=N)
+    ops.reset_launch_counts()
+    state = tr.init(params, cyclic=True)
+    losses = []
+    for b in range(M):                                     # warm-up
+        state, info = tr.train_step_block(state, batches[b], b)
+        losses.append(float(info["loss"]))
+    rel = same_loss("train_block", losses[0], loss0)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    times = []
+    for i in range(BLOCK_ROUNDS):
+        t0 = time.perf_counter()
+        state, info = tr.train_step_block(state, batches[i % M], i % M)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(info["loss"]))
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if launches:
+        fail(f"train_block: the round launched kernels {launches}")
+    z = tree_leaves(state.z_hist)
+    if not all(math.isfinite(x) for x in losses) or not all(
+            bool(torch.isfinite(t).all()) for t in z):
+        fail("train_block: a loss or z is not finite")
+    tokens = N * TRAIN_BATCH * TRAIN_SEQ
+    out = dict(arch=SERVE_ARCH, layers=TRAIN_LAYERS, N=N, M=M,
+               rounds=BLOCK_ROUNDS, round_ms=times,
+               round_ms_median=statistics.median(times),
+               tokens_per_round=tokens, losses=losses, loss0_direct=loss0,
+               loss0_rel_diff=rel, peak_bytes_above_state=peak,
+               allocated_before_bytes=before, launches=launches,
+               card=smi_line())
+    emit("train_block", **out)
+    del state, z, params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_train_entry_points() -> dict:
@@ -6070,6 +6164,163 @@ def phase_cost() -> None:
 
 
 # ---------------------------------------------------------------------------
+# line dryrun: the port's dry run (launch/dryrun.py) checked on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_ROW = ("qwen3-1.7b", "train_4k", "pod", "sharded_epoch")
+DRYRUN_PEAK_LIMIT = 60e9       # the predicted peak the card's run may reach
+DRYRUN_PEAK_TOL = 0.10         # measured peak vs the meta prediction
+B3_NAME = "prox_consensus_kernel"
+
+
+def dryrun_cut(cfg, mesh, acfg, seq: int, batch: int):
+    """The per-shard program counted on meta at the largest number of
+    sequences a worker, halving from ``batch``, whose predicted peak is
+    within DRYRUN_PEAK_LIMIT: (sequences, cost, the program's held bytes,
+    the halvings tried)."""
+    from repro_torch.analysis.cost import count
+    from repro_torch.launch import dryrun
+    tried = []
+    while True:
+        fn, args, _ = dryrun.train_program(cfg, mesh, acfg, batch, seq)
+        cost = count(fn, *args)[1]
+        held = dryrun.held_bytes(args)
+        tried.append({"sequences": batch, "peak_bytes": cost.peak_bytes})
+        del fn, args
+        if cost.peak_bytes <= DRYRUN_PEAK_LIMIT or batch == 1:
+            return batch, cost, held, tried
+        batch //= 2
+
+
+def phase_dryrun() -> None:
+    """Line ``dryrun``: the port's dry run checked on the card. On the
+    host, ``launch.dryrun.run_one`` counts rank 0's shard of the SPMD
+    epoch of qwen3-1.7b's ``train_4k`` on the 16 x 16 pod
+    (``sharded_epoch``: bf16, remat, N = M = 16, 16 x 4096 tokens a
+    worker) on meta, and its FLOPs, HBM bytes, collectives, peak, state
+    bytes, layout padding and ``Roofline.step_time`` are printed. The
+    tokens a worker are halved (16 -> 8 -> ... sequences) until the
+    predicted peak is within DRYRUN_PEAK_LIMIT, and the shard is
+    recounted at that cut. That very per-shard program then runs on the
+    card (``dryrun.train_program(device="cuda")``: local tiles,
+    ``SimCollectives``, weights and tokens from seed 0), once to warm
+    up and once timed under CUDA events and the profiler, after
+    ``reset_peak_memory_stats``. Gates: the bytes of its state and
+    inputs equal the cut's ``per_device_state_bytes`` exactly; the
+    peak (``max_memory_allocated`` over what was allocated before the
+    program was built) within DRYRUN_PEAK_TOL of the predicted
+    ``peak_bytes``; the profiler and the launch counters (reset just
+    before the timed call) see B1 = B3 = 1 and B2 = 0, as the counted
+    ``op_counts`` say. The ms is printed beside ``step_time``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.roofline import Roofline
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import num_workers
+
+    t_phase = time.perf_counter()
+    arch, shape_name, mesh_name, variant = DRYRUN_ROW
+    row = dryrun.run_one(arch, shape_name, mesh_name, variant)
+    if row["status"] != "ok":
+        fail(f"dryrun: the row of {DRYRUN_ROW} is {row['status']}")
+    full = {"flops": row["flops_per_device"],
+            "hbm_bytes": row["hbm_bytes_per_device"],
+            "collectives": row["collectives"], "memory": row["memory"],
+            "fits": row["fits"], "layout_padding": row["layout_padding"],
+            "step_time_ms": 1e3 * row["step_time_bound_s"],
+            "bottleneck": row["bottleneck"],
+            "op_counts": {k: row["op_counts"][k] for k in ("B1", "B2",
+                                                            "B3")},
+            "count_s": row["count_s"]}
+
+    shape = INPUT_SHAPES[shape_name]
+    mesh = dryrun.abstract_mesh(mesh_name)
+    acfg = dryrun.admm_config(mesh)
+    cfg = get_config(arch).with_(dtype=dryrun.DTYPE,
+                                 param_dtype=dryrun.DTYPE, remat=True)
+    batch = shape.global_batch // num_workers(mesh)
+    seqs, cost, state_bytes, tried = dryrun_cut(cfg, mesh, acfg,
+                                                shape.seq_len, batch)
+    roof = Roofline.from_cost(cost, dtype=torch.bfloat16)
+    kernels = {dryrun.KERNEL_IDS[k]: cost.ops.get(k, 0)
+               for k in ("admm_worker_select_update", "server_prox_update",
+                         "prox_consensus")}
+    if kernels != {"B1": 1, "B2": 0, "B3": 1}:
+        fail(f"dryrun: the counted shard launches {kernels}")
+    cut = {"sequences": seqs, "tokens_a_worker": seqs * shape.seq_len,
+           "tried": tried, "flops": cost.flops, "hbm_bytes": cost.hbm_bytes,
+           "collectives": dict(cost.collective_bytes),
+           "peak_bytes": cost.peak_bytes,
+           "per_device_state_bytes": state_bytes,
+           "step_time_ms": 1e3 * roof.step_time,
+           "bottleneck": roof.bottleneck, "op_counts": kernels}
+
+    # the same program on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fn, args, _ = dryrun.train_program(cfg, mesh, acfg, seqs, shape.seq_len,
+                                       device="cuda", seed=0)
+    gc.collect()
+    build_s = time.perf_counter() - t0
+    held = dryrun.held_bytes(args)
+    if held != state_bytes:
+        fail(f"dryrun: the card holds {held} bytes of state and inputs, "
+             f"the meta count {state_bytes}")
+    out = fn(*args)
+    torch.cuda.synchronize()
+    del out
+    gc.collect()
+    held_now = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        out = fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(out[1]["loss"])
+    del out, fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA"]
+    seen = {b: sum(frag in n for n in names)
+            for b, frag in (("B1", B1_NAME), ("B2", B2_NAME),
+                            ("B3", B3_NAME))}
+    counted = {"B1": launches.get("admm_worker_select_update", 0),
+               "B2": launches.get("server_prox_update", 0),
+               "B3": launches.get("prox_consensus", 0)}
+    if seen != kernels or counted != kernels:
+        fail(f"dryrun: the timed call launched {seen} (profiler), "
+             f"{counted} (counters); the count says {kernels}")
+    if not math.isfinite(loss):
+        fail(f"dryrun: the loss is {loss}")
+    ratio = peak / cost.peak_bytes
+    if not abs(ratio - 1.0) <= DRYRUN_PEAK_TOL:
+        fail(f"dryrun: the card's peak {peak} bytes is {ratio:.4f} x the "
+             f"predicted {cost.peak_bytes}")
+    emit("dryrun", row=DRYRUN_ROW, full=full, cut=cut,
+         measured={"per_device_state_bytes": held,
+                   "allocated_after_warmup": held_now,
+                   "peak_bytes": peak, "peak_over_predicted": ratio,
+                   "ms": ms, "step_time_ms": cut["step_time_ms"],
+                   "ms_over_step_time": ms / cut["step_time_ms"],
+                   "profiler_launches": seen, "counted_launches": counted,
+                   "loss": loss, "build_s": build_s},
+         card=smi_line(), nvidia_smi=smi_line(),
+         total_memory=torch.cuda.get_device_properties(0).total_memory,
+         seconds=time.perf_counter() - t_phase)
+    ADDED_S["dryrun"] = time.perf_counter() - t_phase
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the logistic-regression gradient at its declared size
 # ---------------------------------------------------------------------------
 
@@ -6533,6 +6784,7 @@ def main() -> int:
     phase_pytree(bw, errs)
     phase_ps_tree()
     phase_train(bw, errs)
+    phase_train_block()
     phase_train_entry_points()
     phase_train_moe(bw, errs)
     with expandable_segments():
@@ -6550,6 +6802,7 @@ def main() -> int:
     phase_serve_mla(bw, errs)
     encdec = phase_serve_encdec(bw, errs)
     phase_cost()
+    phase_dryrun()
     logreg_launches, logreg_rows = phase_logreg(bw, errs)
     logreg16_launches, logreg16_rows = phase_logreg_bf16(bw, errs)
 

@@ -24,6 +24,16 @@ no dispatch mode sees them. ``kernels/ops.py`` reports each dispatch to
 nothing that runs inside: on the CPU or the meta device the plain
 version runs there, on the card the kernel, and both cost the same.
 
+Peak memory (``Cost.peak_bytes``, the counterpart of the reference's
+``memory_analysis()``: its argument, output and temp sizes) is the most
+bytes of storage alive at once while the program runs: the storages of
+its arguments, and of every tensor an op makes, each storage counted
+once (a view or an in-place op adds nothing) from the op that makes it
+until it is freed (a weakref finalizer on the storage, not on the
+tensor that wraps it). A kernel's charge counts its outputs alone: the
+plain version that stands in for it off the card may make temporaries,
+the card's kernels make none.
+
 A program runs on the meta device where it can: a meta tensor has a
 shape and no data, so a full-width train step or ``main``'s epoch at
 ``kdda_like`` is costed without the card's memory
@@ -40,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import weakref
 from collections import defaultdict
 from typing import Callable, Dict, Tuple
 
@@ -69,6 +80,25 @@ def _bytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def arg_tensors(tree) -> list:
+    """The tensors of a program's arguments: the leaves of ``tree`` that
+    are tensors, and the parameters and buffers of a module among them
+    (the serving ``ParamTree``), each tensor once."""
+    out, seen = [], set()
+    for leaf in _flat(tree):
+        if isinstance(leaf, torch.nn.Module):
+            found = list(leaf.parameters()) + list(leaf.buffers())
+        elif isinstance(leaf, torch.Tensor):
+            found = [leaf]
+        else:
+            continue
+        for t in found:
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.append(t)
+    return out
+
+
 def _is_view(func) -> bool:
     """An op whose result aliases an operand without writing it (view,
     reshape that needs no copy, transpose, ...)."""
@@ -90,6 +120,7 @@ class Cost:
         default_factory=lambda: defaultdict(int))
     kernel_bytes: Dict[str, float] = dataclasses.field(
         default_factory=lambda: defaultdict(float))
+    peak_bytes: int = 0            # most storage bytes alive at once
 
     def charge(self, name: str, flops: float, hbm_bytes: float) -> None:
         self.flops += flops
@@ -109,6 +140,7 @@ class Cost:
 
     def row(self) -> dict:
         return {"flops": self.flops, "hbm_bytes": self.hbm_bytes,
+                "peak_bytes": self.peak_bytes,
                 "collective_bytes": dict(self.collective_bytes),
                 "collective_bytes_total": self.collective_total,
                 "kernel_bytes": dict(self.kernel_bytes),
@@ -198,19 +230,56 @@ def kernel_cost(name: str, operands: tuple) -> Tuple[int, int]:
 # the counter
 # ---------------------------------------------------------------------------
 
+class _Live:
+    """The storages alive now, each counted once, and the most bytes they
+    ever held together. A storage leaves when it is freed."""
+
+    def __init__(self, cost: Cost):
+        self.cost = cost
+        self.bytes = 0
+        self.ids = set()
+
+    def add(self, tensors) -> None:
+        for t in tensors:
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self.ids:
+                continue
+            n = st.nbytes()
+            self.ids.add(key)
+            self.bytes += n
+            weakref.finalize(st, self._free, key, n)
+        self.cost.peak_bytes = max(self.cost.peak_bytes, self.bytes)
+
+    def _free(self, key, n) -> None:
+        if key in self.ids:
+            self.ids.discard(key)
+            self.bytes -= n
+
+    def close(self) -> None:
+        """Stop counting: storages freed from here on are no longer
+        this program's."""
+        self.ids.clear()
+
+
 class _Counter(TorchDispatchMode):
     """Charges each aten op it sees, and (through ``analysis.hooks``)
-    each kernel and collective its declared cost, into ``cost``."""
+    each kernel and collective its declared cost, into ``cost``; tracks
+    the storages alive for ``cost.peak_bytes``."""
 
     def __init__(self, cost: Cost):
         super().__init__()
         self.cost = cost
         self.paused = 0
+        self.live = _Live(cost)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if not self.paused:
             self._charge_op(func, args, kwargs or {}, out)
+            self.live.add(_flat(out))
         return out
 
     def _charge_op(self, func, args, kwargs, out) -> None:
@@ -244,7 +313,9 @@ class _Counter(TorchDispatchMode):
         self.cost.charge(name, flops, nbytes)
         self.cost.kernel_bytes[name] += nbytes
         with self._uncounted():
-            return run()
+            out = run()
+        self.live.add(_flat(out))
+        return out
 
     def collective(self, kind: str, x, run):
         if self.paused:
@@ -254,15 +325,18 @@ class _Counter(TorchDispatchMode):
         nout = _bytes(out)
         self.cost.charge(kind, 0, _bytes(x) + nout)
         self.cost.collective_bytes[kind] += nout
+        self.live.add((out,))
         return out
 
 
 @contextlib.contextmanager
-def counting():
+def counting(*live):
     """Inside the block, every op, kernel and collective is charged into
-    the :class:`Cost` it yields."""
+    the :class:`Cost` it yields; ``live`` (tensors or trees of them: a
+    program's arguments) are alive from the start, for its peak."""
     cost = Cost()
     counter = _Counter(cost)
+    counter.live.add(arg_tensors(live))
     outer = hooks.counter
     hooks.counter = counter
     try:
@@ -270,10 +344,12 @@ def counting():
             yield cost
     finally:
         hooks.counter = outer
+        counter.live.close()
 
 
 def count(fn, *args, **kwargs):
-    """(``fn(*args, **kwargs)``, its :class:`Cost`)."""
-    with counting() as cost:
+    """(``fn(*args, **kwargs)``, its :class:`Cost`); the arguments count
+    toward its peak."""
+    with counting(args, kwargs) as cost:
         out = fn(*args, **kwargs)
     return out, cost

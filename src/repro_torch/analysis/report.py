@@ -1,16 +1,20 @@
-"""Cost rows and their roofline table, the counterpart of
-``repro/analysis/report.py`` (its ``dryrun_table`` waits for the port's
-dry run).
+"""Cost rows and their tables, the counterpart of
+``repro/analysis/report.py``.
 
     PYTHONPATH=src python -m repro_torch.analysis.report
+    PYTHONPATH=src python -m repro_torch.analysis.report \
+        --path experiments/dryrun_torch.jsonl --table dryrun --mesh pod
 
-counts four smoke programs of the port on the meta device and prints one
-JSON row each, then their table: the flat epoch (the card's program:
-B1 + B2) at a small width, the ADMM train step of the qwen3 smoke model
-with ``remat`` off and on, and its flash prefill (B7 once a layer).
+With no ``--path`` it counts four smoke programs of the port on the meta
+device and prints one JSON row each, then their table: the flat epoch
+(the card's program: B1 + B2) at a small width, the ADMM train step of
+the qwen3 smoke model with ``remat`` off and on, and its flash prefill
+(B7 once a layer). With ``--path`` it renders the rows of the port's dry
+run (``launch/dryrun.py``) as the roofline or the dry-run table.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 
@@ -28,12 +32,32 @@ def fmt_bytes(b):
     return f"{b / 1024:.0f}K"
 
 
+def load(path, variant=None):
+    """The rows of a dry run's JSON lines by (arch, shape, mesh,
+    variant), the last row of a key winning; only ``variant``'s if
+    given."""
+    rows = {}
+    with open(path) as f:
+        for line in f:
+            r = json.loads(line)
+            key = (r["arch"], r["shape"], r["mesh"],
+                   r.get("variant", "baseline"))
+            rows[key] = r
+    if variant is not None:
+        rows = {k: v for k, v in rows.items() if k[3] == variant}
+    return rows
+
+
 def roofline_table(rows, mesh="1"):
     out = ["| arch | shape | t_comp (s) | t_mem (s) | t_coll (s) | bottleneck "
            "| useful_flops | MFU bound | coll bytes/dev |",
            "|---|---|---|---|---|---|---|---|---|"]
     for (arch, shape, m, _v), r in sorted(rows.items()):
         if m != mesh:
+            continue
+        if r.get("status", "ok") != "ok":
+            out.append(f"| {arch} | {shape} | — | — | — | {r['status']} "
+                       f"| — | — | — |")
             continue
         uf = r.get("useful_flops_ratio")
         mfu = r.get("mfu_bound")
@@ -44,6 +68,36 @@ def roofline_table(rows, mesh="1"):
             f"{r['t_memory_s']:.2e} | {r['t_collective_s']:.2e} | "
             f"**{r['bottleneck']}** | {uf_s} | {mfu_s} | "
             f"{fmt_bytes(r['collective_bytes_per_device'])} |")
+    return "\n".join(out)
+
+
+def dryrun_table(rows, mesh):
+    """The dry run's rows on ``mesh``: per-device FLOPs, HBM bytes,
+    collective bytes, the state one rank holds, the reference's placed
+    arguments, the counted peak and whether it fits one card, and the
+    seconds the count took (the reference's table has compile seconds
+    there)."""
+    out = ["| arch | shape | status | program | flops/dev | HBM bytes/dev "
+           "| coll bytes/dev | state bytes/dev | arg bytes/dev (specs) "
+           "| peak | fits | count (s) |",
+           "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+    for (arch, shape, m, _v), r in sorted(rows.items()):
+        if m != mesh:
+            continue
+        if r["status"] != "ok":
+            out.append(f"| {arch} | {shape} | {r['status']} | — | — | — | "
+                       f"— | — | — | — | — | — |")
+            continue
+        mem = r["memory"]
+        out.append(
+            f"| {arch} | {shape} | ok | {r['program']} | "
+            f"{r['flops_per_device']:.2e} | "
+            f"{fmt_bytes(r['hbm_bytes_per_device'])} | "
+            f"{fmt_bytes(r['collective_bytes_per_device'])} | "
+            f"{fmt_bytes(mem['per_device_state_bytes'])} | "
+            f"{fmt_bytes(mem['spec_argument_bytes'])} | "
+            f"{fmt_bytes(mem['peak_bytes'])} | "
+            f"{'yes' if r['fits'] else '**no**'} | {r['count_s']:.1f} |")
     return "\n".join(out)
 
 
@@ -163,7 +217,20 @@ def smoke_rows():
     return rows
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", default=None,
+                    help="a dry run's JSON lines; none: the smoke rows")
+    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--table", default="roofline",
+                    choices=["roofline", "dryrun"])
+    ap.add_argument("--mesh", default="pod")
+    args = ap.parse_args(argv)
+    if args.path is not None:
+        rows = load(args.path, args.variant)
+        print(roofline_table(rows, args.mesh) if args.table == "roofline"
+              else dryrun_table(rows, args.mesh))
+        return rows
     rows = smoke_rows()
     for r in rows:
         print(json.dumps(r))

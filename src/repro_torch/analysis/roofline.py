@@ -8,6 +8,7 @@ Device constants (published, per card):
   TF32 (tensor cores)    : 495 TFLOP/s
   bf16 / fp16 (tensor cores): 989 TFLOP/s
   NVLink 4      : 450 GB/s a direction (900 GB/s both ways)
+  memory        : CARD_MEMORY_BYTES (read on the card)
 
 The compute peak is chosen by the program's dtype and TF32 setting
 (:func:`peak_flops`): the port's parity runs keep TF32 off, so an f32
@@ -29,6 +30,9 @@ from typing import Dict, Optional
 import torch
 
 HBM_BW = 3.35e12            # bytes/s
+#: the card's memory, ``torch.cuda.get_device_properties(0).total_memory``
+#: on the NVIDIA H100 80GB HBM3 at 700.00 W that the port is measured on
+CARD_MEMORY_BYTES = 85_017_493_504
 LINK_BW = 450e9             # bytes/s, NVLink 4, one direction
 PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "fp16": 989e12}
 

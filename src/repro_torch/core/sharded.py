@@ -57,11 +57,17 @@ from torch.utils import _pytree as pytree
 
 from ..analysis import hooks
 from ..device import seeded_generator
-from ..launch.mesh import data_axes, model_axis_size, num_workers
+from ..launch.mesh import (P, data_axes, model_axis_size, num_workers,
+                           shard_slices)
+from .admm import server_update, worker_update
 from .async_sim import minibatch_rows, validate_minibatch_data
 from .space import (_BATCH, _DELAY, _SELECT, ConsensusSpec, ConsensusState,
                     SelectorContext, participation_mask_for,
                     sample_delay_model)
+from .tree import tree_map, tree_unflatten
+
+# generator streams of the Gauss-Seidel block round (the epoch's are 0-2)
+BLOCK_DELAY, BLOCK_BATCH = 3, 4
 
 
 def _splits_model(space) -> bool:
@@ -102,6 +108,58 @@ def grad_split_size(spec: ConsensusSpec):
 
 
 # ---------------------------------------------------------------------------
+# placement specs of every state tensor (the reference's base layout)
+# ---------------------------------------------------------------------------
+
+def _model_name(mesh):
+    """``"model"`` when the mesh splits the block axis over it, else
+    None."""
+    return "model" if model_axis_size(mesh) > 1 else None
+
+
+def worker_bundle_spec(ndim: int, daxes, mname=None) -> P:
+    """Worker-bundle leaf: leading N over the data axes, (flat) M over
+    model. THE base rule for every (N, ...) ADMM tensor —
+    ``launch/shardings.py`` overlays its tensor-parallel param dims on
+    top of this."""
+    return P(*((daxes, mname) + (None,) * (ndim - 2))[:ndim])
+
+
+def ring_spec(ndim: int, mname=None) -> P:
+    """History leaf: leading ring axis replicated, (flat) M over model."""
+    return P(*((None, mname) + (None,) * (ndim - 2))[:ndim])
+
+
+def consensus_state_specs(spec: ConsensusSpec, state) -> ConsensusState:
+    """The placement of every ``ConsensusState`` tensor on the space's
+    mesh — THE canonical ADMM state layout (``launch/shardings.py``
+    overlays its tensor-parallel param dims on top of it for the dry
+    run). A tensor the state lacks (``None``) keeps ``None``."""
+    mesh = spec.space.mesh
+    daxes, mname = data_axes(mesh), _model_name(mesh)
+
+    def specs(tree, rule):
+        return tree_map(lambda a: rule(a.dim()), tree)
+
+    return ConsensusState(
+        z_hist=specs(state.z_hist, lambda nd: ring_spec(nd, mname)),
+        y=specs(state.y, lambda nd: worker_bundle_spec(nd, daxes, mname)),
+        w_cache=specs(state.w_cache,
+                      lambda nd: worker_bundle_spec(nd, daxes, mname)),
+        x=specs(state.x, lambda nd: worker_bundle_spec(nd, daxes, mname)),
+        t=P())
+
+
+def grad_rows_spec(mesh, split: bool) -> P:
+    """Per-worker data: leading worker axis over the data axes, and also
+    over ``model`` when the gradient pass splits the local workers across
+    it (every rank then holds exactly the rows it differentiates; the
+    reference's ``consensus_data_specs``)."""
+    daxes = data_axes(mesh)
+    return P(daxes + ("model",) if split else daxes)
+
+
+# ---------------------------------------------------------------------------
 # this rank's tile of the (N, M) grid, its data, and the collectives
 # ---------------------------------------------------------------------------
 
@@ -117,6 +175,11 @@ class Tile:
     Ml: int
     g0: int
     Ng: int
+
+    @classmethod
+    def whole(cls, N: int, M: int) -> "Tile":
+        """The one tile of a run with no mesh: every row and column."""
+        return cls(n0=0, Nl=N, m0=0, Ml=M, g0=0, Ng=N)
 
     @property
     def split_grads(self) -> bool:
@@ -134,14 +197,16 @@ class Tile:
 
 
 def tile_for(mesh, N: int, M: int) -> Tile:
-    """This rank's tile of an (N workers, M blocks) problem on ``mesh``."""
+    """This rank's tile of an (N workers, M blocks) problem on ``mesh``:
+    the shard of an (N, M) worker bundle under :func:`worker_bundle_spec`,
+    and of its N data rows under :func:`grad_rows_spec`."""
+    (n0, Nl), (m0, Ml) = shard_slices(
+        (N, M), worker_bundle_spec(2, data_axes(mesh), _model_name(mesh)),
+        mesh)
     msize = model_axis_size(mesh)
-    Nl, Ml = N // num_workers(mesh), M // msize
     split = msize > 1 and Nl % msize == 0
-    Ng = Nl // msize if split else Nl
-    mi = mesh.model_index
-    return Tile(n0=mesh.worker_shard_index * Nl, Nl=Nl, m0=mi * Ml, Ml=Ml,
-                g0=mi * Ng if split else 0, Ng=Ng)
+    (g, Ng), = shard_slices((N,), grad_rows_spec(mesh, split), mesh)
+    return Tile(n0=n0, Nl=Nl, m0=m0, Ml=Ml, g0=g - n0, Ng=Ng)
 
 
 def local_tile(spec: ConsensusSpec) -> Tile:
@@ -341,6 +406,24 @@ def local_grads(space_l, coll, tile: Tile, loss_fn, z_tile, data):
         space_l.grad_sqnorm(g))
 
 
+def rank_minibatch(spec: ConsensusSpec, tile: Tile, data, t: int,
+                   stream: int):
+    """The incremental workers' subsample of ``data``, the rank's rows
+    (``rank_data``): the draw is taken at FULL (N, S) from ``(spec.seed,
+    t, stream)`` and sliced to the rows, as the single-device
+    ``subsample_worker_data`` draws it."""
+    if spec.minibatch is None:
+        return data
+    shape = validate_minibatch_data(data)
+    if shape is None:
+        return data
+    gen = seeded_generator(spec.device, spec.seed, t, stream)
+    idx = tile.grad_rows(minibatch_rows(gen, spec.space.num_workers,
+                                        shape[1], spec.minibatch))
+    rows = torch.arange(tile.Ng, device=idx.device)[:, None]
+    return pytree.tree_map(lambda a: a[rows, idx], data)
+
+
 # ---------------------------------------------------------------------------
 # the per-rank epoch body (Algorithm 1, local view)
 # ---------------------------------------------------------------------------
@@ -365,15 +448,7 @@ def _epoch_body(spec: ConsensusSpec, space_l, coll, tile: Tile,
     # --- data: the rows this rank differentiates ((Nl, ...), or (Ng, ...)
     #     under the split gradient pass). The minibatch draw, like the
     #     delay and selection draws, is taken at FULL (N, S) and sliced ---
-    data = rank_data(tile, N, data)
-    if spec.minibatch is not None:
-        shape = validate_minibatch_data(data)
-        if shape is not None:
-            gen = seeded_generator(dev, spec.seed, t, _BATCH)
-            idx = tile.grad_rows(minibatch_rows(gen, N, shape[1],
-                                                spec.minibatch))
-            rows = torch.arange(tile.Ng, device=idx.device)[:, None]
-            data = pytree.tree_map(lambda a: a[rows, idx], data)
+    data = rank_minibatch(spec, tile, rank_data(tile, N, data), t, _BATCH)
 
     losses, g_cols, gnorm_fn = local_grads(space_l, coll, tile,
                                            spec.loss_fn, z_tilde, data)
@@ -411,6 +486,161 @@ def _epoch_body(spec: ConsensusSpec, space_l, coll, tile: Tile,
             "selected_fraction": torch.mean(sel.to(torch.float32))}
     return ConsensusState(z_hist=space_l.push(state.z_hist, z_new), y=y,
                           w_cache=w_cache, x=x, t=t + 1), info
+
+
+# ---------------------------------------------------------------------------
+# the Gauss-Seidel block round (ADMMTrainer.train_step_block), local view
+# ---------------------------------------------------------------------------
+
+def block_round_body(spec: ConsensusSpec, coll, tile: Tile, z_hist, y,
+                     t: int, data, block_id: int):
+    """One cyclic (Gauss-Seidel) round of block ``block_id`` on ONE rank:
+    every worker updates that block, and nothing else changes. The
+    paper's §3.2 alternative block selection, ``ADMMTrainer``'s
+    ``train_step_block``, on the packed table.
+
+    ``z_hist`` (D+1, Ml, dblk) and ``y`` (Nl, Ml, dblk) are the rank's
+    tiles (with no mesh, ``tile`` is :meth:`Tile.whole` and ``coll`` is
+    None); there is no w cache, which the round never reads. Returns
+    (z_hist, y, losses' mean, the active leaves' share); the tiles of a
+    rank that does not own the block come back as they were (the same
+    tensors), and the owner's are new tables, its inputs' copies with
+    column b replaced: the trainer hands the round its state's own
+    tables.
+
+    The design, the epoch's (``_epoch_body``) cut to one block:
+
+    * the stale pull draws its delays at FULL (N, M) from the round's own
+      stream (``BLOCK_DELAY``) and slices them to the tile; the
+      minibatch likewise (``BLOCK_BATCH``), so every rank sees the
+      single-device draw;
+    * the gradient of block b's leaves only, at points gathered over
+      model (the parameter-gradient products of the frozen leaves are
+      never built). Under the split gradient pass every model rank
+      differentiates its share of the rows at all_to_all-routed points,
+      as ``local_grads`` routes them, and the gradients are gathered to
+      the owner; otherwise the owner alone differentiates its rows at
+      the all-gathered points, and the other model ranks only take part
+      in the gather;
+    * on the model rank that owns block b (its block server): the worker
+      update (11)(12)(9) of its rows, edge-masked, block b's worker sum
+      completed over the data group by ONE all-reduce, and the server
+      prox (13) pushed into block b's column of the ring. The update
+      equations are the plain ``core.admm`` ones, as in the reference:
+      the round launches no kernel;
+    * the loss: each rank's sum over the rows it differentiated (0 where
+      it took no gradient), completed over the mesh.
+    """
+    edge, rho_vec = spec.edge, spec.rho_vec
+    N, M = edge.shape
+    dev = spec.device
+    layout = spec.space.packer
+    split = coll is not None and tile.split_grads
+    j = block_id - tile.m0
+    owner = 0 <= j < tile.Ml                   # block b's server
+
+    delays = sample_delay_model(
+        spec.delay_model, seeded_generator(dev, spec.seed, t, BLOCK_DELAY),
+        N, M, t)
+    z_tilde = spec.space.gather(z_hist, tile.cols(tile.rows(delays)))
+    data = rank_minibatch(spec, tile, rank_data(tile, N, data), t,
+                          BLOCK_BATCH)
+
+    # --- the points of the rows this rank differentiates, every block ---
+    if split:
+        points = coll.all_to_all_model(z_tilde, 0, 1)     # (Ng, M, dblk)
+    elif coll is not None and coll.msize > 1:
+        points = coll.all_gather_model(z_tilde, axis=1)   # (Nl, M, dblk)
+    else:
+        points = z_tilde
+    del z_tilde
+    if not (owner or split):          # the gather was all this rank owed
+        loss = coll.reduce_all(torch.zeros((), device=points.device)) / N
+        del points
+        return z_hist, y, loss, _active_share(layout, block_id)
+    leaves = layout.unpack_leaves(points)
+    del points
+    active_idx = layout.window_leaf_ids((block_id, 1))
+    treedef = layout.tree.treedef
+
+    def loss_from_active(active_leaves, all_leaves, d):
+        merged = list(all_leaves)
+        for i, leaf in zip(active_idx, active_leaves):
+            merged[i] = leaf
+        return spec.loss_fn(tree_unflatten(treedef, merged), d)
+
+    g_active, losses = torch.func.vmap(
+        torch.func.grad_and_value(loss_from_active))(
+            [leaves[i] for i in active_idx], leaves, data)
+    del leaves
+    g = (layout.pack_leaves(list(g_active), (block_id, 1))[:, 0]
+         if active_idx else torch.zeros((losses.shape[0], layout.block_dim),
+                                        device=losses.device))
+    del g_active
+    if split:                                  # rows back to their owner
+        g = coll.all_gather_model(g, axis=0)
+        losses = coll.all_gather_model(losses, axis=0)
+    if coll is None:
+        loss = torch.mean(losses)
+    elif split:
+        loss = coll.psum_data(torch.sum(losses)) / N
+    else:                                      # the owner's rows only
+        loss = coll.reduce_all(torch.sum(losses)) / N
+
+    if owner:
+        rho = tile.rows(rho_vec).float()[:, None]
+        e = tile.rows(edge[:, block_id])[:, None]
+        y_j = y[:, j]
+        # block b's column of z~, gathered again: kept through the
+        # backward it would add its bytes to the round's peak
+        zt_j = z_hist[tile.rows(delays)[:, block_id], j]
+        # each (Nl, dblk) temporary is dropped once read: the new tables
+        # below are made at the round's end, beside the caller's state
+        y_new, w_new = worker_update(g.float(), y_j, zt_j, rho)[1:]
+        del g, zt_j
+        w_sum = torch.sum(torch.where(e, w_new, 0.0), dim=0)
+        del w_new
+        if coll is not None:
+            w_sum = coll.psum_data(w_sum)
+        rho_sum = torch.sum(torch.where(edge[:, block_id], rho_vec.float(),
+                                        0.0))
+        z_new = server_update(z_hist[0, j], w_sum, rho_sum, spec.gamma,
+                              spec.reg.prox)
+        col = torch.tensor([j], device=y.device)
+        y_col = torch.where(e, y_new, y_j).to(y.dtype)
+        del y_new
+        # new tables, column b replaced out of place (one copy each)
+        y = y.index_copy(1, col, y_col[:, None])
+        del y_col
+        z_hist = z_hist.index_copy(1, col, torch.cat(
+            [z_new[None].to(z_hist.dtype), z_hist[:-1, j]])[:, None])
+    return z_hist, y, loss, _active_share(layout, block_id)
+
+
+def _active_share(layout, block_id: int) -> float:
+    """The share of the leaves that block ``block_id`` holds."""
+    return (len(layout.window_leaf_ids((block_id, 1)))
+            / max(len(layout.block_ids), 1))
+
+
+def per_shard_block_round_program(spec: ConsensusSpec, data, z0,
+                                  block_id: int = 0):
+    """(fn, args): ``fn(*args)`` runs ONE shard of the block round of
+    ``block_id`` (:func:`block_round_body`; the tile of the spec's mesh
+    view) with :class:`SimCollectives`, on local tiles made for
+    ``spec.device``, with no process group: z_hist and y, no w cache,
+    as ``ADMMTrainer.init(cyclic=True)`` holds them. Cost it under
+    ``analysis.cost.count``."""
+    from .space import init_consensus_state
+    tile = local_tile(spec)
+    coll = SimCollectives(spec.space.mesh)
+    state = init_consensus_state(spec, z0)
+    data = rank_data(tile, spec.space.num_workers, data)
+
+    def fn(z_hist, y, d):
+        return block_round_body(spec, coll, tile, z_hist, y, 0, d, block_id)
+
+    return fn, (state.z_hist, state.y, data)
 
 
 # ---------------------------------------------------------------------------

@@ -737,8 +737,8 @@ def state_from_numpy(arrays: Mapping[str, Any], spec: ConsensusSpec,
     dblk = spec.space.packer.block_dim
     depth = spec.delay_model.depth
     from .sharded import Tile, local_tile
-    tile = (Tile(n0=0, Nl=N, m0=0, Ml=M, g0=0, Ng=N)
-            if spec.space.mesh is None else local_tile(spec))
+    tile = (Tile.whole(N, M) if spec.space.mesh is None
+            else local_tile(spec))
 
     def tensor(name, shape, worker_bundle=True):
         a = np.array(arrays[name], np.float32)          # a private copy

@@ -82,12 +82,13 @@ def _node(x):
     return _LEAF, None, ()
 
 
-def _flatten_into(x, leaves: list) -> TreeDef:
-    kind, meta, children = _node(x)
+def _flatten_into(x, leaves: list, is_leaf) -> TreeDef:
+    kind, meta, children = ((_LEAF, None, ()) if is_leaf is not None
+                            and is_leaf(x) else _node(x))
     if kind == _LEAF:
         leaves.append(x)
         return TreeDef(_LEAF)
-    return TreeDef(kind, meta, tuple(_flatten_into(c, leaves)
+    return TreeDef(kind, meta, tuple(_flatten_into(c, leaves, is_leaf)
                                      for c in children))
 
 
@@ -110,10 +111,13 @@ def _build(td: TreeDef, it):
 # through its cell, and that cycle would keep the leaves it closes over
 # (device tensors) alive until the cycle collector runs.
 
-def tree_flatten(tree) -> Tuple[List[Any], TreeDef]:
-    """The leaves of ``tree`` in JAX's order, and its treedef."""
+def tree_flatten(tree, is_leaf: Callable = None
+                 ) -> Tuple[List[Any], TreeDef]:
+    """The leaves of ``tree`` in JAX's order, and its treedef; a node
+    for which ``is_leaf`` is true is a leaf (as in ``jax.tree``: a
+    placement spec is a tuple)."""
     leaves: List[Any] = []
-    treedef = _flatten_into(tree, leaves)
+    treedef = _flatten_into(tree, leaves, is_leaf)
     return leaves, treedef
 
 
@@ -126,8 +130,8 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     return _build(treedef, iter(leaves))
 
 
-def tree_leaves(tree) -> List[Any]:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree, is_leaf: Callable = None) -> List[Any]:
+    return tree_flatten(tree, is_leaf)[0]
 
 
 def tree_structure(tree) -> TreeDef:
@@ -137,3 +141,52 @@ def tree_structure(tree) -> TreeDef:
 def tree_map(fn: Callable, tree) -> Any:
     leaves, treedef = tree_flatten(tree)
     return tree_unflatten(treedef, [fn(leaf) for leaf in leaves])
+
+
+# ---------------------------------------------------------------------------
+# key paths, as jax.tree_util's
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DictKey:
+    """A dict child's place in a key path (``jax.tree_util.DictKey``)."""
+    key: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceKey:
+    """A list or tuple child's place (``jax.tree_util.SequenceKey``)."""
+    idx: int
+
+
+@dataclasses.dataclass(frozen=True)
+class GetAttrKey:
+    """A NamedTuple field's place (``jax.tree_util.GetAttrKey``)."""
+    name: str
+
+
+def _paths_into(x, path: tuple, out: list) -> None:
+    kind, meta, children = _node(x)
+    if kind == _LEAF:
+        out.append(path)
+    elif kind in (_DICT, _ODICT):
+        for k, c in zip(meta, children):
+            _paths_into(c, path + (DictKey(k),), out)
+    elif kind == _NAMEDTUPLE:
+        for f, c in zip(meta._fields, children):
+            _paths_into(c, path + (GetAttrKey(f),), out)
+    else:
+        for i, c in enumerate(children):
+            _paths_into(c, path + (SequenceKey(i),), out)
+
+
+def tree_map_with_path(fn: Callable, tree) -> Any:
+    """``jax.tree_util.tree_map_with_path``: ``fn(path, leaf)`` for every
+    leaf, the path a tuple of :class:`DictKey` / :class:`SequenceKey` /
+    :class:`GetAttrKey`."""
+    leaves, treedef = tree_flatten(tree)
+    paths: list = []
+    _paths_into(tree, (), paths)
+    return tree_unflatten(treedef, [fn(p, leaf)
+                                    for p, leaf in zip(paths, leaves)])
+

@@ -95,18 +95,22 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
                 model_group=model_groups[wi])
 
 
-def make_abstract_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]
-                       ) -> Mesh:
-    """Rank 0's view of a mesh of ``prod(shape)`` ranks, with no process
-    group and no groups: what ``core.sharded.per_shard_cost_program``
-    needs to cost one shard (the reference's ``AbstractMesh``). Its
-    collectives cannot run."""
+def make_abstract_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+                       rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of a mesh of ``prod(shape)`` ranks (laid out
+    row-major, as :func:`make_mesh` lays them), with no process group
+    and no groups: what ``core.sharded.per_shard_cost_program`` needs to
+    cost one shard, and what a test needs to take any rank's tile (the
+    reference's ``AbstractMesh``). Its collectives cannot run."""
     if not set(axes) <= set(MESH_AXES) or len(set(axes)) != len(axes):
         raise ValueError(f"mesh axes {axes} unknown; expected distinct "
                          f"names from {MESH_AXES}")
+    n = math.prod(shape)
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} lies outside the mesh of {n} ranks")
+    coords = dict(zip(axes, (int(c) for c in np.unravel_index(rank, shape))))
     return Mesh(axis_names=tuple(axes), shape=dict(zip(axes, shape)),
-                coords={a: 0 for a in axes}, data_group=None,
-                model_group=None)
+                coords=coords, data_group=None, model_group=None)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -177,3 +181,69 @@ def num_workers(mesh) -> int:
 
 def model_axis_size(mesh) -> int:
     return mesh.shape.get("model", 1)
+
+
+# ---------------------------------------------------------------------------
+# placement specs: the counterpart of jax.sharding.PartitionSpec
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """A placement spec, the counterpart of ``jax.sharding.PartitionSpec``:
+    one entry a tensor dim, each ``None`` (replicated), an axis name, or
+    a tuple of axis names (the dim split over their product, row-major:
+    the data axes ``("pod", "data")``). A one-name tuple is stored as the
+    name, as jax stores it. Dims past the entries are replicated."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                return e[0] if len(e) == 1 else (e or None)
+            return e
+        return super().__new__(cls, (norm(e) for e in entries))
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+    def axes(self, dim: int) -> Tuple[str, ...]:
+        """The mesh axes dim ``dim`` is split over, outermost first."""
+        e = self[dim] if dim < len(self) else None
+        if e is None:
+            return ()
+        return e if isinstance(e, tuple) else (e,)
+
+
+def _dim_slice(mesh, axes, size: int, dim: int) -> Tuple[int, int]:
+    """(start, length) of this rank's share of a dim of ``size`` split
+    over ``axes``; an axis the mesh lacks counts as size 1."""
+    n, idx = 1, 0
+    for a in axes:
+        k = mesh.shape.get(a, 1)
+        n, idx = n * k, idx * k + mesh.coords.get(a, 0)
+    if size % n:
+        raise ValueError(f"dim {dim} of size {size} does not divide over "
+                         f"the {n} shards of mesh axes {axes}")
+    return idx * (size // n), size // n
+
+
+def shard_slices(shape, spec: P, mesh) -> Tuple[Tuple[int, int], ...]:
+    """Per dim of ``shape``, (start, length) of this rank's shard under
+    ``spec`` on ``mesh`` (``mesh.coords``); a dim that does not divide
+    is refused."""
+    return tuple(_dim_slice(mesh, spec.axes(i), int(s), i)
+                 for i, s in enumerate(shape))
+
+
+def shard_shape(shape, spec: P, mesh) -> Tuple[int, ...]:
+    """The local shape of a ``shape`` tensor placed by ``spec``."""
+    return tuple(n for _, n in shard_slices(shape, spec, mesh))
+
+
+def local_shard(x, spec: P, mesh):
+    """This rank's shard of the full tensor ``x`` placed by ``spec``: the
+    port's counterpart of ``jax.device_put(x, NamedSharding(mesh,
+    spec))`` as one device sees it (a view of ``x``)."""
+    for dim, (start, n) in enumerate(shard_slices(x.shape, spec, mesh)):
+        if n != x.shape[dim]:
+            x = x.narrow(dim, start, n)
+    return x

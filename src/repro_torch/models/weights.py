@@ -97,14 +97,22 @@ def _stacked_like(layer: Dict[str, Any], num_layers: int):
 def _stacked_layers(make, num_layers: int) -> Dict[str, Any]:
     """``num_layers`` layers drawn by ``make()`` in turn, written into
     leaves stacked on a leading axis (one layer beside the stack at a
-    time)."""
+    time). On the meta device, where there is nothing to draw, one
+    layer gives the stack its shapes."""
     stack: Dict[str, Any] = {}
     for i in range(num_layers):
         layer = make()
         if i == 0:
             stack = _stacked_like(layer, num_layers)
+            if _first_leaf(layer).device.type == "meta":
+                return stack
         _stack_into(stack, layer, i)
     return stack
+
+
+def _first_leaf(tree):
+    value = next(iter(tree.values()))
+    return _first_leaf(value) if isinstance(value, dict) else value
 
 
 def stacked_params(cfg, seed: int = 0,

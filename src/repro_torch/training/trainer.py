@@ -22,7 +22,8 @@ reference leans on ``jit``'s cache for that, and an eager rebuild would
 be host work on every step.
 
 Under a mesh (``mesh=``, or ``admm.mesh``) ``train_step`` runs the SPMD
-epoch of ``core/sharded.py`` (B1 and B3 on every rank, never B2), and
+epoch of ``core/sharded.py`` (B1 and B3 on every rank, never B2) and
+``train_step_block`` the block round there (``block_round_body``), and
 each rank's state holds only its tile of the (N, M) grid: the ring's
 block columns [m0, m0 + Ml) and the duals and w cache of its worker rows
 [n0, n0 + Nl) in those columns (``core.sharded.local_tile``). It is
@@ -49,23 +50,17 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ADMMConfig
-from ..core.admm import server_update, worker_update
-from ..core.async_sim import push_history, subsample_worker_data
 from ..core.blocks import (BlockLayout, TreeBlocks, make_block_layout,
                            make_tree_blocks)
-from ..core.sharded import full_z_blocks, local_tile
+from ..core.sharded import (MeshCollectives, Tile, block_round_body,
+                            full_z_blocks, local_tile)
 from ..core.space import (ConsensusSpec, ConsensusState, TreeSpace,
                           asybadmm_epoch, consensus_residual,
-                          init_consensus_state, make_spec,
-                          sample_delay_model)
-from ..core.tree import tree_flatten, tree_leaves, tree_unflatten
-from ..device import DeviceLike, seeded_generator
+                          init_consensus_state, make_spec)
+from ..core.tree import tree_flatten, tree_leaves
+from ..device import DeviceLike
 from ..optim.optimizers import Optimizer, apply_updates
 from .train_state import ADMMTrainState, SGDTrainState
-
-# generator streams of train_step_block (the epoch's are 0-2)
-_BLOCK_DELAY, _BLOCK_BATCH = 3, 4
-
 
 # ===========================================================================
 # baseline: synchronous data-parallel SGD/Adam
@@ -258,82 +253,33 @@ class ADMMTrainer:
         * the server-side stale-w cache is never read (every worker
           pushes the active block fresh), so it is not carried at all.
 
-        The update equations and server prox are the plain
-        ``core.admm`` ones, per leaf, as in the reference: this path
-        launches no kernel. Its delay and minibatch draws come from
-        streams of its own.
+        The round runs on the packed table (``core.sharded.
+        block_round_body``, whose docstring states the design). Under a
+        mesh each rank runs it on its tile — the gradient at points
+        gathered over ``model``, block b's worker sum one all-reduce over
+        the data group, the prox on the model rank that owns block b —
+        and gets its tile of the single-device round's state. The update
+        equations and server prox are the plain ``core.admm`` ones, as in
+        the reference: this path launches no kernel. Its delay and
+        minibatch draws come from streams of its own.
         """
-        cfg = self.admm
-        N, M = self.num_workers, cfg.num_blocks
         spec = self._spec(state.params)
-        if spec.space.mesh is not None and (local_tile(spec).Nl, local_tile(
-                spec).Ml) != (N, M):
-            raise NotImplementedError(
-                "train_step_block runs on the whole table; under a mesh "
-                "that splits it, train with train_step")
-        blocks = spec.space.blocks
-        t, dev = int(state.step), spec.device
-        if spec.minibatch is not None:
-            # incremental workers: same semantics as the generic epoch
-            batch = subsample_worker_data(
-                seeded_generator(dev, spec.seed, t, _BLOCK_BATCH), batch,
-                spec.minibatch)
-
-        leaf_ids = blocks.leaf_block_ids
-        active_idx = [i for i, b in enumerate(leaf_ids) if b == block_id]
-
-        # --- bounded-staleness pull (all leaves — forward needs them);
-        #     per-leaf gather on the params-shaped state ---
-        delays = sample_delay_model(
-            spec.delay_model,
-            seeded_generator(dev, spec.seed, t, _BLOCK_DELAY), N, M, t)
-        zh_leaves, treedef = tree_flatten(state.z_hist)
-        zt_leaves = [zh[delays[:, bid]] for zh, bid in zip(zh_leaves,
-                                                           leaf_ids)]
-        active_zt = [zt_leaves[i] for i in active_idx]
-
-        def loss_from_active(active_leaves, all_leaves, b):
-            merged = list(all_leaves)
-            for i, leaf in zip(active_idx, active_leaves):
-                merged[i] = leaf
-            return self.loss_fn(tree_unflatten(treedef, merged), b)
-
-        g_active, losses = torch.func.vmap(
-            torch.func.grad_and_value(loss_from_active))(active_zt,
-                                                         zt_leaves, batch)
-
-        # --- worker + server update on the active leaves only ---
-        rho32 = spec.rho_vec.float()
-        e_blk = spec.edge[:, block_id]                       # (N,) bool
-        y_leaves, y_def = tree_flatten(state.y)
-        y_new_leaves = list(y_leaves)
-        w_sum_active = []
-        for i, g in zip(active_idx, g_active):
-            g32 = g.float()
-            wshape = (N,) + (1,) * (g32.dim() - 1)
-            _, y_new, w_new = worker_update(g32, y_leaves[i].float(),
-                                            zt_leaves[i].float(),
-                                            rho32.reshape(wshape))
-            em = e_blk.reshape(wshape)
-            y_new_leaves[i] = torch.where(em, y_new, y_leaves[i].float()
-                                          ).to(y_leaves[i].dtype)
-            w_sum_active.append(                      # reduce over N
-                torch.sum(torch.where(em, w_new, 0.0), dim=0))
-
-        rho_sum = torch.sum(torch.where(e_blk, rho32, 0.0))
-        zh_new = list(zh_leaves)
-        for i, w_sum in zip(active_idx, w_sum_active):
-            zh = zh_leaves[i]
-            z_new = server_update(zh[0].float(), w_sum, rho_sum, spec.gamma,
-                                  spec.reg.prox).to(zh.dtype)
-            zh_new[i] = push_history(zh, z_new)
-
-        info = {"loss": torch.mean(losses),
-                "selected_fraction": torch.tensor(
-                    len(active_idx) / max(len(leaf_ids), 1), device=dev)}
+        layout, window = spec.space.layout, self.window(spec)
+        if spec.space.mesh is None:
+            tile, coll = Tile.whole(self.num_workers,
+                                    self.admm.num_blocks), None
+        else:
+            tile, coll = local_tile(spec), MeshCollectives(spec.space.mesh)
+        t = int(state.step)
+        z_hist, y, loss, share = block_round_body(
+            spec, coll, tile, _table(layout, window, state.z_hist),
+            _table(layout, window, state.y), t, batch, block_id)
+        info = {"loss": loss,
+                "selected_fraction": torch.tensor(share,
+                                                  device=spec.device)}
         return (ADMMTrainState(
-            z_hist=tree_unflatten(treedef, zh_new),
-            y=tree_unflatten(y_def, y_new_leaves),
+            z_hist=layout.from_blocks(z_hist, window),
+            y=layout.from_blocks(y, window),
             w_cache=state.w_cache,        # untouched (never read in cyclic)
             step=t + 1), info)
 

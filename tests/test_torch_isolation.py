@@ -1,6 +1,6 @@
 """The port stands alone: ``repro_torch`` (its kernels, examples,
 benchmarks, models, serving engine, optimizers, trainers, launchers,
-observability layer and PS runtime too), ``chip_smoke.py`` and the rank
+placement rules and dry run, observability layer and PS runtime too), ``chip_smoke.py`` and the rank
 side of the sharded tests import neither JAX nor the reference package,
 and the kernels build without fast math (their plain versions are their
 yardstick)."""
@@ -40,6 +40,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "import repro_torch.examples.serve_decode\n"
             "import repro_torch.kernels.autotune\n"
             "import repro_torch.benchmarks.spmd_replay\n"
+            "import repro_torch.launch.shardings, repro_torch.launch.dryrun\n"
+            "import repro_torch.analysis.report\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")

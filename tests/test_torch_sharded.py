@@ -33,9 +33,14 @@ smoke, N = M = 4, no draws): each rank's tile after every step within
 own SPMD step equals it, tests/test_spmd_parity.py) and of the port's;
 the newest z gathered into the full tree; the cost counter's count of
 one epoch on rank r equal to ``per_shard_cost_program``'s on an
-abstract mesh (collectives charged alike by kind). Every rank also
-trains through ``launch/train.py --mesh test``.
+abstract mesh (collectives charged alike by kind). On the same ranks,
+``train_step_block``'s Gauss-Seidel rounds on the mesh against the
+reference's and the port's single-device rounds, each rank's tiles
+against ``local_shard`` of the single-device tables, and the bytes a
+rank holds against the dry run's reckoning. Every rank also trains
+through ``launch/train.py --mesh test``.
 """
+import functools
 import pickle
 import time
 from pathlib import Path
@@ -176,7 +181,7 @@ def _trainer_scenario():
     """The trainer case the ranks run: the reference's smoke weights as
     numpy, the batches, the config (no draws: every block selected, no
     delay)."""
-    rparams = ref_build(ref_smoke(TRAINER_ARCH)).init(jax.random.PRNGKey(0))
+    rparams = _reference_smoke()[1]
     return dict(trainer=True, cfg=get_smoke(TRAINER_ARCH),
                 params=jax.tree.map(np.asarray, rparams),
                 batches=_trainer_batches(), workers=TRAINER_N,
@@ -431,13 +436,21 @@ def test_pod_mesh_flattens_pod_and_data_into_the_data_group(sharded):
         assert pm["data_group"].index(rank) == pm["worker_shard_index"]
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_smoke():
+    """The reference's trainer-scenario model and its weights (seed 0),
+    built once for the tests that run the reference's trainer."""
+    rmodel = ref_build(ref_smoke(TRAINER_ARCH))
+    return rmodel, rmodel.init(jax.random.PRNGKey(0))
+
+
 def _reference_trainer_states():
     """The reference's single-device ``ADMMTrainer`` states after each
     step (params-shaped numpy leaves), on the trainer scenario."""
-    rmodel = ref_build(ref_smoke(TRAINER_ARCH))
+    rmodel, rparams = _reference_smoke()
     rt = RTrainer(loss_fn=rmodel.loss, admm=RConfig(**TRAINER_ADMM),
                   num_workers=TRAINER_N)
-    state = rt.init(rmodel.init(jax.random.PRNGKey(0)))
+    state = rt.init(rparams)
     step = jax.jit(rt.train_step)
     out = []
     for b in _trainer_batches():
@@ -478,6 +491,96 @@ def test_trainer_on_a_mesh_that_splits_the_table(sharded):
     assert tiles == {(0, 0), (0, 2), (2, 0), (2, 2)}
     for r in range(4, WORLD):
         assert results[r]["trainer"] is None
+
+
+def _reference_block_rounds():
+    """The reference's single-device ``train_step_block`` rounds (block
+    ``i % M``) from ``init(cyclic=True)`` on the trainer scenario."""
+    rmodel, rparams = _reference_smoke()
+    rt = RTrainer(loss_fn=rmodel.loss, admm=RConfig(**TRAINER_ADMM),
+                  num_workers=TRAINER_N)
+    batches = [{k: jnp.asarray(v) for k, v in b.items()}
+               for b in _trainer_batches()]
+
+    @jax.jit
+    def rounds(state, batches):             # one compile for the M rounds
+        out = []
+        for i in range(TRAINER_M):
+            state, info = rt.train_step_block(
+                state, batches[i % len(batches)], i)
+            out.append((state.z_hist, state.y, info))
+        return out
+
+    return [{"z_hist": [np.asarray(t) for t in jax.tree.leaves(zh)],
+             "y": [np.asarray(t) for t in jax.tree.leaves(y)],
+             "loss": float(info["loss"]),
+             "share": float(info["selected_fraction"])}
+            for zh, y, info in rounds(rt.init(rparams, cyclic=True),
+                                      batches)]
+
+
+def test_block_round_on_a_mesh_that_splits_the_table(sharded):
+    """``train_step_block`` under (data=2, model=2), M rounds from
+    ``init(cyclic=True)``: each rank's tile within 1e-5 of the port's
+    single-device round and of the reference's, round by round; the w
+    cache stays dropped."""
+    _, results = sharded
+    ref = _reference_block_rounds()
+    for r in range(4):
+        got = results[r]["trainer"]
+        n0, Nl, _, _ = got["tile"]
+        rounds = got["block_round"]
+        assert rounds["w_cache"] == ()
+        assert max(rounds["diffs_vs_single"]) <= TOL
+        for step, want in zip(rounds["steps"], ref):
+            np.testing.assert_allclose(step["loss"], want["loss"], rtol=TOL)
+            assert step["share"] == pytest.approx(want["share"], rel=1e-6)
+            for name in ("z_hist", "y"):
+                assert step[name], f"rank {r} holds no {name} leaf"
+                for k, t in step[name].items():
+                    w = want[name][k]
+                    if name == "y":
+                        w = w[n0:n0 + Nl]
+                    assert t.shape == w.shape
+                    assert float(np.abs(t - w).max()) <= \
+                        TOL * (1.0 + float(np.abs(w).max()))
+        assert len(rounds["steps"]) == TRAINER_M
+
+
+def test_block_round_draws_delays_and_minibatch_on_a_mesh(sharded):
+    """``train_step_block`` under (data=2, model=2) with bounded delay 1
+    and a minibatch of half the sequences (delays and rows drawn at full
+    (N, ...) and sliced to the tile), on the split gradient pass (N = 4)
+    and with the owner alone differentiating (N = 2): each rank's tile
+    within 1e-5 of the port's single-device round, round by round; the
+    draws move z off the undrawn rounds'."""
+    _, results = sharded
+    for r in range(4):
+        got = results[r]["trainer"]
+        drawn = got["block_round_drawn"]
+        assert drawn["split"]["tile"].split_grads
+        assert not drawn["owner_only"]["tile"].split_grads
+        for name, run in drawn.items():
+            assert len(run["diffs_vs_single"]) == TRAINER_M
+            assert max(run["diffs_vs_single"]) <= TOL, (r, name)
+        undrawn = got["block_round"]["steps"][-1]["z_hist"]
+        moved = max(float(np.abs(t - undrawn[k]).max())
+                    for k, t in drawn["split"]["last"]["z_hist"].items())
+        assert moved > 1e-4, r
+
+
+def test_rank_state_is_its_shard_and_the_dryrun_bytes(sharded):
+    """Each rank's tiles equal ``local_shard`` of the single-device
+    tables under the base placement specs (within 1e-5: the two
+    trajectories sum workers in another order), and the bytes it holds
+    (the storages behind its state, the data rows it differentiates)
+    equal ``launch/dryrun.py``'s reckoning for its rank of the mesh at
+    this config and dtype (f32, no remat)."""
+    _, results = sharded
+    for r in range(4):
+        got = results[r]["trainer"]
+        assert got["local_shard_diff"] <= TOL
+        assert got["held_bytes"] == got["dryrun_state_bytes"] > 0
 
 
 def test_per_shard_cost_program_matches_the_counted_rank(sharded):

@@ -44,6 +44,7 @@ from repro.training import SGDTrainer as RSGDTrainer
 from repro.training import trainer as rtrainer_mod
 from repro_torch.configs import get_smoke
 from repro_torch.configs.base import ADMMConfig
+from repro_torch.core import sharded as sharded_mod
 from repro_torch.core import space
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import build_model, stacked_from_numpy
@@ -238,7 +239,8 @@ def test_train_step_block_matches_reference(models, monkeypatch):
     of leaves."""
     monkeypatch.setattr(rtrainer_mod, "sample_delay_model",
                         lambda dm, key, n, m, t: jnp.ones((n, m), jnp.int32))
-    monkeypatch.setattr(trainer_mod, "sample_delay_model",
+    # the port's round draws in core/sharded.py (block_round_body)
+    monkeypatch.setattr(sharded_mod, "sample_delay_model",
                         lambda dm, gen, n, m, t: torch.ones(
                             (n, m), dtype=torch.int64))
     rt, tt = _trainers(models, max_delay=1, block_fraction=1.0)

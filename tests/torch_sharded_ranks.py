@@ -9,8 +9,11 @@ errors and the groups of a (pod, data, model) mesh, and pickles what it
 saw to ``out_dir/rank<r>.pkl``. A scenario marked ``trainer`` runs
 ``ADMMTrainer.train_step`` on ranks 0-3 under a (data=2, model=2) mesh
 that splits the block table (``trainer_scenario``: each rank's tile
-after every step, the single-device step's diff, and on every rank the
-cost counter's count of one epoch beside ``per_shard_cost_program``'s);
+after every step, the single-device step's diff, the tile against
+``local_shard`` of the single-device tables, the bytes the rank holds
+beside the dry run's reckoning, ``train_step_block``'s rounds, and on
+every rank the cost counter's count of one epoch beside
+``per_shard_cost_program``'s);
 every rank then trains through ``launch/train.py --mesh test``. It imports
 torch and the port only, so the spawned ranks never load JAX; scenarios
 arrive as numpy arrays and plain values.
@@ -28,13 +31,16 @@ from repro_torch.api import ConsensusSession
 from repro_torch.configs.base import ADMMConfig
 from repro_torch.core import space
 from repro_torch.core.blocks import TreeBlocks
-from repro_torch.core.sharded import (grad_split_size, local_tile,
-                                      per_shard_cost_program)
+from repro_torch.core.sharded import (consensus_state_specs,
+                                      grad_split_size, local_tile,
+                                      per_shard_cost_program, rank_data)
 from repro_torch.core.space import asybadmm_epoch
 from repro_torch.core.tree import tree_leaves, tree_structure
+from repro_torch.launch import dryrun
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import (make_abstract_mesh, make_mesh,
-                                     make_test_mesh, resolve_mesh)
+from repro_torch.launch.mesh import (local_shard, make_abstract_mesh,
+                                     make_mesh, make_test_mesh,
+                                     resolve_mesh)
 from repro_torch.models import build_model, stacked_from_numpy
 from repro_torch.training import ADMMTrainer
 
@@ -210,10 +216,17 @@ def trainer_scenario(sc, rank):
                     want = want[tile.n0:tile.n0 + tile.Nl]
                 diff = max(diff, float(np.abs(t - want).max()))
         diffs.append(diff)
+    # the tile is the rank's shard of the single-device tables under the
+    # base placement specs (local_shard by this rank's mesh coordinates)
+    packed, full = tr._packed(spec, state), single._packed(
+        single._spec(params), s_state)
+    full_specs = consensus_state_specs(spec, full)
+    shard_diff = max(float((local_shard(getattr(full, k), getattr(
+        full_specs, k), mesh) - getattr(packed, k)).abs().max())
+        for k in ("z_hist", "y", "w_cache"))
     # one more epoch counted on the mesh, and one shard of it costed
     # with no process group
-    _, real = count(asybadmm_epoch, spec, tr._packed(spec, state),
-                    batches[0])
+    _, real = count(asybadmm_epoch, spec, packed, batches[0])
     abstract = trainer(make_abstract_mesh(*TRAINER_MESH))
     fn, args = per_shard_cost_program(abstract._spec(params), batches[0],
                                       z0=params)
@@ -222,7 +235,94 @@ def trainer_scenario(sc, rank):
             "diffs_vs_single": diffs, "cost": real.row(),
             "sim_cost": sim.row(), "same_cost": real.same(sim),
             "gathered_params": [t.numpy().copy() for t in tree_leaves(
-                tr.gathered_params(state))]}
+                tr.gathered_params(state))],
+            "local_shard_diff": shard_diff,
+            "held_bytes": held_state_bytes(tr, params, batches[0]),
+            "dryrun_state_bytes": dryrun.held_bytes(dryrun.train_program(
+                sc["cfg"], make_abstract_mesh(*TRAINER_MESH, rank=rank),
+                ADMMConfig(**sc["admm"]), 2, 16, device="cpu",
+                data=batches[0], workers=sc["workers"])[1]),
+            "block_round": block_round(tr, single, params, batches,
+                                       leaf_ids, tile),
+            "block_round_drawn": drawn_block_rounds(sc, mesh, model, params,
+                                                    batches)}
+
+
+#: the block round's draws: bounded delay 1 (depth-2 rings, uniform
+#: delays) and a minibatch of half a worker's sequences, on the
+#: scenario's N (the split gradient pass: Nl = 2 over model 2) and on
+#: half of it (Nl = 1: the owner alone differentiates)
+DRAWN = {"split": None, "owner_only": 2}
+DRAWN_ADMM = dict(max_delay=1, minibatch=0.5)
+
+
+def drawn_block_rounds(sc, mesh, model, params, batches):
+    """``block_round`` with ``DRAWN_ADMM`` for each case of ``DRAWN``:
+    the largest difference from the single-device round, and on the
+    scenario's N how far z moved from the undrawn rounds' (the draws
+    change the state)."""
+    out = {}
+    for name, workers in DRAWN.items():
+        N = workers or sc["workers"]
+        admm = ADMMConfig(**dict(sc["admm"], **DRAWN_ADMM))
+        tr, single = (ADMMTrainer(loss_fn=model.loss, admm=admm,
+                                  num_workers=N, mesh=m, device="cpu")
+                      for m in (mesh, None))
+        spec = tr._spec(params)
+        rounds = block_round(
+            tr, single, params, [{k: v[:N] for k, v in b.items()}
+                                 for b in batches],
+            spec.space.layout.window_leaf_ids(tr.window(spec)),
+            local_tile(spec))
+        out[name] = {"diffs_vs_single": rounds["diffs_vs_single"],
+                     "tile": local_tile(spec), "last": rounds["steps"][-1]}
+    return out
+
+
+def held_state_bytes(tr, params, batch) -> int:
+    """The bytes a rank's trainer holds at init: the storages behind its
+    state's leaves (views of its tiles) and the data rows it
+    differentiates."""
+    state = tr.init(params)
+    spec = tr._spec(state.params)
+    storages = {}
+    for name in ("z_hist", "y", "w_cache"):
+        for t in tree_leaves(getattr(state, name)):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    rows = rank_data(local_tile(spec), tr.num_workers, batch)
+    return sum(storages.values()) + sum(t.nbytes for t in tree_leaves(rows))
+
+
+def block_round(tr, single, params, batches, leaf_ids, tile):
+    """``train_step_block`` for M rounds (block ``i % M``) from
+    ``init(cyclic=True)`` on the mesh and on one device: each round's
+    tile leaves, loss and active share, and the largest difference from
+    the single-device round's state."""
+    state, s_state = tr.init(params, cyclic=True), single.init(
+        params, cyclic=True)
+    M = tr.admm.num_blocks
+    steps, diffs = [], []
+    for i in range(M):
+        b = batches[i % len(batches)]
+        state, info = tr.train_step_block(state, b, i % M)
+        s_state, s_info = single.train_step_block(s_state, b, i % M)
+        leaves = {name: dict(zip(leaf_ids, (
+            t.numpy().copy() for t in tree_leaves(getattr(state, name)))))
+            for name in ("z_hist", "y")}
+        steps.append(dict(leaves, loss=float(info["loss"]),
+                          share=float(info["selected_fraction"])))
+        diff = abs(float(info["loss"]) - float(s_info["loss"]))
+        for name in ("z_hist", "y"):
+            full = tree_leaves(getattr(s_state, name))
+            for k, t in leaves[name].items():
+                want = full[k].numpy()
+                if name == "y":
+                    want = want[tile.n0:tile.n0 + tile.Nl]
+                diff = max(diff, float(np.abs(t - want).max()))
+        diffs.append(diff)
+    return {"steps": steps, "diffs_vs_single": diffs,
+            "w_cache": state.w_cache}
 
 
 def run_rank(rank, world, init_method, scenarios_path, out_dir):
