@@ -1,0 +1,8 @@
+"""Device ms a step of the operations launched inside the program's
+``asybadmm.push`` span: the new z into the ring."""
+from perfbench.harness import spans
+
+
+def read(summary, counts, peaks):
+    split = spans.for_summary(summary)
+    return None if split is None else split.device_ms(spans.PUSH)

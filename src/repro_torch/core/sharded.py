@@ -59,6 +59,7 @@ from ..analysis import hooks
 from ..device import seeded_generator
 from ..launch.mesh import (P, data_axes, model_axis_size, num_workers,
                            shard_slices)
+from ..obs.step import step_span
 from .admm import server_update, worker_update
 from .async_sim import minibatch_rows, validate_minibatch_data
 from .space import (_BATCH, _DELAY, _SELECT, ConsensusSpec, ConsensusState,
@@ -440,10 +441,11 @@ def _epoch_body(spec: ConsensusSpec, space_l, coll, tile: Tile,
     dev, t = spec.device, state.t
 
     # --- stale pull: FULL (N, M) draw on every rank, sliced to the tile ---
-    delays = sample_delay_model(
-        spec.delay_model, seeded_generator(dev, spec.seed, t, _DELAY),
-        N, M, t)
-    z_tilde = space_l.gather(state.z_hist, tile.cols(tile.rows(delays)))
+    with step_span("asybadmm.gather"):
+        delays = sample_delay_model(
+            spec.delay_model, seeded_generator(dev, spec.seed, t, _DELAY),
+            N, M, t)
+        z_tilde = space_l.gather(state.z_hist, tile.cols(tile.rows(delays)))
 
     # --- data: the rows this rank differentiates ((Nl, ...), or (Ng, ...)
     #     under the split gradient pass). The minibatch draw, like the
@@ -455,16 +457,17 @@ def _epoch_body(spec: ConsensusSpec, space_l, coll, tile: Tile,
 
     # --- selection at FULL (N, M) on every rank (Gauss-Southwell gathers
     #     the per-block grad norms over the data group) ---
-    ctx = SelectorContext(
-        rng=seeded_generator(dev, spec.seed, t, _SELECT), edge=edge, t=t,
-        block_fraction=spec.block_fraction, grad_sqnorm=gnorm_fn)
-    sel = spec.selector(ctx)
+    with step_span("asybadmm.select"):
+        ctx = SelectorContext(
+            rng=seeded_generator(dev, spec.seed, t, _SELECT), edge=edge,
+            t=t, block_fraction=spec.block_fraction, grad_sqnorm=gnorm_fn)
+        sel = spec.selector(ctx)
 
-    # --- partial participation: the full (N, 1) mask, applied before
-    #     slicing ---
-    pmask = participation_mask_for(spec.delay_model, t, dev)
-    if pmask is not None:
-        sel = sel & pmask
+        # --- partial participation: the full (N, 1) mask, applied
+        #     before slicing ---
+        pmask = participation_mask_for(spec.delay_model, t, dev)
+        if pmask is not None:
+            sel = sel & pmask
 
     # --- worker update (11)(12)(9) + select writes on the local tile ---
     y, w_cache, x = space_l.worker_select_update(
@@ -484,8 +487,10 @@ def _epoch_body(spec: ConsensusSpec, space_l, coll, tile: Tile,
     loss = coll.psum_data(torch.sum(losses)) / N
     info = {"loss": loss,
             "selected_fraction": torch.mean(sel.to(torch.float32))}
-    return ConsensusState(z_hist=space_l.push(state.z_hist, z_new), y=y,
-                          w_cache=w_cache, x=x, t=t + 1), info
+    with step_span("asybadmm.push"):
+        z_hist = space_l.push(state.z_hist, z_new)
+    return ConsensusState(z_hist=z_hist, y=y, w_cache=w_cache, x=x,
+                          t=t + 1), info
 
 
 # ---------------------------------------------------------------------------
@@ -539,10 +544,11 @@ def block_round_body(spec: ConsensusSpec, coll, tile: Tile, z_hist, y,
     j = block_id - tile.m0
     owner = 0 <= j < tile.Ml                   # block b's server
 
-    delays = sample_delay_model(
-        spec.delay_model, seeded_generator(dev, spec.seed, t, BLOCK_DELAY),
-        N, M, t)
-    z_tilde = spec.space.gather(z_hist, tile.cols(tile.rows(delays)))
+    with step_span("asybadmm.gather"):
+        delays = sample_delay_model(
+            spec.delay_model,
+            seeded_generator(dev, spec.seed, t, BLOCK_DELAY), N, M, t)
+        z_tilde = spec.space.gather(z_hist, tile.cols(tile.rows(delays)))
     data = rank_minibatch(spec, tile, rank_data(tile, N, data), t,
                           BLOCK_BATCH)
 
@@ -558,7 +564,8 @@ def block_round_body(spec: ConsensusSpec, coll, tile: Tile, z_hist, y,
         loss = coll.reduce_all(torch.zeros((), device=points.device)) / N
         del points
         return z_hist, y, loss, _active_share(layout, block_id)
-    leaves = layout.unpack_leaves(points)
+    with step_span("asybadmm.unpack"):
+        leaves = layout.unpack_leaves(points)
     del points
     active_idx = layout.window_leaf_ids((block_id, 1))
     treedef = layout.tree.treedef
@@ -569,13 +576,15 @@ def block_round_body(spec: ConsensusSpec, coll, tile: Tile, z_hist, y,
             merged[i] = leaf
         return spec.loss_fn(tree_unflatten(treedef, merged), d)
 
-    g_active, losses = torch.func.vmap(
-        torch.func.grad_and_value(loss_from_active))(
-            [leaves[i] for i in active_idx], leaves, data)
+    with step_span("asybadmm.loss"):
+        g_active, losses = torch.func.vmap(
+            torch.func.grad_and_value(loss_from_active))(
+                [leaves[i] for i in active_idx], leaves, data)
     del leaves
-    g = (layout.pack_leaves(list(g_active), (block_id, 1))[:, 0]
-         if active_idx else torch.zeros((losses.shape[0], layout.block_dim),
-                                        device=losses.device))
+    with step_span("asybadmm.pack"):
+        g = (layout.pack_leaves(list(g_active), (block_id, 1))[:, 0]
+             if active_idx else torch.zeros(
+                 (losses.shape[0], layout.block_dim), device=losses.device))
     del g_active
     if split:                                  # rows back to their owner
         g = coll.all_gather_model(g, axis=0)

@@ -60,6 +60,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device, seeded_generator
 from ..kernels import ops as kernel_ops
+from ..obs.step import step_span
 from .admm import server_update, worker_update
 from .async_sim import (gather_delayed, gumbel, push_history, sample_delays,
                         select_blocks, subsample_worker_data)
@@ -427,10 +428,13 @@ class _PackedOps:
     # ---- worker side ----------------------------------------------------
     def worker_grads(self, loss_fn, z_tilde, data, minibatch=None, rng=None):
         data = subsample_worker_data(rng, data, minibatch)
-        z_user = self.packer.from_blocks(z_tilde)
-        g, losses = torch.func.vmap(torch.func.grad_and_value(loss_fn))(
-            z_user, data)
-        return losses, self.packer.to_blocks(g)
+        with step_span("asybadmm.unpack"):
+            z_user = self.packer.from_blocks(z_tilde)
+        with step_span("asybadmm.loss"):
+            g, losses = torch.func.vmap(torch.func.grad_and_value(loss_fn))(
+                z_user, data)
+        with step_span("asybadmm.pack"):
+            return losses, self.packer.to_blocks(g)
 
     def grad_sqnorm(self, g):
         return torch.sum(torch.square(g), dim=-1)
@@ -563,9 +567,13 @@ class TreeSpace(_PackedOps):
         def leaf_loss(leaves, d):
             return loss_fn(tree_unflatten(treedef, leaves), d)
 
-        g, losses = torch.func.vmap(torch.func.grad_and_value(leaf_loss))(
-            layout.unpack_leaves(z_tilde), data)
-        return losses, layout.pack_leaves(g)
+        with step_span("asybadmm.unpack"):
+            leaves = layout.unpack_leaves(z_tilde)
+        with step_span("asybadmm.loss"):
+            g, losses = torch.func.vmap(
+                torch.func.grad_and_value(leaf_loss))(leaves, data)
+        with step_span("asybadmm.pack"):
+            return losses, layout.pack_leaves(g)
 
 
 # ---------------------------------------------------------------------------
@@ -789,18 +797,25 @@ def asybadmm_epoch(spec: ConsensusSpec, state: ConsensusState, data
 
     With a mesh on the space, the same epoch runs SPMD: this rank's share
     of it (core/sharded.py), on its local tiles of the state."""
+    with step_span("asybadmm.epoch"):
+        if spec.space.mesh is not None:
+            from .sharded import sharded_epoch
+            return sharded_epoch(spec, state, data)
+        return _epoch(spec, state, data)
+
+
+def _epoch(spec: ConsensusSpec, state: ConsensusState, data
+           ) -> Tuple[ConsensusState, Dict[str, torch.Tensor]]:
     space = spec.space
-    if space.mesh is not None:
-        from .sharded import sharded_epoch
-        return sharded_epoch(spec, state, data)
     N, M = spec.edge.shape
     dev = spec.device
 
     # --- each worker pulls (possibly stale) z~ per block (Assumption 3) ---
-    delays = sample_delay_model(
-        spec.delay_model, seeded_generator(dev, spec.seed, state.t, _DELAY),
-        N, M, state.t)
-    z_tilde = space.gather(state.z_hist, delays)
+    with step_span("asybadmm.gather"):
+        delays = sample_delay_model(
+            spec.delay_model,
+            seeded_generator(dev, spec.seed, state.t, _DELAY), N, M, state.t)
+        z_tilde = space.gather(state.z_hist, delays)
 
     # --- local gradients at z~ (eq. 5 linearization point), optionally on
     #     a fresh per-worker minibatch (incremental workers, Hong 2014) ---
@@ -809,18 +824,22 @@ def asybadmm_epoch(spec: ConsensusSpec, state: ConsensusState, data
     losses, g = space.worker_grads(spec.loss_fn, z_tilde, data,
                                    minibatch=spec.minibatch, rng=r_batch)
 
-    # --- block selection (Alg. 1 line 4) via the shared policy registry ---
-    ctx = SelectorContext(
-        rng=seeded_generator(dev, spec.seed, state.t, _SELECT),
-        edge=spec.edge, t=state.t, block_fraction=spec.block_fraction,
-        grad_sqnorm=lambda: space.grad_sqnorm(g))
-    sel = spec.selector(ctx)
+    with step_span("asybadmm.select"):
+        # --- block selection (Alg. 1 line 4) via the shared policy
+        #     registry ---
+        ctx = SelectorContext(
+            rng=seeded_generator(dev, spec.seed, state.t, _SELECT),
+            edge=spec.edge, t=state.t, block_fraction=spec.block_fraction,
+            grad_sqnorm=lambda: space.grad_sqnorm(g))
+        sel = spec.selector(ctx)
 
-    # --- partial participation: absent workers contribute no edge
-    #     updates this round ---
-    pmask = participation_mask_for(spec.delay_model, state.t, dev)
-    if pmask is not None:
-        sel = sel & pmask
+        # --- partial participation: absent workers contribute no edge
+        #     updates this round ---
+        pmask = participation_mask_for(spec.delay_model, state.t, dev)
+        if pmask is not None:
+            sel = sel & pmask
+        info = {"loss": torch.mean(losses),
+                "selected_fraction": torch.mean(sel.to(torch.float32))}
 
     # --- worker update (11)(12)(9) + the sel-masked merges, one fused
     #     pass over the worker bundles on the cuda backend ---
@@ -839,10 +858,10 @@ def asybadmm_epoch(spec: ConsensusSpec, state: ConsensusState, data
     if _EPOCH_CHECK_FINITE:
         _check_finite(state.t, z_new)
 
-    info = {"loss": torch.mean(losses),
-            "selected_fraction": torch.mean(sel.to(torch.float32))}
-    return ConsensusState(z_hist=space.push(state.z_hist, z_new), y=y,
-                          w_cache=w_cache, x=x, t=state.t + 1), info
+    with step_span("asybadmm.push"):
+        z_hist = space.push(state.z_hist, z_new)
+    return ConsensusState(z_hist=z_hist, y=y, w_cache=w_cache, x=x,
+                          t=state.t + 1), info
 
 
 def consensus_residual(spec: ConsensusSpec, state: ConsensusState

@@ -13,7 +13,7 @@ evaluate the same expressions the inline dict used to).
 
 Instrument names validate against :data:`repro_torch.obs.names.METRICS`
 (the stable public spellings); ``register(..., check=False)`` opts a
-scratch instrument out (benchmarks register ad-hoc series).
+scratch instrument out.
 
 ``hist`` is the shared histogram summarizer (promoted from
 ``ps/runtime.py::_hist``), with the degenerate cases fixed: an empty
@@ -23,13 +23,13 @@ centered on the value.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
 from .names import METRICS
 
-INSTRUMENT_KINDS = ("counter", "gauge", "histogram", "series")
+INSTRUMENT_KINDS = ("counter", "gauge", "histogram")
 
 
 def hist(values, bins: int = 8) -> Dict[str, list]:
@@ -68,47 +68,11 @@ class Instrument:
         return self._fn()
 
 
-class TimeSeries:
-    """An append-only (sim_time, value) series — the time-bucketed
-    instrument kind. Appends are O(1) list pushes (no rng, no events:
-    safe on the recording path); ``buckets(width)`` aggregates
-    post-hoc."""
-
-    __slots__ = ("points",)
-
-    def __init__(self):
-        self.points: List[Tuple[float, float]] = []
-
-    def append(self, t: float, value: float) -> None:
-        self.points.append((float(t), float(value)))
-
-    def buckets(self, width: float) -> Dict[str, list]:
-        """Aggregate into fixed-width time buckets: per-bucket count,
-        sum, and last value. Empty series -> empty buckets."""
-        if width <= 0:
-            raise ValueError(f"bucket width must be > 0; got {width}")
-        out: Dict[int, list] = {}
-        for (t, v) in self.points:
-            b = int(t // width)
-            slot = out.setdefault(b, [0, 0.0, v])
-            slot[0] += 1
-            slot[1] += v
-            slot[2] = v
-        return {"width": width,
-                "buckets": [{"t0": b * width, "count": c, "sum": s,
-                             "last": last}
-                            for b, (c, s, last) in sorted(out.items())]}
-
-    def value(self) -> List[Tuple[float, float]]:
-        return list(self.points)
-
-
 class MetricsRegistry:
     """Named instruments, collected once in registration order."""
 
     def __init__(self):
         self._instruments: Dict[str, Instrument] = {}
-        self._series: Dict[str, TimeSeries] = {}
 
     # ------------------------------------------------------------------
     def register(self, name: str, kind: str, fn: Callable[[], Any], *,
@@ -158,16 +122,6 @@ class MetricsRegistry:
         """A histogram instrument: ``fn`` returns the raw observations;
         ``collect`` summarizes them via :func:`hist`."""
         return self.register(name, "histogram", lambda: fn(), **kw)
-
-    def series(self, name: str, *, check: bool = False) -> TimeSeries:
-        """Create (or fetch) a named append-only time series. Series
-        are scratch by default (``check=False``): they are recording
-        surfaces, not ``PSRunResult.metrics`` keys."""
-        ts = self._series.get(name)
-        if ts is None:
-            ts = self._series[name] = TimeSeries()
-            self.register(name, "series", ts.value, check=check)
-        return ts
 
     # ------------------------------------------------------------------
     def __contains__(self, name: str) -> bool:

@@ -10,6 +10,9 @@ Every name the telemetry subsystem emits is declared here:
   (``add_transport`` validates the same way);
 * ``SPAN_NAMES`` — the span/instant vocabulary of the Chrome-trace
   export (``obs/spans.py`` refuses unknown names);
+* ``STEP_SPANS`` — the wall-clock ranges of the port's step
+  (``obs/step.py``'s ``step_span`` refuses unknown names), recorded
+  into ``torch.profiler``'s own trace;
 * ``METRICS`` — the stable metric names of the registry
   (``obs/metrics.py`` refuses unregistered spellings), with units and
   one-line descriptions. These names ARE the public contract
@@ -111,6 +114,41 @@ SPAN_NAMES: Mapping[str, tuple] = {
     # counter tracks
     "queue_depth":   ("counter",  "unprocessed pushes per lock domain"),
     "events":        ("counter",  "scheduler events processed"),
+}
+
+
+# ---------------------------------------------------------------------------
+# step spans (obs/step.py validates against these)
+# ---------------------------------------------------------------------------
+
+#: name -> (parent, description). Wall-clock ranges at the boundaries
+#: of the port's step, recorded as ``RecordFunction`` ranges while a
+#: ``torch.profiler`` session records (and never otherwise), so they
+#: share the profiler's clock with the kernels and runtime calls they
+#: launch.
+#: ``parent`` is the span each nests in when one encloses it: a flat
+#: ``ConsensusSession.step`` opens ``asybadmm.epoch`` outermost, and the
+#: PS runtime's worker computes record the three ``worker_grads`` spans
+#: alone.
+STEP_SPANS: Mapping[str, tuple] = {
+    "admm.train_step": (None, "ADMMTrainer.train_step / "
+                              "train_step_block: the state packed, the "
+                              "epoch or block round, the state unpacked"),
+    "asybadmm.epoch":  ("admm.train_step", "one epoch of Algorithm 1 "
+                        "(asybadmm_epoch, the SPMD epoch, the block "
+                        "round); B1, rho_sum and B2 are its own time"),
+    "asybadmm.gather": ("asybadmm.epoch", "the delay draw and the "
+                        "gather of z~ from the ring"),
+    "asybadmm.unpack": ("asybadmm.epoch", "z~ from the block table to "
+                        "the loss's representation (FlatBlocks / "
+                        "BlockLayout)"),
+    "asybadmm.loss":   ("asybadmm.epoch", "vmap(grad_and_value(loss)): "
+                        "the loss's forward and backward"),
+    "asybadmm.pack":   ("asybadmm.epoch", "the gradient back onto the "
+                        "block table"),
+    "asybadmm.select": ("asybadmm.epoch", "the block selector, the "
+                        "participation mask and the info means"),
+    "asybadmm.push":   ("asybadmm.epoch", "the new z into the ring"),
 }
 
 

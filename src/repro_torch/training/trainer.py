@@ -59,6 +59,7 @@ from ..core.space import (ConsensusSpec, ConsensusState, TreeSpace,
                           init_consensus_state, make_spec)
 from ..core.tree import tree_flatten, tree_leaves
 from ..device import DeviceLike
+from ..obs.step import step_span
 from ..optim.optimizers import Optimizer, apply_updates
 from .train_state import ADMMTrainState, SGDTrainState
 
@@ -235,9 +236,10 @@ class ADMMTrainer:
             state, "and only supports train_step_block; for the dynamic "
                    "block_selection='cyclic' policy use a plain "
                    "init(params)")
-        spec = self._spec(state.params)
-        g, info = asybadmm_epoch(spec, self._packed(spec, state), batch)
-        return self._state(spec, g), info
+        with step_span("admm.train_step"):
+            spec = self._spec(state.params)
+            g, info = asybadmm_epoch(spec, self._packed(spec, state), batch)
+            return self._state(spec, g), info
 
     # -----------------------------------------------------------------
     def train_step_block(self, state: ADMMTrainState, batch, block_id: int
@@ -263,25 +265,27 @@ class ADMMTrainer:
         the reference: this path launches no kernel. Its delay and
         minibatch draws come from streams of its own.
         """
-        spec = self._spec(state.params)
-        layout, window = spec.space.layout, self.window(spec)
-        if spec.space.mesh is None:
-            tile, coll = Tile.whole(self.num_workers,
-                                    self.admm.num_blocks), None
-        else:
-            tile, coll = local_tile(spec), MeshCollectives(spec.space.mesh)
-        t = int(state.step)
-        z_hist, y, loss, share = block_round_body(
-            spec, coll, tile, _table(layout, window, state.z_hist),
-            _table(layout, window, state.y), t, batch, block_id)
-        info = {"loss": loss,
-                "selected_fraction": torch.tensor(share,
-                                                  device=spec.device)}
-        return (ADMMTrainState(
-            z_hist=layout.from_blocks(z_hist, window),
-            y=layout.from_blocks(y, window),
-            w_cache=state.w_cache,        # untouched (never read in cyclic)
-            step=t + 1), info)
+        with step_span("admm.train_step"):
+            spec = self._spec(state.params)
+            layout, window = spec.space.layout, self.window(spec)
+            if spec.space.mesh is None:
+                tile, coll = Tile.whole(self.num_workers,
+                                        self.admm.num_blocks), None
+            else:
+                tile, coll = local_tile(spec), MeshCollectives(spec.space.mesh)
+            t = int(state.step)
+            with step_span("asybadmm.epoch"):
+                z_hist, y, loss, share = block_round_body(
+                    spec, coll, tile, _table(layout, window, state.z_hist),
+                    _table(layout, window, state.y), t, batch, block_id)
+            info = {"loss": loss,
+                    "selected_fraction": torch.tensor(share,
+                                                      device=spec.device)}
+            return (ADMMTrainState(
+                z_hist=layout.from_blocks(z_hist, window),
+                y=layout.from_blocks(y, window),
+                w_cache=state.w_cache,    # untouched (never read in cyclic)
+                step=t + 1), info)
 
     # -----------------------------------------------------------------
     def consensus_residual(self, state: ADMMTrainState) -> torch.Tensor:

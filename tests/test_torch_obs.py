@@ -7,7 +7,7 @@ streamed per-round records, Chrome trace and metrics equal the
 reference's on the same chaos run (residuals at the reference's backend
 tolerance, everything else exactly); ``core.metrics.block_residuals``
 matches the reference's; and the numpy-level cases of
-``tests/test_obs.py`` (hist, registry, time series, span tracer,
+``tests/test_obs.py`` (hist, registry, span tracer,
 sinks, record validation) hold for the port's copy.
 """
 import json
@@ -30,7 +30,7 @@ from repro_torch.core.prox import make_prox as t_make_prox
 from repro_torch.obs import (METRICS, ROUND_RECORD_SCHEMA, SPAN_NAMES,
                              TRACE_EVENT_KINDS, TRANSPORT_EVENT_KINDS,
                              CallbackSink, JsonlSink, MetricsRegistry,
-                             SpanTracer, Telemetry, TimeSeries, as_telemetry,
+                             SpanTracer, Telemetry, as_telemetry,
                              hist, make_sink, validate_record)
 
 N, M, DBLK = 3, 4, 5
@@ -245,23 +245,6 @@ def test_registry_validation_and_order():
     assert reg.collect(["commits"]) == {"commits": 3}
     assert reg.get("events").unit == METRICS["events"][1]
     assert all(row["help"] for row in reg.describe()[1:])
-
-
-def test_timeseries_buckets():
-    ts = TimeSeries()
-    for t, v in [(0.1, 1.0), (0.4, 2.0), (1.2, 5.0)]:
-        ts.append(t, v)
-    assert ts.buckets(1.0)["buckets"] == [
-        {"t0": 0.0, "count": 2, "sum": 3.0, "last": 2.0},
-        {"t0": 1.0, "count": 1, "sum": 5.0, "last": 5.0}]
-    assert TimeSeries().buckets(0.5)["buckets"] == []
-    with pytest.raises(ValueError, match="width"):
-        ts.buckets(0.0)
-    reg = MetricsRegistry()
-    series = reg.series("scratch_series")
-    series.append(1.0, 2.0)
-    assert reg.series("scratch_series") is series
-    assert reg.collect()["scratch_series"] == [(1.0, 2.0)]
 
 
 def test_span_tracer_rejects_unknown_and_mistyped_names():
