@@ -27,7 +27,6 @@ from typing import Any, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .tree import TreeDef, tree_flatten, tree_unflatten
 
@@ -52,8 +51,17 @@ class FlatBlocks:
     coordinates ``[j*used_dim, (j+1)*used_dim)`` of the original vector);
     ``block_dim`` is ``used_dim`` rounded up to the 128-lane boundary, so
     rows carry ``block_dim - used_dim`` trailing pad lanes (plus the usual
-    tail-of-vector pad inside the last block's used region). Pad lanes are
-    zero on pack, never read on unpack, and inert through every epoch op.
+    tail-of-vector pad inside the last block's used region, and whole
+    rows past ``dim`` where ``M * used_dim`` overshoots it). Pad lanes
+    are zero on pack, never read on unpack, and inert through every
+    epoch op.
+
+    The codec moves each element once: :meth:`to_blocks` writes a fresh
+    table (never a view of its input) with one copy of the whole blocks
+    and one of the ragged block, and zeroes only the pad lanes;
+    :meth:`from_blocks` returns a contiguous vector, filled by the same
+    two copies the other way, or a reshape of the table where the layout
+    pads nothing. Either is element for element the reference's.
     """
     dim: int          # original vector dim
     num_blocks: int   # M
@@ -87,19 +95,50 @@ class FlatBlocks:
         return mask
 
     def to_blocks(self, v):
-        """(..., d) -> (..., M, block_dim)."""
-        vp = F.pad(v, (0, self.logical_dim - self.dim))
-        rows = vp.reshape(tuple(v.shape[:-1])
-                          + (self.num_blocks, self.used_dim))
-        if self.used_dim == self.block_dim:
-            return rows
-        return F.pad(rows, (0, self.block_dim - self.used_dim))
+        """(..., d) -> a fresh (..., M, block_dim) table, pad lanes zero.
+
+        One read of ``v`` and one write of the table: the whole blocks
+        land in one copy, the ragged block's coordinates in a second,
+        and zeros go only where no coordinate lands (each row's lane
+        pads, the ragged block's tail, blocks wholly past ``dim``)."""
+        if v.shape[-1] != self.dim:
+            raise ValueError(f"vector of dim {v.shape[-1]}; the layout "
+                             f"holds {self.dim}")
+        used = self.used_dim
+        full, rem = divmod(self.dim, used)
+        out = v.new_empty(tuple(v.shape[:-1])
+                          + (self.num_blocks, self.block_dim))
+        out[..., :full, :used].copy_(
+            v[..., :full * used].unflatten(-1, (full, used)))
+        out[..., :full, used:].zero_()
+        if rem:
+            out[..., full, :rem].copy_(v[..., full * used:])
+            out[..., full, rem:].zero_()
+        out[..., full + (rem > 0):, :].zero_()
+        return out
 
     def from_blocks(self, b):
-        """(..., M, block_dim) -> (..., d). Pad lanes are never read."""
-        rows = b[..., : self.used_dim]
-        flat = rows.reshape(tuple(b.shape[:-2]) + (self.logical_dim,))
-        return flat[..., : self.dim]
+        """(..., M, block_dim) -> (..., d); pad lanes are never read.
+
+        Where the layout pads nothing (``used_dim == block_dim`` and
+        ``dim == M * block_dim``) a reshape of ``b``, a view when ``b`` is
+        contiguous; otherwise a fresh contiguous vector filled by
+        :meth:`to_blocks`' two copies the other way."""
+        if tuple(b.shape[-2:]) != (self.num_blocks, self.block_dim):
+            raise ValueError(
+                f"table rows {tuple(b.shape[-2:])}; the layout's are "
+                f"{(self.num_blocks, self.block_dim)}")
+        lead = tuple(b.shape[:-2])
+        if self.used_dim == self.block_dim and self.dim == self.padded_dim:
+            return b.reshape(lead + (self.dim,))
+        used = self.used_dim
+        full, rem = divmod(self.dim, used)
+        out = b.new_empty(lead + (self.dim,))
+        out[..., :full * used].unflatten(-1, (full, used)).copy_(
+            b[..., :full, :used])
+        if rem:
+            out[..., full * used:].copy_(b[..., full, :rem])
+        return out
 
 
 def make_flat_blocks(dim: int, num_blocks: int) -> FlatBlocks:

@@ -1,6 +1,8 @@
 """The port's leaf modules against the reference's: block tables, the
 edge set, the data generators (exactly), and the prox / ADMM algebra
 and the staleness ring buffer (at 1e-6)."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,25 +20,65 @@ from repro_torch.data import TokenPipeline, make_sparse_logreg
 TOL = 1e-6
 
 
-@pytest.mark.parametrize("dim,M", [(20, 4), (100, 3), (512, 8), (1000, 7),
-                                   (129, 1), (300, 16)])
-def test_flat_blocks_match_reference(dim, M):
+#: Layouts with both kinds of padding, with blocks wholly past ``dim``
+#: ((9, 8): blocks 5-7; (5, 4): block 3) and with none ((512, 4)).
+FLAT_LAYOUTS = [(20, 4), (100, 3), (512, 8), (1000, 7), (129, 1), (300, 16),
+                (9, 8), (5, 4), (512, 4)]
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_reference(dim, M):
+    """Six vectors and six tables of the layout, with the reference's
+    pack of the vectors and unpack of the tables (one trace a layout)."""
+    rb = rblocks.make_flat_blocks(dim, M)
+    v = np.random.RandomState(dim).randn(6, dim).astype(np.float32)
+    table = np.random.RandomState(1).randn(6, M, rb.block_dim).astype(
+        np.float32)
+    return (v, np.asarray(rb.to_blocks(jnp.asarray(v))),
+            table, np.asarray(rb.from_blocks(jnp.asarray(table))))
+
+
+@pytest.mark.parametrize("dim,M,lead", [
+    pytest.param(dim, M, lead, id=f"{dim}-{M}" if lead == (3,)
+                 else f"{dim}-{M}-lead{len(lead)}")
+    for dim, M in FLAT_LAYOUTS for lead in [(3,), (), (2, 3)]])
+def test_flat_blocks_match_reference(dim, M, lead, monkeypatch):
+    """The codec, element for element the reference's, under leading
+    axes (), (3,) and (2, 3). The pack is run a second time with its
+    allocation poisoned with NaN, so a pad lane it fails to write shows;
+    it never shares its input's storage, and the unpack is contiguous
+    wherever the layout pads."""
     tb, rb = blocks.make_flat_blocks(dim, M), rblocks.make_flat_blocks(dim, M)
     assert (tb.dim, tb.num_blocks, tb.block_dim, tb.used_dim) == \
         (rb.dim, rb.num_blocks, rb.block_dim, rb.used_dim)
     assert tb.block_dim % blocks.LANE == 0
-    np.testing.assert_array_equal(tb.padding_mask(), rb.padding_mask())
-    v = np.random.RandomState(dim).randn(3, dim).astype(np.float32)
-    packed = tb.to_blocks(torch.as_tensor(v))
-    np.testing.assert_array_equal(packed.numpy(),
-                                  np.asarray(rb.to_blocks(jnp.asarray(v))))
-    assert not packed.numpy()[:, ~tb.padding_mask()].any()
-    np.testing.assert_array_equal(tb.from_blocks(packed).numpy(), v)
-    table = np.random.RandomState(1).randn(2, M, tb.block_dim).astype(
-        np.float32)
+    mask = tb.padding_mask()
+    np.testing.assert_array_equal(mask, rb.padding_mask())
+    pads = not mask.all()
+    n = int(np.prod(lead, dtype=np.int64))
+    v, ref_packed, table, ref_unpacked = (
+        a[:n].reshape(lead + a.shape[1:]) for a in _flat_reference(dim, M))
+    vt = torch.as_tensor(v)
+    packed = tb.to_blocks(vt)
+    np.testing.assert_array_equal(packed.numpy(), ref_packed)
+    assert not packed.numpy()[..., ~mask].any()
+    assert packed.untyped_storage().data_ptr() != \
+        vt.untyped_storage().data_ptr()
+    unpacked = tb.from_blocks(packed)
+    np.testing.assert_array_equal(unpacked.numpy(), v)
+    assert unpacked.is_contiguous() or not pads
     np.testing.assert_array_equal(
-        tb.from_blocks(torch.as_tensor(table)).numpy(),
-        np.asarray(rb.from_blocks(jnp.asarray(table))))
+        tb.from_blocks(torch.as_tensor(table)).numpy(), ref_unpacked)
+
+    new_empty = torch.Tensor.new_empty
+    monkeypatch.setattr(torch.Tensor, "new_empty",
+                        lambda self, *a, **k: new_empty(self, *a, **k)
+                        .fill_(float("nan")))
+    poisoned = tb.to_blocks(vt).numpy()
+    assert (poisoned[..., ~mask] == 0).all()
+    np.testing.assert_array_equal(poisoned, ref_packed)
+    np.testing.assert_array_equal(
+        tb.from_blocks(torch.as_tensor(poisoned)).numpy(), v)
 
 
 def test_lane_rounding_and_used_dim_check():

@@ -29,6 +29,7 @@ import torch
 from repro_torch.api import ConsensusSession
 from repro_torch.configs import get_smoke
 from repro_torch.configs.base import ADMMConfig
+from repro_torch.core.blocks import make_flat_blocks
 from repro_torch.kernels import (admm_update, flash_attention, logreg, ops,
                                  prox_update)
 from repro_torch.models import build_model
@@ -813,3 +814,25 @@ def test_kernel_costs_are_the_same_on_the_card(gen):
         _, on_meta = count(op, *meta)
         assert dict(on_card.ops) == {name: 1}
         assert on_card.same(on_meta)
+
+
+def test_flat_codec_on_the_card_is_bitwise_the_cpu(gen, monkeypatch):
+    """FlatBlocks' pack and unpack on the card at a width whose odd worker
+    rows start off a 16-byte boundary (d % 4 == 2), with the codec's
+    allocations poisoned with NaN: the same table and vector as on the
+    CPU, bit for bit, and the unpack contiguous."""
+    fb = make_flat_blocks(1_000_002, 7)
+    v = torch.randn((3, fb.dim), generator=gen, device="cuda")
+    table = torch.randn((3, 7, fb.block_dim), generator=gen, device="cuda")
+    new_empty = torch.Tensor.new_empty
+    monkeypatch.setattr(torch.Tensor, "new_empty",
+                        lambda self, *a, **k: new_empty(self, *a, **k)
+                        .fill_(float("nan")))
+    packed = fb.to_blocks(v)
+    unpacked = fb.from_blocks(packed)
+    torch.cuda.synchronize()
+    assert torch.equal(packed.cpu(), fb.to_blocks(v.cpu()))
+    assert unpacked.is_contiguous()
+    assert torch.equal(unpacked.cpu(), v.cpu())
+    assert torch.equal(fb.from_blocks(table).cpu(),
+                       fb.from_blocks(table.cpu()))
