@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import importlib.util
+import pkgutil
 import sys
 from pathlib import Path
 from typing import Any, Dict, List, Optional
@@ -67,9 +68,29 @@ def reader(name: str):
     return module.read
 
 
+def _driver(name: str):
+    """The module ``drivers/<name>.py`` where it defines ``run``, else
+    None."""
+    modules = {m.name for m in pkgutil.iter_modules(
+        [str(manifest.BENCH_DIR / "drivers")])}
+    if name not in modules:
+        return None
+    module = importlib.import_module(f"perfbench.drivers.{name}")
+    return module if hasattr(module, "run") else None
+
+
+def drivers() -> List[str]:
+    """The drivers there are: the modules under ``drivers/`` that define
+    ``run(run)``."""
+    return sorted(m.name for m in pkgutil.iter_modules(
+        [str(manifest.BENCH_DIR / "drivers")]) if _driver(m.name))
+
+
 def execute(run: Run) -> Outcome:
-    driver = importlib.import_module(
-        f"perfbench.drivers.{run.cell.config['driver']}")
+    driver = _driver(run.cell.driver)
+    if driver is None:
+        raise ValueError(f"{run.cell.name}: unknown driver "
+                         f"{run.cell.driver!r}; drivers/ has {drivers()}")
     return driver.run(run)
 
 

@@ -2,8 +2,9 @@
 
 A cell is one entry of ``workloads``: its configuration file (the sizes
 as run), its workload file under ``workloads/`` (the traffic parameters
-and the limits of its check) and the metrics that apply to it, all found
-by name, so a later change adds a cell with files and entries alone.
+and the limits of its check, and optionally the driver that runs it)
+and the metrics that apply to it, all found by name, so a later change
+adds a cell with files and entries alone.
 """
 from __future__ import annotations
 
@@ -33,6 +34,12 @@ class Cell:
     @property
     def limits(self) -> Dict[str, float]:
         return self.workload["limits"]
+
+    @property
+    def driver(self) -> str:
+        """The module under ``drivers/`` that runs the cell: the workload
+        file's ``driver`` where it names one, else the configuration's."""
+        return self.workload.get("driver", self.config["driver"])
 
 
 def load_benchmark(root: Path = ROOT) -> Dict[str, Any]:

@@ -25,20 +25,21 @@ TINY_MLA = dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
 
 def tiny_cell(name: str, **overrides) -> manifest.Cell:
     """The cell ``name`` at a size the CPU runs in a second: widths and
-    lengths cut, ``overrides`` over the traffic's, everything else as
-    committed."""
+    lengths cut (two workers a rank at the least), ``overrides`` over the
+    traffic's, everything else as committed, its chips too (a cell on
+    several runs one rank a chip, gloo ranks on the CPU)."""
     c = manifest.load_cell(name)
     cfg = copy.deepcopy(c.config)
     params = copy.deepcopy(c.params)
     if cfg["driver"] == "flat_solve":
-        cfg.update(dim=3000, num_workers=4, num_blocks=8)
+        cfg.update(dim=3000, num_workers=max(4, 2 * c.chips), num_blocks=8)
         if params["edges"]["kind"] == "band":
             params["edges"] = {"kind": "band", "width": 4, "stride": 2}
     else:
         cfg.update(TINY_MLA)
         params["seq_len"] = 16
     params.update(overrides)
-    return manifest.Cell(name=c.name, chips=1, config=cfg,
+    return manifest.Cell(name=c.name, chips=c.chips, config=cfg,
                          workload=dict(c.workload, params=params),
                          end_to_end=c.end_to_end, per_layer=c.per_layer)
 

@@ -13,9 +13,11 @@ from perfbench.harness import cell as cell_mod
 @pytest.mark.cuda
 @pytest.mark.parametrize("trace", [False, True])
 def test_cell_reports_its_metrics_on_the_card(cell_name, trace):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA CUDA card")
-    run = cell_mod.Run(cell=tiny_cell(cell_name), seed=2**31 + 1,
+    cell = tiny_cell(cell_name)
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < cell.chips:
+        pytest.skip(f"needs {cell.chips} NVIDIA CUDA card(s)")
+    run = cell_mod.Run(cell=cell, seed=2**31 + 1,
                        seconds=0.5, trace=trace,
                        device=torch.device("cuda", 0), t_start=time.time())
     out = cell_mod.execute(run)

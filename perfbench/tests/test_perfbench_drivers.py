@@ -76,16 +76,18 @@ def half_batch(monkeypatch):
 @pytest.fixture
 def altered_answer(monkeypatch):
     """One produced value altered: an element of each new z of the flat
-    solve; worker 0's first token of a training step's batch."""
+    solve (B2's on one card, B3's on a mesh, in rank 0's process);
+    worker 0's first token of a training step's batch."""
     from repro_torch.core import space
     from repro_torch.training.trainer import ADMMTrainer
-    server_real, step_real = (space._PackedOps.server_consensus_update,
-                              ADMMTrainer.train_step)
+    step_real = ADMMTrainer.train_step
 
-    def server(self, *a, **k):
-        z = server_real(self, *a, **k).clone()
-        z[0, 0] += 1e-3
-        return z
+    def altered(real):
+        def server(self, *a, **k):
+            z = real(self, *a, **k).clone()
+            z[0, 0] += 1e-3
+            return z
+        return server
 
     def step(self, state, batch):
         if int(state.step) == 0:
@@ -94,7 +96,9 @@ def altered_answer(monkeypatch):
             tokens[0, 0, 0] = (tokens[0, 0, 0] + 1) % 512
             batch["tokens"] = tokens
         return step_real(self, state, batch)
-    monkeypatch.setattr(space._PackedOps, "server_consensus_update", server)
+    for name in ("server_consensus_update", "server_prox"):
+        monkeypatch.setattr(space._PackedOps, name,
+                            altered(getattr(space._PackedOps, name)))
     monkeypatch.setattr(ADMMTrainer, "train_step", step)
 
 
